@@ -35,6 +35,7 @@ PEAK_BYTES = 3.35e12
 FLAGSHIP = {"layers": 152, "image": 384, "heatmap": 96, "volume": 64}
 REL_TOL = 1e-4          # kernel vs plain: max |diff| <= REL_TOL * max |plain|
 KP_TOL_MM = 0.1         # kernel path vs plain path keypoints
+REQUESTS = 3            # flagship forwards answered on the kernel path
 
 # The TPU kernels (pallas_call sites) each CUDA kernel replaces.
 REPLACES = {
@@ -437,7 +438,6 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--batch", type=int, default=8,
                     help="flagship batch (bench.py's is 8)")
-    ap.add_argument("--requests", type=int, default=3)
     args = ap.parse_args(argv)
 
     if not (ROOT / "lt_tpu_torch" / "ops" / "kernels" / "csrc").is_dir():
@@ -517,26 +517,27 @@ def main(argv=None) -> int:
     calls = record_launches(lambda: model(images, proj, pelvis))  # warm-up
     torch.cuda.synchronize()
     _build.reset_launches()
-    times = []
-    for _ in range(args.requests):
+    times, outs = [], []
+    for _ in range(REQUESTS):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        out = model(images, proj, pelvis)
+        outs.append(model(images, proj, pelvis))
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
     launches = dict(_build.LAUNCHES)
-    log(f"  launches over {args.requests} requests: {launches}")
+    log(f"  launches over {REQUESTS} requests: {launches}")
     missing = [k for k, n in launches.items() if n == 0]
     if missing:
         raise AssertionError(f"kernels never launched on the main path: "
                              f"{missing}")
-    kp = out.keypoints_3d
-    if tuple(kp.shape) != (b, 17, 3) or tuple(out.volumes.shape) != (
-            b, 17) + (fl["volume"],) * 3:
-        raise AssertionError(f"output shapes {tuple(kp.shape)}, "
-                             f"{tuple(out.volumes.shape)}")
-    if not (bool(kp.isfinite().all()) and bool(out.volumes.isfinite().all())):
-        raise AssertionError("non-finite flagship output")
+    for out in outs:
+        kp, vols = out.keypoints_3d, out.volumes
+        if tuple(kp.shape) != (b, 17, 3) or tuple(vols.shape) != (
+                b, 17) + (fl["volume"],) * 3:
+            raise AssertionError(f"output shapes {tuple(kp.shape)}, "
+                                 f"{tuple(vols.shape)}")
+        if not (bool(kp.isfinite().all()) and bool(vols.isfinite().all())):
+            raise AssertionError("non-finite flagship output")
     ms = float(np.median(times))
     log(f"  forward ms per request (median of {len(times)}): {ms:.1f}  "
         f"all: {[round(t, 1) for t in times]}  frames/s at batch {b}: "
@@ -553,15 +554,16 @@ def main(argv=None) -> int:
     plain_out = plain_model(images, proj, pelvis)
     torch.cuda.synchronize()
     plain_ms = (time.perf_counter() - t0) * 1e3
-    kp_err = (kp - plain_out.keypoints_3d).abs().max().item()
-    vol_err, vol_rel = rel_err(out.volumes, plain_out.volumes)
-    log(f"  plain path (PyTorch modules, cuDNN f32): {plain_ms:.1f} ms; "
-        f"keypoints max |kernel - plain| {kp_err:.3e} mm; volumes max abs "
-        f"{vol_err:.3e} (rel {vol_rel:.3e})")
-    if kp_err > KP_TOL_MM or vol_rel > REL_TOL:
-        raise AssertionError("flagship kernel path disagrees with the plain "
-                             "path")
-    del plain_model, plain_out, out
+    log(f"  plain path (PyTorch modules, cuDNN f32): {plain_ms:.1f} ms")
+    for i, out in enumerate(outs):
+        kp_err = (out.keypoints_3d - plain_out.keypoints_3d).abs().max().item()
+        vol_err, vol_rel = rel_err(out.volumes, plain_out.volumes)
+        log(f"  request {i}: keypoints max |kernel - plain| {kp_err:.3e} mm; "
+            f"volumes max abs {vol_err:.3e} (rel {vol_rel:.3e})")
+        if kp_err > KP_TOL_MM or vol_rel > REL_TOL:
+            raise AssertionError(f"flagship request {i}: kernel path "
+                                 f"disagrees with the plain path")
+    del plain_model, plain_out, outs, out
     torch.cuda.empty_cache()
 
     # Phase 5: every main-path launch shape, kernel vs plain vs library.
@@ -584,7 +586,7 @@ def main(argv=None) -> int:
             "max_abs_err": k["max_abs_err"], "ms": k["ms"],
             "plain_ms": k["plain_ms"], "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": k["library_ms"]})
-        log(f"  {name}: {launches[name] // args.requests} launches/forward, "
+        log(f"  {name}: {launches[name] // REQUESTS} launches/forward, "
             f"kernel {k['ms']:.3f} ms, plain {k['plain_ms']:.3f} ms, library "
             f"{k['library_ms']}, bound {b_ms:.4f} ms ({b_by}), max rel err "
             f"{k['max_rel_err']:.3e}")

@@ -13,7 +13,8 @@ from typing import Optional
 import torch
 
 from lt_tpu_torch.ops.kernels import _build
-from lt_tpu_torch.ops.volumetric import aggregate_views, sample_homogeneous
+from lt_tpu_torch.ops.volumetric import (aggregate_views, index_grid,
+                                        sample_homogeneous)
 
 METHODS = {"softmax": 0, "sum": 1, "max": 2, "conf": 3, "conf_norm": 3}
 
@@ -35,10 +36,7 @@ def unproject_agg_plain(features: torch.Tensor, m: torch.Tensor,
                         vol_confidences: Optional[torch.Tensor],
                         method: str, grid_size: int) -> torch.Tensor:
     """Plain version of K1: (B, V, H, W, C), m (B, V, 3, 4) -> (B, S^3, C)."""
-    s = grid_size
-    g = torch.arange(s, dtype=torch.float32, device=features.device)
-    gx, gy, gz = torch.meshgrid(g, g, g, indexing="ij")
-    grid = torch.stack([gx, gy, gz, torch.ones_like(gx)], -1).reshape(-1, 4)
+    grid = index_grid(grid_size, features.device).reshape(-1, 4)
     uvw = (m[:, :, None, :, :] * grid[None, None, :, None, :]).sum(-1)
     return aggregate_views(sample_homogeneous(features, uvw), method,
                            vol_confidences, view_mask)

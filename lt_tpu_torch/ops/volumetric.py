@@ -77,6 +77,14 @@ def coord_volume_affine(base_points: torch.Tensor, cuboid_side: float,
     return torch.cat([lin, offset[..., None]], dim=-1)
 
 
+def index_grid(s: int, device) -> torch.Tensor:
+    """(S, S, S, 4) homogeneous voxel indices (gx, gy, gz, 1); flattened,
+    voxel n = (gx * S + gy) * S + gz."""
+    g = torch.arange(s, dtype=torch.float32, device=device)
+    gx, gy, gz = torch.meshgrid(g, g, g, indexing="ij")
+    return torch.stack([gx, gy, gz, torch.ones_like(gx)], -1)
+
+
 def build_coord_volumes(base_points: torch.Tensor, cuboid_side: float,
                         volume_size: int,
                         thetas: Optional[torch.Tensor] = None,
@@ -87,9 +95,7 @@ def build_coord_volumes(base_points: torch.Tensor, cuboid_side: float,
     s = volume_size
     affine = coord_volume_affine(base_points, cuboid_side, volume_size,
                                  thetas, axis, transfer_cmu_to_human36m)
-    g = torch.arange(s, dtype=torch.float32, device=base_points.device)
-    gx, gy, gz = torch.meshgrid(g, g, g, indexing="ij")
-    grid = torch.stack([gx, gy, gz, torch.ones_like(gx)], -1)  # (S,S,S,4)
+    grid = index_grid(s, base_points.device)
     return (affine[:, None, None, None, :, :]
             * grid[None, :, :, :, None, :]).sum(-1)
 

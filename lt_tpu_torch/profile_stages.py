@@ -1,6 +1,6 @@
 """Where the flagship forward's time goes on the card.
 
-    python -m lt_tpu_torch.profile_stages [--batch 8] [--layers 152]
+    python -m lt_tpu_torch.profile_stages [--batch 8]
 
 Times one warm request of the volumetric forward (RN-152, 384^2, 4 views,
 64^3, f32, TF32 off, seeded random weights) split by stage with CUDA
@@ -21,22 +21,22 @@ from lt_tpu_torch import resolve_device
 from lt_tpu_torch.models.triangulation import VolumetricTriangulationNet
 from lt_tpu_torch.utils.example import example_batch
 
+# The flagship shape: ResNet-152 at 384^2, a 64^3 volume.
+LAYERS, IMAGE, VOLUME = 152, 384, 64
+
 
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--batch", type=int, default=8)
-    ap.add_argument("--layers", type=int, default=152)
-    ap.add_argument("--image", type=int, default=384)
-    ap.add_argument("--volume", type=int, default=64)
     args = ap.parse_args(argv)
 
     dev = resolve_device("cuda")
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    model = VolumetricTriangulationNet(num_layers=args.layers,
-                                       volume_size=args.volume, device=dev)
+    model = VolumetricTriangulationNet(num_layers=LAYERS, volume_size=VOLUME,
+                                       device=dev)
     inputs = [torch.from_numpy(a).to(dev)
-              for a in example_batch(args.batch, 4, args.image, 17)]
+              for a in example_batch(args.batch, 4, IMAGE, 17)]
     model(*inputs)                                  # warm-up (cuDNN, packing)
 
     stages = [("backbone", model.backbone),
@@ -80,7 +80,7 @@ def main(argv=None) -> None:
     }
     total = span("forward:start", "forward:end")
     print(f"{torch.cuda.get_device_name(0)}; batch {args.batch}, RN-"
-          f"{args.layers} {args.image}^2, {args.volume}^3; request "
+          f"{LAYERS} {IMAGE}^2, {VOLUME}^3; request "
           f"{total:.1f} ms on device events, {wall:.1f} ms on the host clock")
     for name, ms in split.items():
         print(f"  {name:36s} {ms:9.2f} ms  {100 * ms / total:5.1f}%")

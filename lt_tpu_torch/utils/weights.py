@@ -165,21 +165,6 @@ def _v2v(r: _Reader, p: str, fp: tuple):
     r.conv(f"{p}output_layer", fp + ("output_layer",), bias=True)
 
 
-def pose_resnet_state_dict(variables: dict, num_layers: int
-                           ) -> Dict[str, torch.Tensor]:
-    """PoseResNet variables -> the port's ``PoseResNet`` state_dict."""
-    r = _Reader(variables["params"], variables["batch_stats"])
-    _pose_resnet(r, num_layers, "", ())
-    return r.sd
-
-
-def v2v_state_dict(variables: dict) -> Dict[str, torch.Tensor]:
-    """V2VModel variables -> the port's ``V2VModel`` state_dict."""
-    r = _Reader(variables["params"], variables["batch_stats"])
-    _v2v(r, "", ())
-    return r.sd
-
-
 def volumetric_state_dict(variables: dict, num_layers: int
                           ) -> Dict[str, torch.Tensor]:
     """VolumetricTriangulationNet variables -> the port's state_dict."""
