@@ -1,11 +1,15 @@
 #!/usr/bin/env python3
 """Smoke run of lt_tpu_torch on one NVIDIA GPU.
 
-Builds the four CUDA kernels of the port from ``lt_tpu_torch/ops/kernels/
-csrc``, holds each against its plain PyTorch version, drives the flagship
-volumetric forward (ResNet-152, 384^2 images, 4 views, 64^3 volume,
-softmax aggregation, 17 joints, float32, seeded random weights) through
-them, and loads the committed trained RN-18 fixture.
+Builds the six CUDA kernels of the port from ``lt_tpu_torch/ops/kernels/
+csrc`` and holds each against its plain PyTorch version.  Then it drives
+the port's two paths at the flagship width (ResNet-152, 384^2 images, 4
+views, 64^3 volume, softmax aggregation, 17 joints, float32, seeded random
+weights): the eval forward through K1-K4 (requests at batch 8), and the
+training step of experiments/human36m/train/human36m_vol_softmax.yaml
+(batch 5) through K1 and, in its backward, K5 and K6.  It also loads the
+committed trained RN-18 fixture and trains the synthetic config for one
+epoch through the CLI's ``run``, then resumes it.
 
     python3 chip_smoke.py [--batch N]
 
@@ -36,6 +40,26 @@ FLAGSHIP = {"layers": 152, "image": 384, "heatmap": 96, "volume": 64}
 REL_TOL = 1e-4          # kernel vs plain: max |diff| <= REL_TOL * max |plain|
 KP_TOL_MM = 0.1         # kernel path vs plain path keypoints
 REQUESTS = 3            # flagship forwards answered on the kernel path
+TRAIN_YAML = "experiments/human36m/train/human36m_vol_softmax.yaml"
+SYNTH_YAML = "experiments/synthetic/vol_tiny_2stage.yaml"
+TRAIN_BATCH = 5         # the flagship training config's batch
+TRAIN_STEPS = 3         # timed flagship training steps
+LOSS_TOL = 1e-5         # kernel-path vs plain-path training loss, relative
+# Kernel-path vs plain-path gradients of the training step, relative to
+# each tensor's max.  The two paths differ only in the unprojection's
+# rounding (~1e-7 of the volume), but at random weights the step's
+# gradients are far more sensitive than that: scaling the images by
+# (1 + PERTURB), a rounding-sized change, moves the plain path's own
+# gradients by 0.1-0.2 of their max (PERF.md, "Training step"), so REL_TOL
+# is out of reach of float32 there.  The kernel path is held to that
+# spread, measured in the same run; its backward alone is held to REL_TOL
+# at the flagship shapes in the [train entry points] phase.
+PERTURB = 2.0 ** -22
+GRAD_MODULES = ("process_features", "backbone.deconv_layers",
+                "volume_net.front_layers")
+EVAL_KERNELS = ("unproject_agg", "conv3d_fused", "upsample3d_2x",
+                "max_pool3d_2x")
+TRAIN_KERNELS = ("unproject_agg", "sample_views_t", "sample_views_grad_t")
 
 # The TPU kernels (pallas_call sites) each CUDA kernel replaces.
 REPLACES = {
@@ -46,6 +70,8 @@ REPLACES = {
                      "lt_tpu/ops/pallas/res3d.py:1180",
     "max_pool3d_2x": "lt_tpu/ops/pallas/updown.py:185, :143, "
                      "lt_tpu/ops/pallas/res3d.py:742, :950",
+    "sample_views_t": "lt_tpu/ops/pallas/unproject.py:653",
+    "sample_views_grad_t": "lt_tpu/ops/pallas/unproject.py:1029",
 }
 
 
@@ -430,6 +456,241 @@ def entry_point_checks(batch, geometry, dev):
 
 
 # ---------------------------------------------------------------------------
+# Training: K5 / K6, the flagship step, the CLI
+# ---------------------------------------------------------------------------
+
+
+def train_entry_points(geometry, dev):
+    """K5 and K6 vs plain (rel REL_TOL) at the flagship training shapes, with
+    kernel, plain and library times and the bound; returns their rows."""
+    import torch
+    import torch.nn.functional as F
+
+    from lt_tpu_torch.ops.kernels import sample, unproject
+
+    b, s, hm, c = TRAIN_BATCH, FLAGSHIP["volume"], FLAGSHIP["heatmap"], 32
+    bv, n = b * 4, FLAGSHIP["volume"] ** 3
+    gen = torch.Generator(device=dev).manual_seed(3)
+    feats = torch.randn((bv, hm, hm, c), generator=gen, device=dev)
+    m = geometry(b).reshape(bv, 3, 4).contiguous()
+    g = torch.randn((bv, c, n), generator=gen, device=dev)
+
+    # The library yardstick: F.grid_sample on the projected grid (voxels at
+    # w <= 0 moved off the map) and its input gradient.
+    uvw = sample._project(m, s)
+    w = uvw[..., 2]
+    gx = 2.0 * uvw[..., 0] / (w * hm) - 1.0
+    gy = 2.0 * uvw[..., 1] / (w * hm) - 1.0
+    off_map = torch.full_like(gx, -3.0)[..., None]
+    grid = torch.stack([gx, gy], -1).where((w > 0)[..., None], off_map)
+    grid = grid[:, None].contiguous()                 # (BV, 1, N, 2)
+    f_nchw = feats.permute(0, 3, 1, 2).contiguous().requires_grad_()
+    lib_out = F.grid_sample(f_nchw, grid, align_corners=True)
+    g_lib = g[:, :, None, :]
+
+    k5 = (lambda: sample.sample_views_t(feats, m, s),
+          lambda: sample.sample_views_t_plain(feats, m, s),
+          lambda: F.grid_sample(f_nchw.detach(), grid, align_corners=True),
+          4.0 * (feats.numel() + m.numel() + bv * c * n))
+    k6 = (lambda: sample.sample_views_grad_t(g, m, tuple(feats.shape), s),
+          lambda: sample.sample_views_grad_t_plain(g, m, tuple(feats.shape),
+                                                   s),
+          lambda: torch.autograd.grad(lib_out, f_nchw, g_lib,
+                                      retain_graph=True),
+          4.0 * (g.numel() + m.numel() + feats.numel()))
+    # The fused aggregation's backward (K5, the softmax VJP, K6) against
+    # autograd of the plain aggregation, at the same shapes.
+    x5 = feats.reshape(b, 4, hm, hm, c)
+    m5 = m.reshape(b, 4, 3, 4)
+    mask = torch.ones(b, 4, device=dev)
+    cot = torch.randn((b, n, c), generator=gen, device=dev)
+    agg_grads = []
+    for kernel in (True, False):
+        x = x5.clone().requires_grad_()
+        out = (unproject.sample_views_agg(x, m5, mask, "softmax", s) if kernel
+               else unproject.unproject_agg_plain(x, m5, mask, None,
+                                                  "softmax", s))
+        (out * cot).sum().backward()
+        agg_grads.append(x.grad)
+    err, rel = check("sample_views_agg gradient", *agg_grads)
+    log(f"  sample_views_agg softmax gradient (K1, K5, VJP, K6) vs plain "
+        f"autograd: max_abs_err {err:.3e} rel {rel:.3e}")
+    del x5, x, out, cot, agg_grads
+    torch.cuda.empty_cache()
+
+    rows = {}
+    for name, (run, plain, library, nbytes) in (("sample_views_t", k5),
+                                               ("sample_views_grad_t", k6)):
+        err, rel = check(name, run(), plain())
+        torch.cuda.synchronize()
+        ms, plain_ms = cuda_ms(run), cuda_ms(plain)
+        lib_ms = cuda_ms(library)
+        # Operations counted as if all four taps of every voxel were in the
+        # map (projection ~30, then 2 per tap and channel); the bytes bound
+        # is ten times larger and decides either way.
+        b_ms, b_by = bound(nbytes, bv * n * (30.0 + 8.0 * c))
+        log(f"  {name}({bv},{hm},{hm},{c},S={s}): max_abs_err {err:.3e} rel "
+            f"{rel:.3e}  kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  "
+            f"library {lib_ms:.4f} ms  bound {b_ms:.4f} ms ({b_by})")
+        rows[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                      "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms}
+    del feats, g, lib_out, f_nchw, grid, uvw
+    torch.cuda.empty_cache()
+    return rows
+
+
+def bn_fed_biases(model):
+    """Names of the biases of convolutions that feed a BatchNorm.  In
+    training the batch mean removes them, so their gradient is zero in
+    exact arithmetic: only rounding remains, and no relative error is
+    defined."""
+    from torch import nn
+
+    from lt_tpu_torch.models.batchnorm import BatchNorm
+
+    names = set()
+    for prefix, mod in model.named_modules():
+        if isinstance(mod, nn.Sequential):
+            kids = list(mod.named_children())
+            for (name, conv), (_, bn) in zip(kids, kids[1:]):
+                if (isinstance(conv, nn.modules.conv._ConvNd)
+                        and isinstance(bn, BatchNorm)
+                        and conv.bias is not None):
+                    names.add(f"{prefix}.{name}.bias")
+    return names
+
+
+def train_flagship(dev):
+    """The flagship training step: kernel path vs plain path from the same
+    weights and rotations, then TRAIN_STEPS timed optimizer steps on the
+    kernel path.  Returns the kernel launches of those steps."""
+    import numpy as np
+    import torch
+
+    from lt_tpu_torch.engine import factory, steps
+    from lt_tpu_torch.ops.kernels import _build
+    from lt_tpu_torch.utils import cfg
+    from lt_tpu_torch.utils.example import example_train_batch
+
+    b = TRAIN_BATCH
+    config = cfg.load_config(str(ROOT / TRAIN_YAML),
+                             {"model.backbone.init_weights": False})
+    log(f"[train flagship] {TRAIN_YAML}: RN-{config.model.backbone.num_layers}"
+        f" {config.image_shape[0]}^2 x4 views, {config.model.volume_size}^3,"
+        f" {config.model.volume_aggregation_method}, batch {b}, f32, seed 0, "
+        f"random weights (the pretrained backbone is not in the repository)")
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in example_train_batch(
+        b, config.image_shape[0], 17, seed=3).items()}
+    criterion = factory.make_criterion(config)
+
+    def loss_and_grads(model, scale=1.0):
+        model.train()
+        model.zero_grad(set_to_none=True)
+        inputs = {**batch, "images": batch["images"] * scale}
+        out = steps.model_outputs(model, inputs, config)
+        total, _ = steps.compute_losses(criterion, config, out, inputs)
+        total.backward()
+        skip = bn_fed_biases(model)
+        grads = {k: p.grad.detach().clone()
+                 for k, p in model.named_parameters()
+                 if k.startswith(GRAD_MODULES) and k not in skip}
+        return total.item(), grads
+
+    model = factory.make_model(config, device=dev, seed=0)
+    plain = factory.make_model(config, device=dev, use_kernels=False, seed=0)
+    plain.load_state_dict(model.state_dict())
+    loss_k, grads_k = loss_and_grads(model)
+    loss_p, grads_p = loss_and_grads(plain)
+    _, grads_s = loss_and_grads(plain, 1.0 + PERTURB)
+    del plain
+    torch.cuda.empty_cache()
+    loss_rel = abs(loss_k - loss_p) / abs(loss_p)
+    log(f"  loss kernel {loss_k:.7f} plain {loss_p:.7f} rel {loss_rel:.3e}")
+    if loss_rel > LOSS_TOL:
+        raise AssertionError(f"training loss: kernel path {loss_k} vs plain "
+                             f"{loss_p} (rel {loss_rel:.3e} > {LOSS_TOL})")
+    for prefix in GRAD_MODULES:
+        names = [k for k in grads_p if k.startswith(prefix)]
+        worst = max(rel_err(grads_k[k], grads_p[k])[1] for k in names)
+        spread = max(rel_err(grads_s[k], grads_p[k])[1] for k in names)
+        tol = max(REL_TOL, spread)
+        log(f"  gradients of {prefix}: kernel vs plain max rel err "
+            f"{worst:.3e}; plain path's spread {spread:.3e} (images x "
+            f"(1 + 2^-22)); tolerance {tol:.3e}")
+        if worst > tol:
+            raise AssertionError(f"{prefix} gradients: rel {worst:.3e} > "
+                                 f"{tol:.3e}")
+
+    optimizer = factory.make_optimizer(config, model)
+    steps.train_step(model, optimizer, criterion, config, batch)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()
+    times, losses = [], []
+    for _ in range(TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(steps.train_step(model, optimizer, criterion, config,
+                                       batch)["total_loss"])
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    launches = dict(_build.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    ms = float(np.median(times))
+    log(f"  launches over {TRAIN_STEPS} steps: {launches}")
+    for k in TRAIN_KERNELS:
+        if launches[k] != TRAIN_STEPS:
+            raise AssertionError(f"{k}: {launches[k]} launches in "
+                                 f"{TRAIN_STEPS} training steps, want one "
+                                 f"per step")
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"non-finite training loss: {losses}")
+    log(f"  train step ms (median of {TRAIN_STEPS}): {ms:.1f}  all: "
+        f"{[round(t, 1) for t in times]}  samples/s: {b / ms * 1e3:.2f}  "
+        f"peak memory {peak:.2f} GiB  losses {[round(x, 4) for x in losses]}")
+    del model, optimizer, batch
+    torch.cuda.empty_cache()
+    return launches
+
+
+def train_cli(dev):
+    """lt_tpu_torch.engine.train.run on the synthetic config: one epoch
+    (finite losses, a checkpoint), then a resumed run that continues."""
+    import tempfile
+
+    import numpy as np
+
+    from lt_tpu_torch.engine import checkpoint as ckpt
+    from lt_tpu_torch.engine.train import run
+
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as logdir:
+        t0 = time.perf_counter()
+        metric = run(str(ROOT / SYNTH_YAML), logdir + "/a", max_epochs=1,
+                     device=dev)
+        secs = time.perf_counter() - t0
+        exp = next(Path(logdir, "a").iterdir())
+        lines = [json.loads(x) for x in open(exp / "metrics.jsonl")]
+        train = [x["total_loss"] for x in lines if x["tag"] == "train"]
+        if len(train) != 8 or not np.isfinite(train + [metric]).all():
+            raise AssertionError(f"CLI epoch: {len(train)} train records, "
+                                 f"losses {train}, metric {metric}")
+        latest = ckpt.latest_epoch_dir(str(exp / "checkpoints"))
+        if latest is None or not (Path(latest) / ckpt.STATE_FILE).is_file():
+            raise AssertionError("CLI epoch wrote no checkpoint")
+        run(str(ROOT / SYNTH_YAML), logdir + "/b", max_epochs=2,
+            resume_dir=str(exp), device=dev)
+        exp_b = next(Path(logdir, "b").iterdir())
+        steps_b = [json.loads(x)["step"] for x in open(exp_b / "metrics.jsonl")
+                   if json.loads(x)["tag"] == "train"]
+        if steps_b != list(range(8, 16)):
+            raise AssertionError(f"resumed run's steps {steps_b}, want 8-15")
+        log(f"[train cli] {SYNTH_YAML}: epoch 0 in {secs:.1f} s, train "
+            f"total_loss {train[0]:.3f} -> {train[-1]:.3f}, val MPJPE rel "
+            f"{metric:.2f} mm, checkpoint {Path(latest).name}; resumed at "
+            f"step {steps_b[0]} and ran epoch 1")
+
+
+# ---------------------------------------------------------------------------
 # Main
 # ---------------------------------------------------------------------------
 
@@ -526,9 +787,9 @@ def main(argv=None) -> int:
         times.append((time.perf_counter() - t0) * 1e3)
     launches = dict(_build.LAUNCHES)
     log(f"  launches over {REQUESTS} requests: {launches}")
-    missing = [k for k, n in launches.items() if n == 0]
+    missing = [k for k in EVAL_KERNELS if launches[k] == 0]
     if missing:
-        raise AssertionError(f"kernels never launched on the main path: "
+        raise AssertionError(f"kernels never launched on the eval path: "
                              f"{missing}")
     for out in outs:
         kp, vols = out.keypoints_3d, out.volumes
@@ -576,13 +837,14 @@ def main(argv=None) -> int:
             f"kernels {e['ms']:.3f} ms, plain {e['plain_ms']:.3f} ms, bound "
             f"{b_ms:.4f} ms ({b_by}), max rel err {e['max_rel_err']:.3e}")
     rows = []
-    for name in _build.SOURCES:
+    for name in EVAL_KERNELS:
         k = per_kernel[name]
         b_ms, b_by = bound(k["nbytes"], k["flops"])
         rows.append({
             "name": name, "route": "cuda",
             "source": f"lt_tpu_torch/ops/kernels/csrc/{name}.cu",
             "replaces": REPLACES[name], "launches": launches[name],
+            "launches_by_path": {"eval": launches[name]},
             "max_abs_err": k["max_abs_err"], "ms": k["ms"],
             "plain_ms": k["plain_ms"], "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": k["library_ms"]})
@@ -613,6 +875,34 @@ def main(argv=None) -> int:
     if fk_err > KP_TOL_MM or fv_rel > REL_TOL:
         raise AssertionError("fixture kernel path disagrees with the plain "
                              "path")
+
+    del net, outs
+    torch.cuda.empty_cache()
+
+    # Phase 7: the training kernels at the flagship training shapes.
+    log(f"[train entry points] K5 / K6 at batch {TRAIN_BATCH}, 4 views, "
+        f"{fl['heatmap']}^2 x 32 -> {fl['volume']}^3, tolerance rel "
+        f"{REL_TOL}")
+    train_rows = train_entry_points(geometry, dev)
+
+    # Phase 8: the flagship training step (kernel path vs plain path, then
+    # timed on the kernel path).
+    train_launches = train_flagship(dev)
+    for row in rows:
+        if row["name"] in TRAIN_KERNELS:
+            n = train_launches[row["name"]]
+            row["launches"] += n
+            row["launches_by_path"]["train"] = n
+    for name in ("sample_views_t", "sample_views_grad_t"):
+        rows.append({"name": name, "route": "cuda",
+                     "source": f"lt_tpu_torch/ops/kernels/csrc/{name}.cu",
+                     "replaces": REPLACES[name],
+                     "launches": train_launches[name],
+                     "launches_by_path": {"train": train_launches[name]},
+                     **train_rows[name]})
+
+    # Phase 9: the CLI's run on the synthetic config, one epoch, then resume.
+    train_cli(dev)
 
     log(json.dumps({"kernels": rows}))
     log(smi)

@@ -1,6 +1,10 @@
-"""PoseResNet heatmap backbone, eval mode.
+"""PoseResNet heatmap backbone.
 
-Port of ``lt_tpu/models/backbone.py``.
+Port of ``lt_tpu/models/backbone.py``.  In training mode BatchNorm uses
+batch statistics with flax's running-statistics update
+(``models/batchnorm.py``), and ``remat`` recomputes each residual block's
+activations in the backward (``torch.utils.checkpoint``), as ``lt_tpu``'s
+``nn.remat`` does.
 
 Parameter names follow the reference PyTorch code (``conv1``, ``bn1``,
 ``layerN.i.*``, ``deconv_layers.*``, ``final_layer``, the GAP confidence
@@ -16,9 +20,8 @@ import torch
 from torch import nn
 
 from lt_tpu_torch import resolve_device
+from lt_tpu_torch.models.batchnorm import BatchNorm, run_block
 from lt_tpu_torch.models.init import init_weights
-
-BN_EPS = 1e-5
 
 RESNET_SPEC = {
     18: ("basic", (2, 2, 2, 2)),
@@ -29,10 +32,6 @@ RESNET_SPEC = {
 }
 
 
-def _bn(c: int) -> nn.BatchNorm2d:
-    return nn.BatchNorm2d(c, eps=BN_EPS)
-
-
 class BasicBlock(nn.Module):
     expansion = 1
 
@@ -40,9 +39,9 @@ class BasicBlock(nn.Module):
                  downsample=None, caffe_style: bool = False):
         super().__init__()
         self.conv1 = nn.Conv2d(inplanes, planes, 3, stride, 1, bias=False)
-        self.bn1 = _bn(planes)
+        self.bn1 = BatchNorm(planes)
         self.conv2 = nn.Conv2d(planes, planes, 3, 1, 1, bias=False)
-        self.bn2 = _bn(planes)
+        self.bn2 = BatchNorm(planes)
         self.downsample = downsample
 
     def forward(self, x):
@@ -62,11 +61,11 @@ class Bottleneck(nn.Module):
         super().__init__()
         s1, s2 = (stride, 1) if caffe_style else (1, stride)
         self.conv1 = nn.Conv2d(inplanes, planes, 1, s1, bias=False)
-        self.bn1 = _bn(planes)
+        self.bn1 = BatchNorm(planes)
         self.conv2 = nn.Conv2d(planes, planes, 3, s2, 1, bias=False)
-        self.bn2 = _bn(planes)
+        self.bn2 = BatchNorm(planes)
         self.conv3 = nn.Conv2d(planes, planes * 4, 1, bias=False)
-        self.bn3 = _bn(planes * 4)
+        self.bn3 = BatchNorm(planes * 4)
         self.downsample = downsample
 
     def forward(self, x):
@@ -83,9 +82,9 @@ class GlobalAveragePoolingHead(nn.Module):
     def __init__(self, in_channels: int, n_classes: int):
         super().__init__()
         self.features = nn.Sequential(
-            nn.Conv2d(in_channels, 512, 3, 1, 1), _bn(512),
+            nn.Conv2d(in_channels, 512, 3, 1, 1), BatchNorm(512),
             nn.MaxPool2d(2), nn.ReLU(),
-            nn.Conv2d(512, 256, 3, 1, 1), _bn(256),
+            nn.Conv2d(512, 256, 3, 1, 1), BatchNorm(256),
             nn.MaxPool2d(2), nn.ReLU())
         self.head = nn.Sequential(
             nn.Linear(256, 512), nn.ReLU(), nn.Linear(512, 256), nn.ReLU(),
@@ -101,7 +100,7 @@ class GlobalAveragePoolingHead(nn.Module):
 
 
 class PoseResNet(nn.Module):
-    """ResNet trunk + 3 deconv layers + 1x1 heatmap head (eval mode).
+    """ResNet trunk + 3 deconv layers + 1x1 heatmap head.
 
     ``forward`` takes NCHW images and returns ``(heatmaps, features,
     alg_confidences, vol_confidences)``; a confidence is None unless its
@@ -110,14 +109,15 @@ class PoseResNet(nn.Module):
 
     def __init__(self, num_joints: int, num_layers: int = 152,
                  style: str = "simple", alg_confidences: bool = False,
-                 vol_confidences: bool = False, device="cuda",
-                 seed: int = 0):
+                 vol_confidences: bool = False, remat: bool = False,
+                 device="cuda", seed: int = 0):
         super().__init__()
+        self.remat = remat
         block_kind, layers = RESNET_SPEC[num_layers]
         block = BasicBlock if block_kind == "basic" else Bottleneck
         caffe = style == "caffe"
         self.conv1 = nn.Conv2d(3, 64, 7, 2, 3, bias=False)
-        self.bn1 = _bn(64)
+        self.bn1 = BatchNorm(64)
         self.maxpool = nn.MaxPool2d(3, 2, 1)
         inplanes = 64
         for stage, (planes, blocks) in enumerate(
@@ -128,7 +128,7 @@ class PoseResNet(nn.Module):
                 downsample = nn.Sequential(
                     nn.Conv2d(inplanes, planes * block.expansion, 1, stride,
                               bias=False),
-                    _bn(planes * block.expansion))
+                    BatchNorm(planes * block.expansion))
             mods = [block(inplanes, planes, stride, downsample, caffe)]
             inplanes = planes * block.expansion
             mods += [block(inplanes, planes, 1, None, caffe)
@@ -141,7 +141,8 @@ class PoseResNet(nn.Module):
         deconv = []
         for _ in range(3):
             deconv += [nn.ConvTranspose2d(inplanes, 256, 4, 2, 1, 0,
-                                          bias=False), _bn(256), nn.ReLU()]
+                                          bias=False),
+                       BatchNorm(256), nn.ReLU()]
             inplanes = 256
         self.deconv_layers = nn.Sequential(*deconv)
         self.final_layer = nn.Conv2d(256, num_joints, 1, 1, 0)
@@ -150,7 +151,9 @@ class PoseResNet(nn.Module):
 
     def forward(self, x):
         x = self.maxpool(torch.relu(self.bn1(self.conv1(x))))
-        x = self.layer4(self.layer3(self.layer2(self.layer1(x))))
+        for stage in (self.layer1, self.layer2, self.layer3, self.layer4):
+            for block in stage:
+                x = run_block(block, x, self.remat)
         alg_conf = (None if self.alg_confidences is None
                     else self.alg_confidences(x))
         vol_conf = (None if self.vol_confidences is None

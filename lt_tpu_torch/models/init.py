@@ -30,7 +30,7 @@ def init_weights(module: nn.Module, seed: int) -> None:
             taps = math.prod(k // s for k, s in zip(mod.kernel_size,
                                                     mod.stride))
             normal(mod.weight, math.sqrt(1.0 / (mod.in_channels * taps)))
-        elif isinstance(mod, (nn.BatchNorm2d, nn.BatchNorm3d)):
+        elif isinstance(mod, nn.modules.batchnorm._BatchNorm):
             normal(mod.weight, 0.1, 1.0)
             normal(mod.bias, 0.1)
             normal(mod.running_mean, 0.1)

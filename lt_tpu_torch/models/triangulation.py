@@ -1,14 +1,17 @@
-"""The volumetric triangulation model, eval forward.
+"""The volumetric triangulation model, eval and training forward.
 
 Port of ``lt_tpu/models/triangulation.py:67-97, 188-349``: backbone
 features -> 1x1 ``process_features`` conv -> fused unprojection with
-cross-view aggregation (kernel K1) -> V2V (kernels K2-K4) -> channels-last
-volumetric soft-argmax.  Public layouts as in ``lt_tpu``: images
-(B, V, H, W, 3), projections (B, V, 3, 4) in image pixels.
+cross-view aggregation (kernel K1) -> V2V (kernels K2-K4 in eval, the
+cuDNN module graph in training) -> channels-last volumetric soft-argmax.
+In training the unprojection's backward runs kernels K5 and K6.  Public
+layouts as in ``lt_tpu``: images (B, V, H, W, 3), projections (B, V, 3, 4)
+in image pixels.
 """
 
 from __future__ import annotations
 
+import math
 from typing import NamedTuple, Optional
 
 import torch
@@ -57,9 +60,13 @@ def rescale_proj_to_heatmap(proj_matrices: torch.Tensor, image_shape,
 class VolumetricTriangulationNet(nn.Module):
     """Backbone features -> unprojection -> V2V -> volumetric soft-argmax.
 
-    Eval mode only.  ``use_kernels=False`` runs the plain reference path
-    instead of the kernels: ``volumetric.unproject_heatmaps`` and V2V's
-    unfused module graph (used to hold the kernel path to account).
+    Built in eval mode; ``model.train()`` switches BatchNorm to batch
+    statistics and the forward to autograd.  ``use_kernels=False`` runs the
+    plain reference path instead of the kernels:
+    ``volumetric.unproject_heatmaps`` (under autograd in training) and V2V's
+    unfused module graph (used to hold the kernel path to account).  The
+    backbone's ``final_layer`` is frozen by the optimizer
+    (``engine.factory.make_optimizer``), as in ``lt_tpu``.
     """
 
     def __init__(self, num_joints: int = 17, num_layers: int = 152,
@@ -68,7 +75,8 @@ class VolumetricTriangulationNet(nn.Module):
                  volume_softmax: bool = True, volume_multiplier: float = 1.0,
                  volume_size: int = 64, cuboid_side: float = 2500.0,
                  kind: str = "mpii", transfer_cmu_to_human36m: bool = False,
-                 use_kernels: bool = True, device="cuda", seed: int = 0):
+                 use_kernels: bool = True, remat: bool = False,
+                 device="cuda", seed: int = 0):
         super().__init__()
         dev = resolve_device(device)
         self.volume_aggregation_method = volume_aggregation_method
@@ -82,28 +90,44 @@ class VolumetricTriangulationNet(nn.Module):
         self.backbone = PoseResNet(
             num_joints, num_layers, style, alg_confidences=False,
             vol_confidences=volume_aggregation_method.startswith("conf"),
-            device=dev, seed=seed)
+            remat=remat, device=dev, seed=seed)
         self.process_features = nn.Sequential(nn.Conv2d(256, 32, 1))
         init_weights(self.process_features, seed + 1)
         self.volume_net = V2VModel(32, num_joints, use_kernels=use_kernels,
-                                   device=dev, seed=seed + 2)
+                                   remat=remat, device=dev, seed=seed + 2)
         self.to(dev).eval()
 
-    @torch.no_grad()
     def forward(self, images: torch.Tensor, proj_matrices: torch.Tensor,
                 pelvis_keypoints: torch.Tensor,
                 view_mask: Optional[torch.Tensor] = None,
-                rotation_thetas: Optional[torch.Tensor] = None
+                rotation_thetas: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None
                 ) -> VolumetricOutput:
         """Args:
           images: (B, V, H, W, 3) normalized images.
           proj_matrices: (B, V, 3, 4) in image pixels.
           pelvis_keypoints: (B, J, >=3) keypoints that locate the pelvis.
           view_mask: optional (B, V) validity of each view.
-          rotation_thetas: optional (B,) cuboid rotations (default zeros).
+          rotation_thetas: optional (B,) cuboid rotations.  Default: zeros
+            in eval; in training U[0, 2 pi) drawn from ``generator`` (a CPU
+            ``torch.Generator``, so a seed gives the same draw on every
+            device), as ``lt_tpu`` draws from its 'aug' stream.
         """
-        if self.training:
-            raise NotImplementedError("the port runs the eval forward only")
+        if not self.training:
+            with torch.no_grad():
+                return self._forward(images, proj_matrices, pelvis_keypoints,
+                                     view_mask, rotation_thetas)
+        if rotation_thetas is None:
+            if generator is None:
+                raise ValueError("training draws cuboid rotations: pass "
+                                 "rotation_thetas or a torch.Generator")
+            rotation_thetas = torch.rand(
+                (images.shape[0],), generator=generator) * (2.0 * math.pi)
+        return self._forward(images, proj_matrices, pelvis_keypoints,
+                             view_mask, rotation_thetas.to(images.device))
+
+    def _forward(self, images, proj_matrices, pelvis_keypoints, view_mask,
+                 rotation_thetas) -> VolumetricOutput:
         b, v = images.shape[:2]
         image_shape = images.shape[2:4]
 
@@ -132,12 +156,18 @@ class VolumetricTriangulationNet(nn.Module):
         features = features.reshape((b, v) + features.shape[1:]).contiguous()
 
         if self.use_kernels:
+            # As lt_tpu (triangulation.py:303-305): training keeps the fused
+            # aggregation where its backward exists (softmax / sum without
+            # confidences) and samples per view otherwise.
+            fuse = not self.training or (
+                self.volume_aggregation_method in ("softmax", "sum")
+                and vol_conf is None)
             volumes = unproject_heatmaps_affine(
                 features, proj_hm, vol_ops.coord_volume_affine(*cv_args),
                 self.volume_size,
                 volume_aggregation_method=self.volume_aggregation_method,
                 vol_confidences=vol_conf, view_mask=view_mask,
-                channels_last=True)
+                channels_last=True, fuse_aggregation=fuse)
         else:
             volumes = vol_ops.unproject_heatmaps(
                 features, proj_hm, coord_volumes,

@@ -1,4 +1,4 @@
-"""V2V voxel-to-voxel 3D hourglass, eval mode.
+"""V2V voxel-to-voxel 3D hourglass.
 
 Port of ``lt_tpu/models/v2v.py``.
 
@@ -16,7 +16,13 @@ decoder_res5 through ``res3d_block_fused``; each decoder pair, and
 decoder_upsample1 + skip1 + back_res + the k=1 back tail, through
 ``upsample_res3d_fused``.  BN is folded into the weights once per weight
 version and device, not on every call.  ``use_kernels=False`` runs the
-reference's unfused module graph (PyTorch Conv3d / BatchNorm3d) instead.
+reference's unfused module graph (PyTorch Conv3d and the shared
+``models/batchnorm.BatchNorm``) instead.
+
+Training always runs the unfused module graph under autograd, NCDHW, with
+batch-statistics BatchNorm: ``lt_tpu`` gates its V2V Pallas kernels off in
+training too (``lt_tpu/models/v2v.py:52-93``) and runs XLA convolutions.
+``remat`` recomputes each block's activations in the backward.
 """
 
 from __future__ import annotations
@@ -25,8 +31,9 @@ import torch
 from torch import nn
 
 from lt_tpu_torch import resolve_device
+from lt_tpu_torch.models.batchnorm import BatchNorm, run_block
 from lt_tpu_torch.models.init import init_weights
-from lt_tpu_torch.ops.kernels.conv3d import BN_EPS, fold_bn
+from lt_tpu_torch.ops.kernels.conv3d import fold_bn
 from lt_tpu_torch.ops.kernels.conv_mp import conv3d_mp
 from lt_tpu_torch.ops.kernels.res3d import (res3d_block_fused,
                                             res3d_chain_fused,
@@ -39,14 +46,10 @@ def _dhwio(w: torch.Tensor) -> torch.Tensor:
     return w.permute(2, 3, 4, 1, 0)
 
 
-def _fold(conv: nn.Conv3d, bn: nn.BatchNorm3d):
+def _fold(conv: nn.Conv3d, bn: BatchNorm):
     w, b = fold_bn(_dhwio(conv.weight), conv.bias, bn.weight, bn.bias,
                    bn.running_mean, bn.running_var, eps=bn.eps)
     return w.contiguous(), b.contiguous()
-
-
-def _bn(c: int) -> nn.BatchNorm3d:
-    return nn.BatchNorm3d(c, eps=BN_EPS)
 
 
 class Basic3DBlock(nn.Module):
@@ -55,7 +58,7 @@ class Basic3DBlock(nn.Module):
         self.block = nn.Sequential(
             nn.Conv3d(in_planes, out_planes, kernel_size, 1,
                       (kernel_size - 1) // 2),
-            _bn(out_planes), nn.ReLU())
+            BatchNorm(out_planes), nn.ReLU())
 
     def forward(self, x):
         return self.block(x)
@@ -69,12 +72,12 @@ class Res3DBlock(nn.Module):
     def __init__(self, in_planes: int, out_planes: int):
         super().__init__()
         self.res_branch = nn.Sequential(
-            nn.Conv3d(in_planes, out_planes, 3, 1, 1), _bn(out_planes),
+            nn.Conv3d(in_planes, out_planes, 3, 1, 1), BatchNorm(out_planes),
             nn.ReLU(),
-            nn.Conv3d(out_planes, out_planes, 3, 1, 1), _bn(out_planes))
+            nn.Conv3d(out_planes, out_planes, 3, 1, 1), BatchNorm(out_planes))
         self.skip_con = (nn.Sequential() if in_planes == out_planes else
                          nn.Sequential(nn.Conv3d(in_planes, out_planes, 1),
-                                       _bn(out_planes)))
+                                       BatchNorm(out_planes)))
 
     def forward(self, x):
         return torch.relu(self.res_branch(x) + self.skip_con(x))
@@ -94,7 +97,7 @@ class Upsample3DBlock(nn.Module):
         super().__init__()
         self.block = nn.Sequential(
             nn.ConvTranspose3d(in_planes, out_planes, 2, 2, 0, 0),
-            _bn(out_planes), nn.ReLU())
+            BatchNorm(out_planes), nn.ReLU())
 
     def forward(self, x):
         return self.block(x)
@@ -110,8 +113,9 @@ class Upsample3DBlock(nn.Module):
 class EncoderDecorder(nn.Module):
     """5-level hourglass (the reference's class name, typo included)."""
 
-    def __init__(self):
+    def __init__(self, remat: bool = False):
         super().__init__()
+        self.remat = remat
         widths = {1: (32, 64), 2: (64, 128), 3: (128, 128), 4: (128, 128),
                   5: (128, 128)}
         for i, (cin, cout) in widths.items():
@@ -124,15 +128,18 @@ class EncoderDecorder(nn.Module):
 
     def forward(self, x):
         """Reference (unfused) graph, NCDHW."""
+        def run(name, y):
+            return run_block(getattr(self, name), y, self.remat)
+
         skips = []
         for i in range(1, 6):
-            skips.append(getattr(self, f"skip_res{i}")(x))
+            skips.append(run(f"skip_res{i}", x))
             x = torch.nn.functional.max_pool3d(x, 2)
-            x = getattr(self, f"encoder_res{i}")(x)
-        x = self.mid_res(x)
+            x = run(f"encoder_res{i}", x)
+        x = run("mid_res", x)
         for i in range(5, 0, -1):
-            x = getattr(self, f"decoder_res{i}")(x)
-            x = getattr(self, f"decoder_upsample{i}")(x) + skips[i - 1]
+            x = run(f"decoder_res{i}", x)
+            x = run(f"decoder_upsample{i}", x) + skips[i - 1]
         return x
 
 
@@ -143,13 +150,15 @@ class V2VModel(nn.Module):
     """
 
     def __init__(self, input_channels: int = 32, output_channels: int = 17,
-                 use_kernels: bool = True, device="cuda", seed: int = 0):
+                 use_kernels: bool = True, remat: bool = False,
+                 device="cuda", seed: int = 0):
         super().__init__()
         self.use_kernels = use_kernels
+        self.remat = remat
         self.front_layers = nn.Sequential(
             Basic3DBlock(input_channels, 16, 7), Res3DBlock(16, 32),
             Res3DBlock(32, 32), Res3DBlock(32, 32))
-        self.encoder_decoder = EncoderDecorder()
+        self.encoder_decoder = EncoderDecorder(remat)
         self.back_layers = nn.Sequential(
             Res3DBlock(32, 32), Basic3DBlock(32, 32, 1),
             Basic3DBlock(32, 32, 1))
@@ -189,14 +198,20 @@ class V2VModel(nn.Module):
         return p
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.training:
-            raise NotImplementedError("the port runs V2V in eval mode only")
-        if not self.use_kernels:
-            y = x.permute(0, 4, 1, 2, 3)
-            y = self.back_layers(self.encoder_decoder(self.front_layers(y)))
-            return self.output_layer(y).permute(0, 2, 3, 4, 1).contiguous()
+        """(B, X, Y, Z, C_in) -> (B, X, Y, Z, output_channels)."""
+        if self.training or not self.use_kernels:
+            return self._forward_modules(x)
         with torch.no_grad():
             return self._forward_fused(x.contiguous())
+
+    def _forward_modules(self, x: torch.Tensor) -> torch.Tensor:
+        y = x.permute(0, 4, 1, 2, 3)
+        for mod in self.front_layers:
+            y = run_block(mod, y, self.remat)
+        y = self.encoder_decoder(y)
+        for mod in self.back_layers:
+            y = run_block(mod, y, self.remat)
+        return self.output_layer(y).permute(0, 2, 3, 4, 1).contiguous()
 
     def _forward_fused(self, x: torch.Tensor) -> torch.Tensor:
         p = self.packed_params()

@@ -1,14 +1,20 @@
 """Hand-written CUDA kernels of the port, each beside its plain version.
 
-=================  ====================  ====================================
-kernel             source                TPU kernels it serves
-=================  ====================  ====================================
-K1 unproject_agg   csrc/unproject_agg.cu unproject.py:_sample_views_agg_impl
-K2 conv3d_fused    csrc/conv3d_fused.cu  conv_mp.conv3d_mp, res3d.* convs
-K3 upsample3d_2x   csrc/upsample3d_2x.cu updown.upsample3d_2x, res3d ups head
-K4 max_pool3d_2x   csrc/max_pool3d_2x.cu updown.max_pool3d_2x, emit_pooled
-=================  ====================  ====================================
+- K1 ``unproject_agg`` (csrc/unproject_agg.cu):
+  unproject._sample_views_agg_impl
+- K2 ``conv3d_fused`` (csrc/conv3d_fused.cu): conv_mp.conv3d_mp and the
+  res3d.* convolutions
+- K3 ``upsample3d_2x`` (csrc/upsample3d_2x.cu): updown.upsample3d_2x and
+  the res3d upsample head
+- K4 ``max_pool3d_2x`` (csrc/max_pool3d_2x.cu): updown.max_pool3d_2x and
+  the res3d pooled outputs
+- K5 ``sample_views_t`` (csrc/sample_views_t.cu):
+  unproject._sample_views_fwd_impl_t
+- K6 ``sample_views_grad_t`` (csrc/sample_views_grad_t.cu):
+  unproject._sample_views_grad_features_t
 
+K1-K4 serve the eval forward; K1, K5 and K6 the training step (K5 and K6
+in the backward of the fused aggregation, ``unproject.sample_views_agg``).
 A wrapper launches its kernel for a CUDA tensor and takes the plain
 version only for a CPU tensor.
 """

@@ -24,7 +24,8 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("unproject_agg", "conv3d_fused", "upsample3d_2x", "max_pool3d_2x")
+SOURCES = ("unproject_agg", "conv3d_fused", "upsample3d_2x", "max_pool3d_2x",
+           "sample_views_t", "sample_views_grad_t")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
               "-lineinfo")

@@ -15,3 +15,71 @@ static inline int ltk_blocks(int64_t total, int threads, int64_t cap = 1 << 20) 
   if (b < 1) b = 1;
   return static_cast<int>(b < cap ? b : cap);
 }
+
+// The bilinear taps of one voxel in one view: pixel offsets y * W + x, their
+// weights, and a bit per tap that is set where the tap lies in the map.
+struct LtkTaps {
+  int off[4];
+  float wt[4];
+  unsigned in;
+};
+
+// Project voxel n = (gx * S + gy) * S + gz through the composed 3x4 matrix
+// mm (grid index -> homogeneous heatmap pixel) and pick its bilinear taps:
+// x = u/w * sx, y = v/w * sy (sx = (W-1)/W, sy = (H-1)/H), align_corners=True,
+// zero padding, no tap where w <= 0.  K1 (unproject_agg), K5 (sample_views_t)
+// and K6 (sample_views_grad_t) all sample through this one function, so the
+// backward recomputes exactly the taps that the forward aggregated, also at
+// pixel edges.  Taps are tested in float coordinates: a far-off projection
+// never reaches an integer conversion that could overflow.
+__device__ __forceinline__ LtkTaps ltk_voxel_taps(const float* __restrict__ mm,
+                                                  int64_t n, int S, int H,
+                                                  int W, float sx, float sy) {
+  const float gz = static_cast<float>(n % S);
+  const float gy = static_cast<float>((n / S) % S);
+  const float gx = static_cast<float>(n / (static_cast<int64_t>(S) * S));
+  const float u = mm[0] * gx + mm[1] * gy + mm[2] * gz + mm[3];
+  const float q = mm[4] * gx + mm[5] * gy + mm[6] * gz + mm[7];
+  const float w = mm[8] * gx + mm[9] * gy + mm[10] * gz + mm[11];
+  LtkTaps t;
+  t.in = 0u;
+  if (!(w > 0.f)) {
+    for (int k = 0; k < 4; ++k) {
+      t.off[k] = 0;
+      t.wt[k] = 0.f;
+    }
+    return t;
+  }
+  const float xf = u / w * sx;
+  const float yf = q / w * sy;
+  const float x0 = floorf(xf), y0 = floorf(yf);
+  const float wx = xf - x0, wy = yf - y0;
+  const bool xin0 = x0 >= 0.f && x0 <= W - 1.f;
+  const bool xin1 = x0 + 1.f >= 0.f && x0 + 1.f <= W - 1.f;
+  const bool yin0 = y0 >= 0.f && y0 <= H - 1.f;
+  const bool yin1 = y0 + 1.f >= 0.f && y0 + 1.f <= H - 1.f;
+  const int xi = xin0 || xin1 ? static_cast<int>(x0) : 0;
+  const int yi = yin0 || yin1 ? static_cast<int>(y0) : 0;
+  t.off[0] = yi * W + xi;
+  t.off[1] = yi * W + xi + 1;
+  t.off[2] = (yi + 1) * W + xi;
+  t.off[3] = (yi + 1) * W + xi + 1;
+  t.wt[0] = (1.f - wx) * (1.f - wy);
+  t.wt[1] = wx * (1.f - wy);
+  t.wt[2] = (1.f - wx) * wy;
+  t.wt[3] = wx * wy;
+  t.in = (yin0 && xin0 ? 1u : 0u) | (yin0 && xin1 ? 2u : 0u) |
+         (yin1 && xin0 ? 4u : 0u) | (yin1 && xin1 ? 8u : 0u);
+  return t;
+}
+
+// The bilinear sample of one channel: fc points at channel c of pixel 0 of
+// an (H, W, C) map.
+__device__ __forceinline__ float ltk_bilinear(const LtkTaps& t,
+                                              const float* __restrict__ fc,
+                                              int C) {
+  float val = 0.f;
+  for (int k = 0; k < 4; ++k)
+    if (t.in & (1u << k)) val += t.wt[k] * fc[static_cast<int64_t>(t.off[k]) * C];
+  return val;
+}

@@ -20,7 +20,8 @@
 // Design: one warp per voxel, lanes over channels (C = 32 is one warp), so
 // each bilinear tap is one coalesced 128-byte row of the (H, W, C) map and
 // each output row one coalesced store.  The projection math is per voxel
-// and redundant across the lanes.  Softmax runs online over the views
+// and redundant across the lanes; it is common.cuh's ltk_voxel_taps, which
+// K5 and K6 share.  Softmax runs online over the views
 // (running max, rescaled sums).  Offsets are 64-bit.
 
 #include "common.cuh"
@@ -41,9 +42,6 @@ __global__ void unproject_agg_kernel(
        t < total; t += nwarps) {
     const int b = static_cast<int>(t / N);
     const int64_t n = t % N;
-    const float gz = static_cast<float>(n % S);
-    const float gy = static_cast<float>((n / S) % S);
-    const float gx = static_cast<float>(n / (static_cast<int64_t>(S) * S));
     for (int c0 = 0; c0 < C; c0 += 32) {
       const int c = c0 + lane;
       const bool active = c < C;
@@ -51,32 +49,11 @@ __global__ void unproject_agg_kernel(
       float run_max = -INFINITY, den = 0.f;
       for (int v = 0; v < V; ++v) {
         const int bv = b * V + v;
-        const float* mm = m + bv * 12;
-        const float u = mm[0] * gx + mm[1] * gy + mm[2] * gz + mm[3];
-        const float q = mm[4] * gx + mm[5] * gy + mm[6] * gz + mm[7];
-        const float w = mm[8] * gx + mm[9] * gy + mm[10] * gz + mm[11];
         float val = 0.f;
-        if (w > 0.f && active) {
-          const float xf = u / w * sx;
-          const float yf = q / w * sy;
-          const float x0 = floorf(xf), y0 = floorf(yf);
-          const float wx = xf - x0, wy = yf - y0;
-          const float* fb = feats + static_cast<int64_t>(bv) * H * W * C + c;
-          // Taps in float coordinates: a far-off projection never reaches
-          // an integer conversion that could overflow.
-          const bool xin0 = x0 >= 0.f && x0 <= W - 1.f;
-          const bool xin1 = x0 + 1.f >= 0.f && x0 + 1.f <= W - 1.f;
-          const bool yin0 = y0 >= 0.f && y0 <= H - 1.f;
-          const bool yin1 = y0 + 1.f >= 0.f && y0 + 1.f <= H - 1.f;
-          const int xi = xin0 || xin1 ? static_cast<int>(x0) : 0;
-          const int yi = yin0 || yin1 ? static_cast<int>(y0) : 0;
-          auto at = [&](int yy, int xx) {
-            return fb[(static_cast<int64_t>(yy) * W + xx) * C];
-          };
-          if (yin0 && xin0) val += (1.f - wx) * (1.f - wy) * at(yi, xi);
-          if (yin0 && xin1) val += wx * (1.f - wy) * at(yi, xi + 1);
-          if (yin1 && xin0) val += (1.f - wx) * wy * at(yi + 1, xi);
-          if (yin1 && xin1) val += wx * wy * at(yi + 1, xi + 1);
+        if (active) {
+          const LtkTaps tp = ltk_voxel_taps(m + bv * 12, n, S, H, W, sx, sy);
+          val = ltk_bilinear(tp, feats + static_cast<int64_t>(bv) * H * W * C + c,
+                             C);
         }
         const bool keep = mask[bv] > 0.f;
         if (method == kSoftmax) {

@@ -1,9 +1,11 @@
-"""Fused unprojection with cross-view aggregation (kernel K1).
+"""Fused unprojection with cross-view aggregation (kernel K1) and its
+training backward.
 
-Port of ``lt_tpu/ops/pallas/unproject.py:360-435, 710-775``
-(``_sample_views_agg_impl`` and ``unproject_heatmaps_affine`` with
-``fuse_aggregation=True``).  The CUDA kernel is ``csrc/unproject_agg.cu``;
-:func:`unproject_agg_plain` is its plain PyTorch version.
+Port of ``lt_tpu/ops/pallas/unproject.py:360-504, 710-829``
+(``_sample_views_agg_impl``, ``sample_views_agg`` and
+``unproject_heatmaps_affine``).  The CUDA kernel is ``csrc/unproject_agg.cu``;
+:func:`unproject_agg_plain` is its plain PyTorch version.  The backward of
+:func:`sample_views_agg` runs kernels K5 and K6 (``sample.py``).
 """
 
 from __future__ import annotations
@@ -13,6 +15,9 @@ from typing import Optional
 import torch
 
 from lt_tpu_torch.ops.kernels import _build
+from lt_tpu_torch.ops.kernels.sample import (sample_views_affine_t,
+                                             sample_views_grad_t,
+                                             sample_views_t)
 from lt_tpu_torch.ops.volumetric import (aggregate_views, index_grid,
                                         sample_homogeneous)
 
@@ -92,16 +97,66 @@ def unproject_agg(features: torch.Tensor, m: torch.Tensor,
     return out
 
 
+class _SampleViewsAgg(torch.autograd.Function):
+    """K1 forward; the backward recomputes the per-view samples with K5,
+    applies the softmax or sum VJP in PyTorch ops and scatters with K6.
+
+    Only ``(features, m, view_mask)`` are saved: the (B, V, C, N) samples
+    never outlive the backward (``lt_tpu``'s training-memory design).
+    ``lt_tpu`` recomputes in bfloat16; the port recomputes in float32.
+    """
+
+    @staticmethod
+    def forward(ctx, features, m, view_mask, method, grid_size):
+        ctx.save_for_backward(features, m, view_mask)
+        ctx.method, ctx.grid_size = method, grid_size
+        return unproject_agg(features, m, view_mask, None, method, grid_size)
+
+    @staticmethod
+    def backward(ctx, g):
+        features, m, view_mask = ctx.saved_tensors
+        b, v, h, w, c = features.shape
+        bv_shape = (b * v, h, w, c)
+        s = sample_views_t(features.reshape(bv_shape), m.reshape(b * v, 3, 4),
+                           ctx.grid_size).reshape(b, v, c, -1)
+        keep = (view_mask > 0.0)[:, :, None, None]
+        zero = torch.zeros((), dtype=s.dtype, device=s.device)
+        g = g.transpose(1, 2)[:, None]                      # (B, 1, C, N)
+        if ctx.method == "softmax":
+            wgt = torch.softmax(torch.where(keep, s, zero - 1e9), dim=1)
+            contrib = torch.where(keep, s, zero)
+            out = (wgt * contrib).sum(1, keepdim=True)
+            # d out / d s_k = w_k (1 + s_k - out) for kept views.
+            ds = torch.where(keep, g * wgt * (1.0 + contrib - out), zero)
+        else:
+            ds = torch.where(keep, g, zero).expand(b, v, c, s.shape[-1])
+        df = sample_views_grad_t(ds.reshape(b * v, c, -1).contiguous(),
+                                 m.reshape(b * v, 3, 4), bv_shape,
+                                 ctx.grid_size)
+        return df.reshape(features.shape), None, None, None, None
+
+
+def sample_views_agg(features: torch.Tensor, m: torch.Tensor,
+                     view_mask: torch.Tensor, method: str,
+                     grid_size: int) -> torch.Tensor:
+    """Differentiable :func:`unproject_agg` for 'softmax' and 'sum' without
+    confidences: (B, V, H, W, C) -> (B, S^3, C), gradients to ``features``.
+    """
+    if method not in ("softmax", "sum"):
+        raise ValueError(f"no fused-aggregation backward for {method!r}")
+    return _SampleViewsAgg.apply(features, m, view_mask, method, grid_size)
+
+
 def unproject_heatmaps_affine(features: torch.Tensor,
                               proj_matrices: torch.Tensor,
                               grid_affine: torch.Tensor, grid_size: int,
                               volume_aggregation_method: str = "softmax",
                               vol_confidences: Optional[torch.Tensor] = None,
                               view_mask: Optional[torch.Tensor] = None,
-                              channels_last: bool = False) -> torch.Tensor:
-    """Fused-unprojection equivalent of ``volumetric.unproject_heatmaps``:
-    ``lt_tpu``'s ``unproject_heatmaps_affine(..., fuse_aggregation=True)``
-    (the per-view, unfused variant serves training, not ported yet).
+                              channels_last: bool = False,
+                              fuse_aggregation: bool = True) -> torch.Tensor:
+    """Fused-unprojection equivalent of ``volumetric.unproject_heatmaps``,
+    as ``lt_tpu``'s ``unproject_heatmaps_affine``.
 
     Args:
       features: (B, V, H, W, C); proj_matrices: (B, V, 3, 4) in heatmap
@@ -109,15 +164,29 @@ def unproject_heatmaps_affine(features: torch.Tensor,
         (``volumetric.coord_volume_affine``).
       channels_last: return (B, S, S, S, C) -- the kernel's own voxel
         order -- instead of (B, C, S, S, S).
+      fuse_aggregation: aggregate inside K1.  'softmax' and 'sum' without
+        confidences are then differentiable (:func:`sample_views_agg`);
+        'conf' and 'max' are forward-only there.  False samples every view
+        with K5 (differentiable through K6) and aggregates in PyTorch ops:
+        the training path of 'conf' and 'max'.
     """
-    b, v = features.shape[:2]
-    c = features.shape[-1]
+    b, v, h, w, c = features.shape
     m = compose_grid_projection(proj_matrices, grid_affine)
     if view_mask is None:
         view_mask = torch.ones((b, v), dtype=torch.float32,
                                device=features.device)
-    volume = unproject_agg(features, m, view_mask, vol_confidences,
-                           volume_aggregation_method, grid_size)
+    method = volume_aggregation_method
+    if not fuse_aggregation:
+        sampled = sample_views_affine_t(
+            features.reshape(b * v, h, w, c), m.reshape(b * v, 3, 4),
+            grid_size).reshape(b, v, c, -1)
+        volume = aggregate_views(sampled.transpose(2, 3), method,
+                                 vol_confidences, view_mask).contiguous()
+    elif method in ("softmax", "sum") and vol_confidences is None:
+        volume = sample_views_agg(features, m, view_mask, method, grid_size)
+    else:
+        volume = unproject_agg(features, m, view_mask, vol_confidences,
+                               method, grid_size)
     s = grid_size
     if channels_last:
         return volume.reshape(b, s, s, s, c)

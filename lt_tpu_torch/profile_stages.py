@@ -1,43 +1,78 @@
-"""Where the flagship forward's time goes on the card.
+"""Where the flagship forward's, or training step's, time goes on the card.
 
     python -m lt_tpu_torch.profile_stages [--batch 8]
+    python -m lt_tpu_torch.profile_stages --train [--batch 5]
 
 Times one warm request of the volumetric forward (RN-152, 384^2, 4 views,
 64^3, f32, TF32 off, seeded random weights) split by stage with CUDA
 events on module hooks (backbone, coord volumes, process_features,
 unprojection, V2V, soft-argmax), then traces one more request with
 ``torch.profiler`` and prints the device's busy share of the window and the
-kernels that take the most device time.  Needs an NVIDIA GPU.
+kernels that take the most device time.  ``--train`` does the same for one
+training step of experiments/human36m/train/human36m_vol_softmax.yaml
+(forward stages, loss, backward, Adam) on the kernel path, and prints the
+peak device memory.  Needs an NVIDIA GPU.
 """
 
 from __future__ import annotations
 
 import argparse
 import time
+from pathlib import Path
 
 import torch
 
 from lt_tpu_torch import resolve_device
+from lt_tpu_torch.engine import factory, steps
 from lt_tpu_torch.models.triangulation import VolumetricTriangulationNet
-from lt_tpu_torch.utils.example import example_batch
+from lt_tpu_torch.utils import cfg
+from lt_tpu_torch.utils.example import example_batch, example_train_batch
 
 # The flagship shape: ResNet-152 at 384^2, a 64^3 volume.
 LAYERS, IMAGE, VOLUME = 152, 384, 64
+TRAIN_YAML = (Path(__file__).resolve().parents[1] / "experiments" / "human36m"
+              / "train" / "human36m_vol_softmax.yaml")
 
 
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--batch", type=int, default=None,
+                    help="default 8, or the training config's 5 with --train")
+    ap.add_argument("--train", action="store_true",
+                    help="profile a training step instead of a request")
     args = ap.parse_args(argv)
 
     dev = resolve_device("cuda")
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    model = VolumetricTriangulationNet(num_layers=LAYERS, volume_size=VOLUME,
-                                       device=dev)
-    inputs = [torch.from_numpy(a).to(dev)
-              for a in example_batch(args.batch, 4, IMAGE, 17)]
-    model(*inputs)                                  # warm-up (cuDNN, packing)
+    if args.train:
+        config = cfg.load_config(str(TRAIN_YAML),
+                                 {"model.backbone.init_weights": False})
+        args.batch = args.batch or config.opt.batch_size
+        model = factory.make_model(config, device=dev)
+        criterion = factory.make_criterion(config)
+        optimizer = factory.make_optimizer(config, model)
+        batch = {k: torch.from_numpy(v).to(dev) for k, v in
+                 example_train_batch(args.batch, IMAGE, 17).items()}
+
+        def run():
+            model.train()
+            out = steps.model_outputs(model, batch, config)
+            total, _ = steps.compute_losses(criterion, config, out, batch)
+            mark("loss:end")()
+            optimizer.zero_grad(set_to_none=True)
+            total.backward()
+            mark("backward:end")()
+            optimizer.step()
+    else:
+        args.batch = args.batch or 8
+        model = VolumetricTriangulationNet(num_layers=LAYERS,
+                                           volume_size=VOLUME, device=dev)
+        inputs = [torch.from_numpy(a).to(dev)
+                  for a in example_batch(args.batch, 4, IMAGE, 17)]
+
+        def run():
+            model(*inputs)
 
     stages = [("backbone", model.backbone),
               ("process_features", model.process_features),
@@ -51,17 +86,20 @@ def main(argv=None) -> None:
             events[key] = ev
         return hook
 
+    run()                                     # warm-up (cuDNN, packing)
     handles = []
     for name, mod in stages:
         handles.append(mod.register_forward_pre_hook(mark(f"{name}:start")))
         handles.append(mod.register_forward_hook(mark(f"{name}:end")))
     torch.cuda.synchronize()
-    mark("forward:start")()
+    torch.cuda.reset_peak_memory_stats()
+    mark("run:start")()
     t0 = time.perf_counter()
-    model(*inputs)
-    mark("forward:end")()
+    run()
+    mark("run:end")()
     torch.cuda.synchronize()
     wall = (time.perf_counter() - t0) * 1e3
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
     for h in handles:
         h.remove()
 
@@ -69,19 +107,26 @@ def main(argv=None) -> None:
         return events[a].elapsed_time(events[b])
 
     split = {
-        "input layout": span("forward:start", "backbone:start"),
+        "input layout": span("run:start", "backbone:start"),
         "backbone": span("backbone:start", "backbone:end"),
         "coord volumes": span("backbone:end", "process_features:start"),
         "process_features": span("process_features:start",
                                  "process_features:end"),
         "unprojection (K1)": span("process_features:end", "v2v:start"),
-        "v2v (K2-K4)": span("v2v:start", "v2v:end"),
-        "soft-argmax": span("v2v:end", "forward:end"),
+        "v2v": span("v2v:start", "v2v:end"),
     }
-    total = span("forward:start", "forward:end")
+    if args.train:
+        split["soft-argmax + losses"] = span("v2v:end", "loss:end")
+        split["backward (K5, K6 in it)"] = span("loss:end", "backward:end")
+        split["Adam step"] = span("backward:end", "run:end")
+    else:
+        split["soft-argmax"] = span("v2v:end", "run:end")
+    total = span("run:start", "run:end")
     print(f"{torch.cuda.get_device_name(0)}; batch {args.batch}, RN-"
-          f"{LAYERS} {IMAGE}^2, {VOLUME}^3; request "
-          f"{total:.1f} ms on device events, {wall:.1f} ms on the host clock")
+          f"{LAYERS} {IMAGE}^2, {VOLUME}^3; "
+          f"{'training step' if args.train else 'request'} {total:.1f} ms on "
+          f"device events, {wall:.1f} ms on the host clock; peak memory "
+          f"{peak:.2f} GiB")
     for name, ms in split.items():
         print(f"  {name:36s} {ms:9.2f} ms  {100 * ms / total:5.1f}%")
 
@@ -92,7 +137,7 @@ def main(argv=None) -> None:
                              ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        model(*inputs)
+        run()
         torch.cuda.synchronize()
         window_us = (time.perf_counter() - t0) * 1e6
     # Kernel rows only (an operator's row would count its kernels again).
@@ -106,7 +151,7 @@ def main(argv=None) -> None:
     print(f"torch.profiler: device busy {busy_us / 1e3:.1f} ms of a "
           f"{window_us / 1e3:.1f} ms window ({100 * busy_us / window_us:.1f}%"
           f" busy, {100 - 100 * busy_us / window_us:.1f}% idle)")
-    for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:12]:
+    for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:16]:
         print(f"  {e.self_device_time_total / 1e3:9.2f} ms  x{e.count:<4d} "
               f"{e.key[:90]}")
 

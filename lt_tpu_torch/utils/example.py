@@ -28,3 +28,22 @@ def example_batch(batch_size, n_views, image_size, num_joints, seed=0):
     keypoints = rng.uniform(-400, 400, (batch_size, num_joints, 3))
     return (images.astype(np.float32), proj,
             keypoints.astype(np.float32))
+
+
+def example_train_batch(batch_size, image_size, num_joints, n_views=4,
+                        seed=0):
+    """A training batch dict (numpy) on :func:`example_batch`'s rig: ground
+    truth with full validity, a pelvis prior 30 mm off it, all views valid
+    and seeded cuboid rotations, as ``engine.steps.train_step`` takes it."""
+    images, proj, kp = example_batch(batch_size, n_views, image_size,
+                                     num_joints, seed=seed)
+    rng = np.random.RandomState(seed + 1)
+    ones = np.ones_like(kp[..., :1])
+    return {"images": images, "proj_matrices": proj,
+            "keypoints_3d": np.concatenate([kp, ones], -1),
+            "keypoints_validity": ones,
+            "view_mask": np.ones((batch_size, n_views), np.float32),
+            "pred_keypoints_3d": (kp + rng.uniform(-30, 30, kp.shape)).astype(
+                np.float32),
+            "rotation_thetas": rng.uniform(0, 2 * np.pi, batch_size).astype(
+                np.float32)}

@@ -126,7 +126,8 @@ def _pose_resnet(r: _Reader, num_layers: int, p: str, fp: tuple):
     for i in range(3):
         r.conv(f"{p}deconv_layers.{3 * i}", fp + (f"deconv{i}",))
         r.bn(f"{p}deconv_layers.{3 * i + 1}", fp + (f"deconv_bn{i}",))
-    r.conv(f"{p}final_layer", fp + ("final_layer",), bias=True)
+    if "final_layer" in r.subtree(fp):
+        r.conv(f"{p}final_layer", fp + ("final_layer",), bias=True)
     for head in ("alg_confidences", "vol_confidences"):
         if head in r.subtree(fp):
             _gap_head(r, f"{p}{head}", fp + (head,))
@@ -172,6 +173,15 @@ def volumetric_state_dict(variables: dict, num_layers: int
     _pose_resnet(r, num_layers, "backbone.", ("backbone",))
     r.conv("process_features.0", ("process_features",), bias=True)
     _v2v(r, "volume_net.", ("volume_net",))
+    return r.sd
+
+
+def backbone_state_dict(variables: dict, num_layers: int
+                        ) -> Dict[str, torch.Tensor]:
+    """Backbone-only PoseResNet variables (a backbone ``.npz`` fixture,
+    ``final_layer`` optional) -> ``backbone.*`` entries of the state_dict."""
+    r = _Reader(variables["params"], variables["batch_stats"])
+    _pose_resnet(r, num_layers, "backbone.", ())
     return r.sd
 
 

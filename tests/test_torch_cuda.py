@@ -1,6 +1,8 @@
 """The CUDA kernels against their plain versions on the card, at small and
 awkward shapes (odd sizes, Cout = 17, Cin = 16, k = 1 / 3 / 7, ragged
-tiles), plus K1's edge cases and the wrappers' device / launch rules.
+tiles), plus K1's, K5's and K6's edge cases, the fused aggregation's
+gradient, the wrappers' device / launch rules, and V2V's folded weights
+after an optimizer step.
 
 Marked ``cuda``: without a GPU every test skips.  On a machine with one
 (this file imports torch only, so ``--noconftest`` keeps JAX out):
@@ -128,5 +130,102 @@ def test_v2v_kernel_path_matches_module_graph(dev):
     fused = V2VModel(32, 17, device=dev, seed=5)
     plain = V2VModel(32, 17, use_kernels=False, device=dev, seed=5)
     x = _randn(dev, 1, 32, 32, 32, 32)
+    with torch.no_grad():
+        _close(fused(x), plain(x))
+
+
+def _sampling_scene(dev, b=2, v=3, h=11, w=13, c=40, s=7):
+    """Odd shapes (C = 40: two lane groups, S^3 = 343: a ragged tile) and
+    the edge cases: view 0 of sample 1 at w <= 0 everywhere, view 1 of
+    sample 1 with w == 0 exactly on the plane gx = 3, view 2 of sample 1
+    projecting every voxel off the map, and taps exactly on the last row
+    and column (sample 0, view 2 maps voxel (gx, gy) to pixel
+    (gx * (W-1) / (S-1), gy * (H-1) / (S-1)) before the (W-1)/W scaling is
+    undone by the matrix)."""
+    feats = _randn(dev, b * v, h, w, c)
+    m = torch.zeros(b * v, 3, 4, device=dev)
+    m[:, 0] = torch.tensor([1.2, 0.2, 0.1, 0.3])
+    m[:, 1] = torch.tensor([0.1, 1.3, 0.15, 0.2])
+    m[:, 2] = torch.tensor([0.02, 0.01, 0.015, 1.0])
+    m += _randn(dev, b * v, 3, 4, scale=0.02, seed=1)
+    m[2] = 0.0                               # sample 0, view 2: exact taps
+    m[2, 0, 0] = w / (s - 1)                 # x = gx*(W-1)/(S-1) after scaling
+    m[2, 1, 1] = h / (s - 1)
+    m[2, 2, 3] = 1.0
+    m[3, 2] = torch.tensor([0.0, 0.0, 0.0, -1.0], device=dev)
+    m[4, 2] = torch.tensor([1.0, 0.0, 0.0, -3.0], device=dev)
+    m[5, 0, 3] = 1e4                         # every tap off the map
+    return feats, m, s
+
+
+def test_sample_views_t(dev):
+    from lt_tpu_torch.ops.kernels import sample
+
+    feats, m, s = _sampling_scene(dev)
+    got = sample.sample_views_t(feats, m, s)
+    _close(got, sample.sample_views_t_plain(feats, m, s))
+    assert bool((got[3] == 0).all()) and bool((got[5] == 0).all())
+    # The voxel at (S-1, S-1, *) of the exact-tap view samples the last
+    # pixel of the map.
+    n = ((s - 1) * s + (s - 1)) * s
+    torch.testing.assert_close(got[2, :, n], feats[2, -1, -1])
+
+
+def test_sample_views_grad_t(dev):
+    from lt_tpu_torch.ops.kernels import sample
+
+    feats, m, s = _sampling_scene(dev)
+    shape = tuple(feats.shape)
+    g = _randn(dev, shape[0], shape[-1], s ** 3, seed=4)
+    got = sample.sample_views_grad_t(g, m, shape, s)
+    _close(got, sample.sample_views_grad_t_plain(g, m, shape, s))
+    assert bool((got[3] == 0).all()) and bool((got[5] == 0).all())
+
+
+@pytest.mark.parametrize("method", ["softmax", "sum"])
+def test_sample_views_agg_gradient(dev, method):
+    """The fused aggregation's backward on the card (K5, the VJP, K6) vs
+    autograd of the plain aggregation, with a masked view."""
+    from lt_tpu_torch.ops.kernels import _build, unproject
+
+    feats, m, s = _sampling_scene(dev)
+    b, v = 2, 3
+    feats = feats.reshape(b, v, *feats.shape[1:])
+    m = m.reshape(b, v, 3, 4)
+    mask = torch.ones(b, v, device=dev)
+    mask[0, 1] = 0.0
+    cot = _randn(dev, b, s ** 3, feats.shape[-1], seed=5)
+    grads = []
+    for fn in (unproject.sample_views_agg, None):
+        x = feats.clone().requires_grad_()
+        if fn is None:
+            out = unproject.unproject_agg_plain(x, m, mask, None, method, s)
+        else:
+            _build.reset_launches()
+            out = fn(x, m, mask, method, s)
+        (out * cot).sum().backward()
+        grads.append(x.grad)
+    assert _build.LAUNCHES["sample_views_t"] == 1
+    assert _build.LAUNCHES["sample_views_grad_t"] == 1
+    _close(grads[0], grads[1])
+
+
+def test_packed_params_rebuilt_after_optimizer_step(dev):
+    """An in-place Adam step on the card invalidates V2V's folded weights:
+    the eval kernel path then runs the new weights."""
+    from lt_tpu_torch.models.v2v import V2VModel
+
+    fused = V2VModel(32, 17, device=dev, seed=6)
+    x = _randn(dev, 2, 32, 32, 32, 32)
+    first = fused.packed_params()
+    opt = torch.optim.Adam(fused.parameters(), lr=1e-2)
+    fused.train()
+    fused(x).square().mean().backward()
+    opt.step()
+    fused.eval()
+    assert fused.packed_params() is not first
+    plain = V2VModel(32, 17, use_kernels=False, device=dev, seed=6)
+    plain.load_state_dict(fused.state_dict())
+    plain.eval()
     with torch.no_grad():
         _close(fused(x), plain(x))

@@ -1,7 +1,7 @@
 """The port stands alone and never hides the device.
 
 - No file of ``lt_tpu_torch/`` or ``chip_smoke.py`` imports ``jax``,
-  ``flax`` or ``lt_tpu`` (AST scan).
+  ``flax``, ``optax``, ``orbax`` or ``lt_tpu`` (AST scan).
 - Without CUDA the default device raises instead of running on the CPU.
 """
 
@@ -12,10 +12,15 @@ import pytest
 import torch
 
 from lt_tpu_torch import resolve_device
+from lt_tpu_torch.engine.factory import make_model
+from lt_tpu_torch.engine.train import run
 from lt_tpu_torch.models.triangulation import VolumetricTriangulationNet
+from lt_tpu_torch.utils.cfg import load_config
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
-FORBIDDEN = ("jax", "jaxlib", "flax", "lt_tpu")
+SYNTH_YAML = str(pathlib.Path(__file__).resolve().parents[1] / "experiments"
+                 / "synthetic" / "vol_tiny_2stage.yaml")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "lt_tpu")
 PORT_FILES = sorted((ROOT / "lt_tpu_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py"]
 
@@ -37,12 +42,18 @@ def test_port_imports_no_jax_or_lt_tpu(path):
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
 
 
-def test_default_device_raises_without_cuda(monkeypatch):
+def test_default_device_raises_without_cuda(monkeypatch, tmp_path):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="cuda"):
         resolve_device()
     with pytest.raises(RuntimeError, match="cuda"):
         VolumetricTriangulationNet(num_layers=18, volume_size=16)
+    config = load_config(SYNTH_YAML)
+    with pytest.raises(RuntimeError, match="cuda"):
+        make_model(config)
+    with pytest.raises(RuntimeError, match="cuda"):
+        run(SYNTH_YAML, str(tmp_path))
+    assert not any(tmp_path.iterdir())       # raised before any output
     assert resolve_device("cpu") == torch.device("cpu")
 
 

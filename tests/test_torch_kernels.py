@@ -1,22 +1,30 @@
 """Each kernel-bearing function of lt_tpu_torch (its plain version on the
-CPU) vs its lt_tpu Pallas function in interpret mode, at 8^3 / 16^3.
+CPU) vs its lt_tpu Pallas function in interpret mode, at 8^3 / 16^3; the
+sampling kernels K5 / K6 and the fused-aggregation gradient also vs XLA
+autodiff of ``lt_tpu.ops.volumetric.unproject_heatmaps``.
 
 Tolerance: max |port - pallas| <= 1e-4 * max |pallas| (float32 sums of up
-to 27 * 16 products taken in other orders).
+to 27 * 16 products taken in other orders), unless a test states another.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from lt_tpu.ops import volumetric as j_vol
 from lt_tpu.ops.pallas import conv3d as j_conv3d
 from lt_tpu.ops.pallas import conv_mp as j_conv_mp
 from lt_tpu.ops.pallas import res3d as j_res3d
+from lt_tpu.ops.pallas import unproject as j_unproject
 from lt_tpu.ops.pallas import updown as j_updown
+from lt_tpu_torch.ops import volumetric as t_vol
 from lt_tpu_torch.ops.kernels import conv3d as t_conv3d
 from lt_tpu_torch.ops.kernels import conv_mp as t_conv_mp
 from lt_tpu_torch.ops.kernels import res3d as t_res3d
+from lt_tpu_torch.ops.kernels import sample as t_sample
+from lt_tpu_torch.ops.kernels import unproject as t_unproject
 from lt_tpu_torch.ops.kernels import updown as t_updown
 
 REL = 1e-4
@@ -187,3 +195,157 @@ def test_fold_bn_and_pack_upsample_weights_match_jax():
     for g, r in zip(got, ref):
         np.testing.assert_allclose(g.numpy(), np.asarray(r), rtol=1e-6,
                                    atol=1e-7)
+
+
+# ---------------------------------------------------------------------------
+# K5 / K6: per-view sampling and its feature gradient
+# ---------------------------------------------------------------------------
+
+
+def _views(seed, b=2, v=3, h=12, w=10, c=8, s=8, behind=True):
+    """Features on a non-square map, cameras that see most of an S^3 grid
+    (world coordinates = grid indices), and, with ``behind``, one view with
+    w = gx - 3 (zero on a plane, negative below it) and one view with
+    w = -1 everywhere.  Returns (features, proj, base, side, S, m) with m
+    the port's composed (B, V, 3, 4) grid -> pixel matrices."""
+    rng = np.random.RandomState(seed)
+    feats = rng.randn(b, v, h, w, c).astype(np.float32)
+    proj = np.zeros((b, v, 3, 4), np.float32)
+    proj[..., 0, :] = [1.2, 0.2, 0.1, 0.3]
+    proj[..., 1, :] = [0.1, 1.3, 0.15, 0.2]
+    proj[..., 2, :] = [0.02, 0.01, 0.015, 1.0]
+    proj += rng.uniform(-0.05, 0.05, proj.shape).astype(np.float32)
+    if behind:
+        proj[1, 0, 2, :] = [1.0, 0.0, 0.0, -3.0]
+        proj[1, 2, 2, :] = [0.0, 0.0, 0.0, -1.0]
+    base = np.full((b, 3), (s - 1) / 2.0, np.float32)
+    side = float(s - 1)
+    aff = t_vol.coord_volume_affine(_t(base), side, s)
+    m = t_unproject.compose_grid_projection(_t(proj), aff)
+    return feats, proj, base, side, s, m
+
+
+def _xla_unproject_vjp(feats, proj, base, side, s, method, mask, cot):
+    """d <cot, lt_tpu's XLA unproject_heatmaps> / d features."""
+    cv = j_vol.build_coord_volumes(jnp.asarray(base), side, s)
+
+    def f(x):
+        return j_vol.unproject_heatmaps(
+            x, jnp.asarray(proj), cv, method, None,
+            None if mask is None else jnp.asarray(mask))
+
+    out, pull = jax.vjp(f, jnp.asarray(feats))
+    return np.asarray(out), np.asarray(pull(jnp.asarray(cot))[0])
+
+
+def test_sample_views_t_matches_pallas():
+    """K5 plain vs _sample_views_fwd_impl_t in interpret mode, at rel 1e-5
+    (the Pallas float32 mode drops the lo*lo term of its bf16 split)."""
+    feats, _, _, _, s, m = _views(0)
+    b, v, h, w, c = feats.shape
+    f, mm = feats.reshape(b * v, h, w, c), m.reshape(b * v, 3, 4)
+    ref = j_unproject._sample_views_fwd_impl_t(
+        jnp.asarray(f), jnp.asarray(mm.numpy()), s, interpret=True)
+    got = t_sample.sample_views_t(_t(f), mm, s)
+    _close(got, ref, rel=1e-5)
+    assert np.all(got.numpy().reshape(b, v, c, s, s, s)[1, 2] == 0.0)
+
+
+def test_sample_views_grad_t_matches_pallas():
+    """K6 plain vs _sample_views_grad_features_t in interpret mode.  The
+    Pallas kernel rounds its bilinear weights and products to bf16
+    (unproject.py:961, :970): atol 2e-2 * max |ref|, rtol 1e-2, as
+    tests/test_pallas_unproject.py holds it."""
+    feats, _, _, _, s, m = _views(1)
+    b, v, h, w, c = feats.shape
+    shape, mm = (b * v, h, w, c), m.reshape(b * v, 3, 4)
+    g = np.random.RandomState(2).randn(b * v, c, s ** 3).astype(np.float32)
+    ref = np.asarray(j_unproject._sample_views_grad_features_t(
+        jnp.asarray(g), jnp.asarray(mm.numpy()), shape, s, 256, 16, True))
+    got = t_sample.sample_views_grad_t(_t(g), mm, shape, s).numpy()
+    np.testing.assert_allclose(got, ref, rtol=1e-2,
+                               atol=2e-2 * np.abs(ref).max())
+
+
+def test_sample_views_grad_t_matches_xla_autodiff():
+    """K6 plain vs XLA autodiff of unproject_heatmaps with one view per
+    sample ('sum' over one view is the sampling itself), rel 1e-5."""
+    feats, proj, base, side, s, m = _views(3)
+    b, v, h, w, c = feats.shape
+    g = np.random.RandomState(4).randn(b * v, c, s ** 3).astype(np.float32)
+    _, ref = _xla_unproject_vjp(
+        feats.reshape(b * v, 1, h, w, c), proj.reshape(b * v, 1, 3, 4),
+        np.repeat(base, v, axis=0), side, s, "sum", None,
+        g.reshape(b * v, c, s, s, s))
+    got = t_sample.sample_views_grad_t(_t(g), m.reshape(b * v, 3, 4),
+                                       (b * v, h, w, c), s)
+    _close(got, ref.reshape(b * v, h, w, c), rel=1e-5)
+
+
+def test_sample_views_affine_t_backward_is_grad_kernel():
+    """The autograd Function: backward = K6 on the cotangent; no gradient
+    for the matrices."""
+    feats, _, _, _, s, m = _views(5)
+    b, v, h, w, c = feats.shape
+    x = _t(feats.reshape(b * v, h, w, c)).requires_grad_()
+    mm = m.reshape(b * v, 3, 4).requires_grad_()
+    g = torch.randn(b * v, c, s ** 3,
+                    generator=torch.Generator().manual_seed(0))
+    (t_sample.sample_views_affine_t(x, mm, s) * g).sum().backward()
+    assert mm.grad is None
+    assert torch.equal(x.grad, t_sample.sample_views_grad_t(
+        g, mm.detach(), (b * v, h, w, c), s))
+
+
+@pytest.mark.parametrize("use_mask", [False, True])
+@pytest.mark.parametrize("method", ["softmax", "sum"])
+def test_sample_views_agg_grad_matches_xla_autodiff(method, use_mask):
+    """The fused aggregation's gradient (K1 forward; K5, the VJP and K6
+    backward) vs XLA autodiff of unproject_heatmaps, rel 1e-4; sample 1 has
+    a view at w <= 0 everywhere and one partly behind its camera."""
+    feats, proj, base, side, s, m = _views(6)
+    b, v, h, w, c = feats.shape
+    mask = None
+    if use_mask:
+        mask = np.ones((b, v), np.float32)
+        mask[0, 1] = 0.0
+    cot = np.random.RandomState(7).randn(b, c, s, s, s).astype(np.float32)
+    ref_out, ref = _xla_unproject_vjp(feats, proj, base, side, s, method,
+                                      mask, cot)
+    x = _t(feats).requires_grad_()
+    vm = (torch.ones(b, v) if mask is None else _t(mask))
+    out = t_unproject.sample_views_agg(x, m, vm, method, s)      # (B, N, C)
+    out = out.transpose(1, 2).reshape(b, c, s, s, s)
+    (out * _t(cot)).sum().backward()
+    _close(out.detach(), ref_out, rel=1e-5)
+    _close(x.grad, ref, rel=1e-4)
+
+
+@pytest.mark.parametrize("method", ["max", "conf"])
+def test_unfused_training_path_grad_matches_xla_autodiff(method):
+    """unproject_heatmaps_affine(fuse_aggregation=False), the training path
+    of 'max' and 'conf' (K5 forward, K6 backward, aggregation in PyTorch
+    ops), vs XLA autodiff of unproject_heatmaps, rel 1e-4."""
+    feats, proj, base, side, s, _ = _views(8, behind=False)
+    b, v, h, w, c = feats.shape
+    conf = np.random.RandomState(9).uniform(0.1, 1.0, (b, v, c)).astype(
+        np.float32)
+    mask = np.ones((b, v), np.float32)
+    mask[0, 1] = 0.0
+    cot = np.random.RandomState(10).randn(b, c, s, s, s).astype(np.float32)
+    cv = j_vol.build_coord_volumes(jnp.asarray(base), side, s)
+    jconf = jnp.asarray(conf) if method == "conf" else None
+
+    def f(x):
+        return j_vol.unproject_heatmaps(x, jnp.asarray(proj), cv, method,
+                                        jconf, jnp.asarray(mask))
+
+    _, pull = jax.vjp(f, jnp.asarray(feats))
+    ref = np.asarray(pull(jnp.asarray(cot))[0])
+    x = _t(feats).requires_grad_()
+    out = t_unproject.unproject_heatmaps_affine(
+        x, _t(proj), t_vol.coord_volume_affine(_t(base), side, s), s, method,
+        _t(conf) if method == "conf" else None, _t(mask),
+        fuse_aggregation=False)
+    (out * _t(cot)).sum().backward()
+    _close(x.grad, ref, rel=1e-4)

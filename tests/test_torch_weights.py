@@ -65,3 +65,23 @@ def test_npz_reader_matches_lt_tpu_fixture_loader():
     for k, v in ref_flat.items():
         assert got_flat[k].dtype == np.float32
         np.testing.assert_array_equal(got_flat[k], v)
+
+
+def test_backbone_fixture_round_trips_through_importer():
+    """The backbone-only fixture (engine.train's model.backbone.checkpoint)
+    -> backbone.* state_dict entries -> lt_tpu's importer gives back the
+    fixture's tree."""
+    from lt_tpu.utils.fixture import load_backbone_npz
+    from lt_tpu.utils.torch_import import import_pose_resnet
+    from lt_tpu_torch.utils.weights import backbone_state_dict
+
+    path = "tests/fixtures/backbone_rn18_synth.npz"
+    sd = backbone_state_dict(load_npz_variables(path), num_layers=18)
+    assert all(k.startswith("backbone.") for k in sd)
+    back = import_pose_resnet(_sd_numpy(sd), num_layers=18, num_joints=17,
+                              prefix="backbone.")
+    ref = dict(_flatten(load_backbone_npz(path)))
+    got = dict(_flatten(back))
+    assert ref.keys() == got.keys()
+    for k in ref:
+        np.testing.assert_array_equal(got[k], ref[k], err_msg=str(k))
