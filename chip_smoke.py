@@ -45,16 +45,16 @@ SYNTH_YAML = "experiments/synthetic/vol_tiny_2stage.yaml"
 TRAIN_BATCH = 5         # the flagship training config's batch
 TRAIN_STEPS = 3         # timed flagship training steps
 LOSS_TOL = 1e-5         # kernel-path vs plain-path training loss, relative
-# Kernel-path vs plain-path gradients of the training step, relative to
+# Kernel-path vs plain-path gradients of the training step: max |diff| over
 # each tensor's max.  The two paths differ only in the unprojection's
-# rounding (~1e-7 of the volume), but at random weights the step's
-# gradients are far more sensitive than that: scaling the images by
-# (1 + PERTURB), a rounding-sized change, moves the plain path's own
-# gradients by 0.1-0.2 of their max (PERF.md, "Training step"), so REL_TOL
-# is out of reach of float32 there.  The kernel path is held to that
-# spread, measured in the same run; its backward alone is held to REL_TOL
-# at the flagship shapes in the [train entry points] phase.
-PERTURB = 2.0 ** -22
+# rounding (~1e-7 of the volume), but at random weights the step amplifies
+# rounding: on the CPU the port's and lt_tpu's float64 steps agree to 1e-10
+# while float32 moves the gradients by 5e-3 (tests/test_torch_train.py).  So
+# REL_TOL is out of reach of float32 here; the kernel path is held to a
+# fixed limit twice the largest difference recorded on the card (1.5e-2,
+# PERF.md), and its backward alone to REL_TOL at the flagship shapes in the
+# [train entry points] phase.
+STEP_GRAD_TOL = 3e-2
 GRAD_MODULES = ("process_features", "backbone.deconv_layers",
                 "volume_net.front_layers")
 EVAL_KERNELS = ("unproject_agg", "conv3d_fused", "upsample3d_2x",
@@ -539,27 +539,6 @@ def train_entry_points(geometry, dev):
     return rows
 
 
-def bn_fed_biases(model):
-    """Names of the biases of convolutions that feed a BatchNorm.  In
-    training the batch mean removes them, so their gradient is zero in
-    exact arithmetic: only rounding remains, and no relative error is
-    defined."""
-    from torch import nn
-
-    from lt_tpu_torch.models.batchnorm import BatchNorm
-
-    names = set()
-    for prefix, mod in model.named_modules():
-        if isinstance(mod, nn.Sequential):
-            kids = list(mod.named_children())
-            for (name, conv), (_, bn) in zip(kids, kids[1:]):
-                if (isinstance(conv, nn.modules.conv._ConvNd)
-                        and isinstance(bn, BatchNorm)
-                        and conv.bias is not None):
-                    names.add(f"{prefix}.{name}.bias")
-    return names
-
-
 def train_flagship(dev):
     """The flagship training step: kernel path vs plain path from the same
     weights and rotations, then TRAIN_STEPS timed optimizer steps on the
@@ -568,6 +547,7 @@ def train_flagship(dev):
     import torch
 
     from lt_tpu_torch.engine import factory, steps
+    from lt_tpu_torch.models.batchnorm import bn_fed_biases
     from lt_tpu_torch.ops.kernels import _build
     from lt_tpu_torch.utils import cfg
     from lt_tpu_torch.utils.example import example_train_batch
@@ -583,12 +563,11 @@ def train_flagship(dev):
         b, config.image_shape[0], 17, seed=3).items()}
     criterion = factory.make_criterion(config)
 
-    def loss_and_grads(model, scale=1.0):
+    def loss_and_grads(model):
         model.train()
         model.zero_grad(set_to_none=True)
-        inputs = {**batch, "images": batch["images"] * scale}
-        out = steps.model_outputs(model, inputs, config)
-        total, _ = steps.compute_losses(criterion, config, out, inputs)
+        out = steps.model_outputs(model, batch, config)
+        total, _ = steps.compute_losses(criterion, config, out, batch)
         total.backward()
         skip = bn_fed_biases(model)
         grads = {k: p.grad.detach().clone()
@@ -601,7 +580,6 @@ def train_flagship(dev):
     plain.load_state_dict(model.state_dict())
     loss_k, grads_k = loss_and_grads(model)
     loss_p, grads_p = loss_and_grads(plain)
-    _, grads_s = loss_and_grads(plain, 1.0 + PERTURB)
     del plain
     torch.cuda.empty_cache()
     loss_rel = abs(loss_k - loss_p) / abs(loss_p)
@@ -612,14 +590,15 @@ def train_flagship(dev):
     for prefix in GRAD_MODULES:
         names = [k for k in grads_p if k.startswith(prefix)]
         worst = max(rel_err(grads_k[k], grads_p[k])[1] for k in names)
-        spread = max(rel_err(grads_s[k], grads_p[k])[1] for k in names)
-        tol = max(REL_TOL, spread)
+        l2 = (sum(float((grads_k[k] - grads_p[k]).double().square().sum())
+                  for k in names)
+              / sum(float(grads_p[k].double().square().sum())
+                    for k in names)) ** 0.5
         log(f"  gradients of {prefix}: kernel vs plain max rel err "
-            f"{worst:.3e}; plain path's spread {spread:.3e} (images x "
-            f"(1 + 2^-22)); tolerance {tol:.3e}")
-        if worst > tol:
+            f"{worst:.3e} (limit {STEP_GRAD_TOL}), relative L2 {l2:.3e}")
+        if worst > STEP_GRAD_TOL:
             raise AssertionError(f"{prefix} gradients: rel {worst:.3e} > "
-                                 f"{tol:.3e}")
+                                 f"{STEP_GRAD_TOL}")
 
     optimizer = factory.make_optimizer(config, model)
     steps.train_step(model, optimizer, criterion, config, batch)  # warm-up

@@ -46,7 +46,7 @@ def compute_losses(criterion, config, out, batch):
     weighted volumetric CE where ``opt.use_volumetric_ce_loss``."""
     kp_pred = out.keypoints_3d
     kp_gt = batch["keypoints_3d"][:, :, :3]
-    validity = (batch["keypoints_validity"] > 0.0).to(torch.float32)
+    validity = (batch["keypoints_validity"] > 0.0).to(kp_gt.dtype)
     scale = config.opt.get("scale_keypoints_3d", 1.0)
 
     if batch["images"].shape[1] == 1:
@@ -74,7 +74,7 @@ def compute_losses(criterion, config, out, batch):
     if gt_base is not None:
         diff = (out.base_points - gt_base) * scale
         # Samples with no valid joint (a padded eval tail) count for nothing.
-        w = (validity.sum((1, 2)) > 0.0).to(torch.float32)
+        w = (validity.sum((1, 2)) > 0.0).to(validity.dtype)
         metrics["base_point_l2"] = ((diff ** 2).sum(-1).sqrt() * w).sum() \
             / w.sum().clamp_min(1.0)
 
@@ -122,5 +122,5 @@ def eval_step(model, criterion, config, batch: Dict[str, torch.Tensor]):
 
 def _to_floats(metrics: dict) -> dict:
     """Scalar tensors -> floats with one device-to-host copy."""
-    values = torch.stack([v.detach().float() for v in metrics.values()])
+    values = torch.stack([v.detach().double() for v in metrics.values()])
     return dict(zip(metrics, values.tolist()))

@@ -47,15 +47,42 @@ class BatchNorm(nn.modules.batchnorm._BatchNorm):
         if not self.training:
             return F.batch_norm(x, self.running_mean, self.running_var,
                                 self.weight, self.bias, False, 0.0, self.eps)
-        if not _RECOMPUTING.get():
+        # One reduction.  F.batch_norm moves a copy of the running variance
+        # to (1 - m) r + m var n / (n - 1); then
+        # r <- r (1 - m) / n + copy (n - 1) / n  =  (1 - m) r + m var,
+        # flax's update.  (The copy: autograd keeps the tensor it was given.)
+        # A checkpointed block's recompute moves copies only, so that the
+        # statistics move once per step and the recompute saves the same
+        # tensors as the forward did.
+        recompute = _RECOMPUTING.get()
+        mean = self.running_mean.clone() if recompute else self.running_mean
+        moved = self.running_var.clone()
+        y = F.batch_norm(x, mean, moved, self.weight, self.bias, True,
+                         self.momentum, self.eps)
+        if not recompute:
+            n = x.numel() // x.shape[1]
             with torch.no_grad():
-                dims = [0] + list(range(2, x.dim()))
-                var, mean = torch.var_mean(x, dims, correction=0)
-                self.running_mean.lerp_(mean, self.momentum)
-                self.running_var.lerp_(var, self.momentum)
+                self.running_var.mul_((1.0 - self.momentum) / n).add_(
+                    moved, alpha=(n - 1) / n)
                 self.num_batches_tracked.add_(1)
-        return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0,
-                            self.eps)
+        return y
+
+
+def bn_fed_biases(model: nn.Module) -> set:
+    """Names of the biases of convolutions that feed a :class:`BatchNorm`.
+    In training the batch mean removes them, so their gradient is zero in
+    exact arithmetic: only rounding remains, and no relative error is
+    defined."""
+    names = set()
+    for prefix, mod in model.named_modules():
+        if isinstance(mod, nn.Sequential):
+            kids = list(mod.named_children())
+            for (name, conv), (_, bn) in zip(kids, kids[1:]):
+                if (isinstance(conv, nn.modules.conv._ConvNd)
+                        and isinstance(bn, BatchNorm)
+                        and conv.bias is not None):
+                    names.add(f"{prefix}.{name}.bias")
+    return names
 
 
 def run_block(module: nn.Module, x: torch.Tensor, remat: bool):

@@ -52,7 +52,7 @@ def rescale_proj_to_heatmap(proj_matrices: torch.Tensor, image_shape,
     """Left-multiply by diag(hm_w / img_w, hm_h / img_h, 1)."""
     ih, iw = image_shape
     hh, hw = heatmap_shape
-    scale = torch.tensor([hw / iw, hh / ih, 1.0], dtype=torch.float32,
+    scale = torch.tensor([hw / iw, hh / ih, 1.0], dtype=proj_matrices.dtype,
                          device=proj_matrices.device)
     return proj_matrices * scale[:, None]
 
@@ -145,7 +145,7 @@ class VolumetricTriangulationNet(nn.Module):
                                           heatmap_shape)
         base_points = select_base_points(pelvis_keypoints, self.kind)
         if rotation_thetas is None:
-            rotation_thetas = torch.zeros(b, dtype=torch.float32,
+            rotation_thetas = torch.zeros(b, dtype=images.dtype,
                                           device=images.device)
         axis = (0.0, 1.0, 0.0) if self.kind == "coco" else (0.0, 0.0, 1.0)
         cv_args = (base_points, self.cuboid_side, self.volume_size,

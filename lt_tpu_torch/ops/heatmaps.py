@@ -1,8 +1,8 @@
 """Volumetric soft-argmax (port of ``lt_tpu/ops/heatmaps.py:90-149``).
 
 Plain PyTorch: these are reductions, not Pallas kernels, in ``lt_tpu``.
-The coordinate expectations are explicit multiply-sums, so they stay in
-full float32 on the card.
+The coordinate expectations are explicit multiply-sums in the inputs'
+dtype, so float32 stays full float32 on the card (no TF32).
 """
 
 from __future__ import annotations
@@ -11,7 +11,6 @@ import torch
 
 
 def _normalize(x_flat: torch.Tensor, softmax: bool) -> torch.Tensor:
-    x_flat = x_flat.float()
     return torch.softmax(x_flat, -1) if softmax else torch.relu(x_flat)
 
 
@@ -22,7 +21,7 @@ def integrate_tensor_3d_with_coordinates(volumes: torch.Tensor,
     in world mm and the normalized volumes (B, J, X, Y, Z)."""
     b, j, xs, ys, zs = volumes.shape
     vols = _normalize(volumes.reshape(b, j, -1), softmax)
-    cv = coord_volumes.reshape(b, 1, -1, 3).float()
+    cv = coord_volumes.reshape(b, 1, -1, 3)
     coords = (vols[..., None] * cv).sum(2)
     return coords, vols.reshape(b, j, xs, ys, zs)
 
@@ -37,8 +36,8 @@ def integrate_tensor_3d_with_coordinates_channels_last(
     Returns (keypoints (B, J, 3), normalized volumes (B, J, X, Y, Z)).
     """
     b, xs, ys, zs, j = volumes.shape
-    flat = volumes.reshape(b, xs * ys * zs, j).float()
-    cv = coord_volumes.reshape(b, -1, 1, 3).float()
+    flat = volumes.reshape(b, xs * ys * zs, j)
+    cv = coord_volumes.reshape(b, -1, 1, 3)
     if softmax:
         e = torch.exp(flat - flat.amax(1, keepdim=True))
         den = e.sum(1)                                   # (B, J)

@@ -26,7 +26,7 @@ def _check_affine(affine: torch.Tensor, bv: int) -> None:
 
 def _project(affine: torch.Tensor, grid_size: int) -> torch.Tensor:
     """(BV, 3, 4) -> homogeneous pixels (BV, S^3, 3) of every voxel."""
-    grid = index_grid(grid_size, affine.device).reshape(-1, 4)
+    grid = index_grid(grid_size, affine.device, affine.dtype).reshape(-1, 4)
     return (affine[:, None, :, :] * grid[None, :, None, :]).sum(-1)
 
 

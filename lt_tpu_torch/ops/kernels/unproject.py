@@ -27,12 +27,13 @@ METHODS = {"softmax": 0, "sum": 1, "max": 2, "conf": 3, "conf_norm": 3}
 def compose_grid_projection(proj_matrices: torch.Tensor,
                             grid_affine: torch.Tensor) -> torch.Tensor:
     """m = P @ [A; 0 0 0 1]: (B, V, 3, 4) grid-index -> homogeneous pixel,
-    as an explicit float32 multiply-sum."""
+    as an explicit multiply-sum (full float32 for float32 inputs)."""
     b = grid_affine.shape[0]
-    bottom = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=torch.float32,
+    dt = torch.promote_types(proj_matrices.dtype, grid_affine.dtype)
+    bottom = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=dt,
                           device=grid_affine.device).expand(b, 1, 4)
-    affine4 = torch.cat([grid_affine.float(), bottom], dim=1)  # (B, 4, 4)
-    return (proj_matrices.float()[..., :, :, None]
+    affine4 = torch.cat([grid_affine.to(dt), bottom], dim=1)  # (B, 4, 4)
+    return (proj_matrices.to(dt)[..., :, :, None]
             * affine4[:, None, None, :, :]).sum(-2)
 
 
@@ -41,7 +42,7 @@ def unproject_agg_plain(features: torch.Tensor, m: torch.Tensor,
                         vol_confidences: Optional[torch.Tensor],
                         method: str, grid_size: int) -> torch.Tensor:
     """Plain version of K1: (B, V, H, W, C), m (B, V, 3, 4) -> (B, S^3, C)."""
-    grid = index_grid(grid_size, features.device).reshape(-1, 4)
+    grid = index_grid(grid_size, features.device, m.dtype).reshape(-1, 4)
     uvw = (m[:, :, None, :, :] * grid[None, None, :, None, :]).sum(-1)
     return aggregate_views(sample_homogeneous(features, uvw), method,
                            vol_confidences, view_mask)

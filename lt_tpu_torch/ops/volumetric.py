@@ -20,10 +20,12 @@ def rotation_matrix(axis, theta: torch.Tensor) -> torch.Tensor:
     """Rotation about ``axis`` by ``theta`` radians (Euler-Rodrigues form).
 
     Same sign convention as ``lt_tpu.ops.volumetric.rotation_matrix``.
-    ``theta`` (...,) broadcasts; returns (..., 3, 3).
+    ``theta`` (...,) broadcasts; returns (..., 3, 3) in its floating dtype.
     """
-    theta = torch.as_tensor(theta, dtype=torch.float32)
-    axis = torch.as_tensor(axis, dtype=torch.float32, device=theta.device)
+    theta = torch.as_tensor(theta)
+    if not theta.is_floating_point():
+        theta = theta.float()
+    axis = torch.as_tensor(axis, dtype=theta.dtype, device=theta.device)
     axis = axis / torch.sqrt((axis * axis).sum(-1, keepdim=True))
     a = torch.cos(theta / 2.0)
     sin_half = torch.sin(theta / 2.0)
@@ -51,36 +53,36 @@ def coord_volume_affine(base_points: torch.Tensor, cuboid_side: float,
                         axis=(0.0, 0.0, 1.0),
                         transfer_cmu_to_human36m: bool = False
                         ) -> torch.Tensor:
-    """The (B, 3, 4) affine mapping integer grid indices -> world mm."""
+    """The (B, 3, 4) affine mapping integer grid indices -> world mm, in
+    the dtype of ``base_points``."""
     b = base_points.shape[0]
-    dev = base_points.device
+    dev, dt = base_points.device, base_points.dtype
     s = volume_size
     spacing = cuboid_side / (s - 1)
     half = cuboid_side / 2.0
 
     if thetas is not None:
-        rot = rotation_matrix(axis, thetas.to(dev))
+        rot = rotation_matrix(axis, thetas.to(dev, dt))
     else:
-        rot = torch.eye(3, dtype=torch.float32, device=dev).expand(b, 3, 3)
+        rot = torch.eye(3, dtype=dt, device=dev).expand(b, 3, 3)
 
     lin = rot * spacing
-    offset = _matvec(rot, torch.full((b, 3), -half, dtype=torch.float32,
-                                     device=dev)) + base_points
+    offset = _matvec(rot, torch.full((b, 3), -half, dtype=dt, device=dev)) + base_points
 
     if transfer_cmu_to_human36m:
         perm = torch.tensor([[0.0, -1.0, 0.0], [1.0, 0.0, 0.0],
-                             [0.0, 0.0, 1.0]], device=dev)
-        shift = torch.tensor([float(s - 1), 0.0, 0.0], device=dev)
+                             [0.0, 0.0, 1.0]], dtype=dt, device=dev)
+        shift = torch.tensor([float(s - 1), 0.0, 0.0], dtype=dt, device=dev)
         offset = offset + _matvec(lin, shift.expand(b, 3))
         lin = (lin[..., :, :, None] * perm[None, None, :, :]).sum(-2)
 
     return torch.cat([lin, offset[..., None]], dim=-1)
 
 
-def index_grid(s: int, device) -> torch.Tensor:
+def index_grid(s: int, device, dtype=torch.float32) -> torch.Tensor:
     """(S, S, S, 4) homogeneous voxel indices (gx, gy, gz, 1); flattened,
     voxel n = (gx * S + gy) * S + gz."""
-    g = torch.arange(s, dtype=torch.float32, device=device)
+    g = torch.arange(s, dtype=dtype, device=device)
     gx, gy, gz = torch.meshgrid(g, g, g, indexing="ij")
     return torch.stack([gx, gy, gz, torch.ones_like(gx)], -1)
 
@@ -95,7 +97,7 @@ def build_coord_volumes(base_points: torch.Tensor, cuboid_side: float,
     s = volume_size
     affine = coord_volume_affine(base_points, cuboid_side, volume_size,
                                  thetas, axis, transfer_cmu_to_human36m)
-    grid = index_grid(s, base_points.device)
+    grid = index_grid(s, affine.device, affine.dtype)
     return (affine[:, None, None, None, :, :]
             * grid[None, :, :, :, None, :]).sum(-1)
 

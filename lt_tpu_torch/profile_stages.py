@@ -140,10 +140,12 @@ def main(argv=None) -> None:
         run()
         torch.cuda.synchronize()
         window_us = (time.perf_counter() - t0) * 1e6
-    # Kernel rows only (an operator's row would count its kernels again).
+    # Kernel rows only (an operator's row would count its kernels again, and
+    # a user annotation such as Optimizer.step#Adam.step spans kernels).
     rows = [e for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA
-            and e.self_device_time_total > 0]
+            and e.self_device_time_total > 0
+            and not getattr(e, "is_user_annotation", False)]
     busy_us = sum(e.self_device_time_total for e in rows)
     if not rows:
         print("torch.profiler recorded no device time; see the event split")

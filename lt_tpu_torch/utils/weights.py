@@ -51,7 +51,7 @@ class _Reader:
     def _get(tree, path, index=None):
         for key in path:
             tree = tree[key]
-        arr = np.asarray(tree, np.float32)
+        arr = np.asarray(tree)
         return arr if index is None else arr[index]
 
     def subtree(self, path):

@@ -229,3 +229,24 @@ def test_packed_params_rebuilt_after_optimizer_step(dev):
     plain.eval()
     with torch.no_grad():
         _close(fused(x), plain(x))
+
+
+@pytest.mark.parametrize("shape", [(5, 8, 6, 6), (5, 8, 2, 2, 2),
+                                   (2, 8, 1, 1, 1)])
+def test_batchnorm_training_update_matches_cpu(dev, shape):
+    """A training BatchNorm call on the card (cuDNN or PyTorch's CUDA
+    kernel) vs the same call on the CPU: output, running mean and flax's
+    biased running variance, float32 within 1e-5 relative."""
+    from lt_tpu_torch.models.batchnorm import BatchNorm
+
+    x = _randn(torch.device("cpu"), *shape, scale=2.0) + 3.0
+    outs = []
+    for d in ("cpu", dev):
+        bn = BatchNorm(shape[1]).to(d).train()
+        with torch.no_grad():
+            bn.running_var.fill_(0.7)
+            bn.weight.fill_(1.3)
+        y = bn(x.to(d))
+        outs.append((y, bn.running_mean, bn.running_var))
+    for got, ref in zip(outs[1], outs[0]):
+        _close(got.cpu(), ref, rel=1e-5)
