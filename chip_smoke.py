@@ -1,15 +1,19 @@
 #!/usr/bin/env python3
 """Smoke run of lt_tpu_torch on one NVIDIA GPU.
 
-Builds the six CUDA kernels of the port from ``lt_tpu_torch/ops/kernels/
+Builds the eight CUDA kernels of the port from ``lt_tpu_torch/ops/kernels/
 csrc`` and holds each against its plain PyTorch version.  Then it drives
-the port's two paths at the flagship width (ResNet-152, 384^2 images, 4
-views, 64^3 volume, softmax aggregation, 17 joints, float32, seeded random
-weights): the eval forward through K1-K4 (requests at batch 8), and the
+the port's paths at the flagship width (ResNet-152, 384^2 images, 4 views,
+64^3 volume, softmax aggregation, 17 joints, seeded random weights): the
+eval forward through K1-K4 (requests at batch 8) in float32 and in the
+bfloat16 configuration, in the fused and in the per-conv V2V
+configuration; the entry points that have no caller on those paths
+(``conv3d_same``, ``res3d_block_mp`` / ``_q4`` / ``_folded``,
+``sample_views_affine`` through K7 and K8) at the flagship shapes; and the
 training step of experiments/human36m/train/human36m_vol_softmax.yaml
-(batch 5) through K1 and, in its backward, K5 and K6.  It also loads the
-committed trained RN-18 fixture and trains the synthetic config for one
-epoch through the CLI's ``run``, then resumes it.
+(batch 5, float32) through K1 and, in its backward, K5 and K6.  It also
+loads the committed trained RN-18 fixture and trains the synthetic config
+for one epoch through the CLI's ``run``, then resumes it.
 
     python3 chip_smoke.py [--batch N]
 
@@ -34,11 +38,26 @@ ROOT = Path(__file__).resolve().parent
 # cores (the kernels use no tensor cores) and HBM3 bandwidth.
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
+# Dense bfloat16 on the tensor cores: not what these kernels run on, but
+# what a tensor-core redesign of K2 / K3 would be held to.
+PEAK_BF16_TC_FLOPS = 989e12
 # The flagship configuration (bench.py's shapes): ResNet-152 backbone at
 # 384^2 (96^2 heatmaps), a 64^3 volume, 4 views, 17 joints.
 FLAGSHIP = {"layers": 152, "image": 384, "heatmap": 96, "volume": 64}
 REL_TOL = 1e-4          # kernel vs plain: max |diff| <= REL_TOL * max |plain|
 KP_TOL_MM = 0.1         # kernel path vs plain path keypoints
+# bfloat16 kernels vs their plain versions, which round where the kernel
+# rounds: two bfloat16 ulps (2 * 2^-7) of max |plain|.
+REL_TOL_BF16 = 1.6e-2
+# bfloat16 kernel path vs the plain bfloat16 path (the module graph under
+# autocast).  The two round in other places: the kernels fold BatchNorm into
+# bfloat16 weights, the module graph rounds each convolution's output before
+# its BatchNorm.  At random weights 1.0 mm does not hold: the paths are 1.85
+# mm apart (largest coordinate, recorded on the card), and the plain path
+# itself moves by 1.67 mm when its images change by one bfloat16 ulp (the
+# run prints that spread).  The limit is twice the largest difference
+# recorded (PERF.md, section 6).
+KP_TOL_BF16_MM = 4.0
 REQUESTS = 3            # flagship forwards answered on the kernel path
 TRAIN_YAML = "experiments/human36m/train/human36m_vol_softmax.yaml"
 SYNTH_YAML = "experiments/synthetic/vol_tiny_2stage.yaml"
@@ -60,23 +79,33 @@ GRAD_MODULES = ("process_features", "backbone.deconv_layers",
 EVAL_KERNELS = ("unproject_agg", "conv3d_fused", "upsample3d_2x",
                 "max_pool3d_2x")
 TRAIN_KERNELS = ("unproject_agg", "sample_views_t", "sample_views_grad_t")
+ALT_KERNELS = ("conv3d_fused", "sample_views", "sample_views_grad")
 
 # The TPU kernels (pallas_call sites) each CUDA kernel replaces.
 REPLACES = {
     "unproject_agg": "lt_tpu/ops/pallas/unproject.py:427",
-    "conv3d_fused": "lt_tpu/ops/pallas/conv_mp.py:237, "
-                    "lt_tpu/ops/pallas/res3d.py:742, :950, :1180",
+    "conv3d_fused": "lt_tpu/ops/pallas/conv_mp.py:237, :442, "
+                    "lt_tpu/ops/pallas/res3d.py:742, :950, :1180, "
+                    "lt_tpu/ops/pallas/conv3d.py:205, "
+                    "lt_tpu/ops/pallas/res3d_q4.py:245, "
+                    "lt_tpu/ops/pallas/res3d_folded.py:302",
     "upsample3d_2x": "lt_tpu/ops/pallas/updown.py:376, :330, "
                      "lt_tpu/ops/pallas/res3d.py:1180",
     "max_pool3d_2x": "lt_tpu/ops/pallas/updown.py:185, :143, "
                      "lt_tpu/ops/pallas/res3d.py:742, :950",
     "sample_views_t": "lt_tpu/ops/pallas/unproject.py:653",
     "sample_views_grad_t": "lt_tpu/ops/pallas/unproject.py:1029",
+    "sample_views": "lt_tpu/ops/pallas/unproject.py:548, :581",
+    "sample_views_grad": "lt_tpu/ops/pallas/unproject.py:906",
 }
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def _ms(t) -> str:
+    return "n/a" if t is None else f"{t:.3f} ms"
 
 
 def cuda_ms(fn, budget_ms: float = 300.0) -> float:
@@ -111,18 +140,20 @@ def check(name, got, ref, tol=REL_TOL):
     if got.shape != ref.shape:
         raise AssertionError(f"{name}: shape {tuple(got.shape)} != "
                              f"{tuple(ref.shape)}")
+    if got.dtype != ref.dtype:
+        raise AssertionError(f"{name}: dtype {got.dtype} != {ref.dtype}")
     if not bool(got.isfinite().all()):
         raise AssertionError(f"{name}: non-finite output")
-    err, rel = rel_err(got, ref)
+    err, rel = rel_err(got.float(), ref.float())
     if rel > tol:
         raise AssertionError(f"{name}: max abs err {err:.3e} (rel {rel:.3e})"
                              f" > rel {tol}")
     return err, rel
 
 
-def bound(nbytes: float, flops: float):
+def bound(nbytes: float, flops: float, peak_flops: float = PEAK_F32_FLOPS):
     t_bytes = nbytes / PEAK_BYTES * 1e3
-    t_ops = flops / PEAK_F32_FLOPS * 1e3
+    t_ops = flops / peak_flops * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -147,49 +178,57 @@ def make_case(name, args, geometry, dev, gen):
 
     from lt_tpu_torch.ops.kernels import conv3d, unproject, updown
 
-    def randn(*shape, scale=1.0):
-        return torch.randn(shape, generator=gen, device=dev) * scale
+    dt = _dtype_of(name, args)
+    f = dt.itemsize            # bytes per activation / weight element
 
-    f = 4  # bytes per float32
+    def randn(*shape, scale=1.0, dtype=dt):
+        return (torch.randn(shape, generator=gen, device=dev)
+                * scale).to(dtype)
+
     if name == "conv3d_fused":
-        _, _, _, res_ptr, _, b, sx, sy, sz, cin, cout, k, relu = args
+        _, _, _, res_ptr, _, b, sx, sy, sz, cin, cout, k, relu, _, _ = args
+        out_dt = torch.bfloat16 if args[-1] else torch.float32
         x = randn(b, sx, sy, sz, cin)
         w = randn(k, k, k, cin, cout, scale=(k ** 3 * cin) ** -0.5)
-        bias = randn(cout, scale=0.1)
+        bias = randn(cout, scale=0.1, dtype=torch.float32)
         res = randn(b, sx, sy, sz, cout) if res_ptr else None
         w_lib = w.permute(4, 3, 0, 1, 2).contiguous()
+        b_lib = bias.to(dt)
         vox = b * sx * sy * sz
-        nbytes = f * (x.numel() + w.numel() + cout + vox * cout
-                      * (2 if res is not None else 1))
+        nbytes = (f * (x.numel() + w.numel()
+                       + (vox * cout if res is not None else 0))
+                  + 4 * cout + out_dt.itemsize * vox * cout)
         return Case(
-            lambda: conv3d.conv3d_fused(x, w, bias, res, bool(relu)),
-            lambda: conv3d.conv3d_fused_plain(x, w, bias, res, bool(relu)),
-            lambda: F.conv3d(x.permute(0, 4, 1, 2, 3), w_lib, bias,
+            lambda: conv3d.conv3d_fused(x, w, bias, res, bool(relu), out_dt),
+            lambda: conv3d.conv3d_fused_plain(x, w, bias, res, bool(relu),
+                                              out_dt),
+            lambda: F.conv3d(x.permute(0, 4, 1, 2, 3), w_lib, b_lib,
                              padding=(k - 1) // 2),
             nbytes, 2.0 * vox * k ** 3 * cin * cout)
     if name == "upsample3d_2x":
-        _, _, _, skip_ptr, _, b, sx, sy, sz, cin, cout = args
+        _, _, _, skip_ptr, _, b, sx, sy, sz, cin, cout, _ = args
         x = randn(b, sx, sy, sz, cin)
         w8 = randn(cin, 8 * cout, scale=cin ** -0.5)
-        b8 = randn(cout, scale=0.1).repeat(8)
+        b8 = randn(cout, scale=0.1, dtype=torch.float32).repeat(8)
         skip = randn(b, 2 * sx, 2 * sy, 2 * sz, cout) if skip_ptr else None
         w_lib = w8.reshape(cin, 2, 2, 2, cout).permute(0, 4, 1, 2, 3)
         w_lib = w_lib.contiguous()
+        b_lib = b8[:cout].to(dt)
         out_n = b * 8 * sx * sy * sz * cout
 
         def library():
             y = F.conv_transpose3d(x.permute(0, 4, 1, 2, 3), w_lib,
-                                   b8[:cout], stride=2).relu_()
+                                   b_lib, stride=2).relu_()
             return y if skip is None else y.add_(skip.permute(0, 4, 1, 2, 3))
 
         return Case(
             lambda: updown.upsample3d_2x(x, w8, b8, skip),
             lambda: updown.upsample3d_2x_plain(x, w8, b8, skip), library,
-            f * (x.numel() + w8.numel() + b8.numel() + out_n
-                 * (2 if skip is not None else 1)),
+            f * (x.numel() + w8.numel() + out_n
+                 * (2 if skip is not None else 1)) + 4 * b8.numel(),
             2.0 * out_n * cin)
     if name == "max_pool3d_2x":
-        _, _, b, sx, sy, sz, c = args
+        _, _, b, sx, sy, sz, c, _ = args
         x = randn(b, sx, sy, sz, c)
         return Case(
             lambda: updown.max_pool3d_2x(x),
@@ -197,12 +236,13 @@ def make_case(name, args, geometry, dev, gen):
             lambda: F.max_pool3d(x.permute(0, 4, 1, 2, 3), 2),
             f * x.numel() * 9 / 8, 7.0 * x.numel() / 8)
     if name == "unproject_agg":
-        _, _, _, conf_ptr, _, b, v, h, w, c, s, method, _, _ = args
+        _, _, _, conf_ptr, _, b, v, h, w, c, s, method, _, _, _ = args
         names = {0: "softmax", 1: "sum", 2: "max", 3: "conf"}
         feats = randn(b, v, h, w, c)
         m = geometry(b)
         mask = torch.ones(b, v, device=dev)
-        conf = randn(b, v, c).abs() if conf_ptr else None
+        conf = (randn(b, v, c, dtype=torch.float32).abs() if conf_ptr
+                else None)
         n = b * s ** 3
         # Ops counted as if every voxel's 4 taps were in the map for every
         # view (the most the data could need); the bytes bound is larger.
@@ -211,7 +251,7 @@ def make_case(name, args, geometry, dev, gen):
                                             names[method], s),
             lambda: unproject.unproject_agg_plain(feats, m, mask, conf,
                                                   names[method], s),
-            None, f * (feats.numel() + m.numel() + mask.numel() + n * c),
+            None, f * (feats.numel() + n * c) + 4 * (m.numel() + mask.numel()),
             n * v * (30.0 + 8.0 * c + 4.0 * c))
     raise KeyError(name)
 
@@ -264,10 +304,19 @@ def record_launches(fn):
     return calls
 
 
+def _dtype_of(name, args):
+    """The activation type of a recorded launch: its C dtype argument (the
+    last one; K2 has the input's before the output's)."""
+    import torch
+
+    code = args[-2] if name == "conv3d_fused" else args[-1]
+    return torch.bfloat16 if code else torch.float32
+
+
 def _acc(table, key, mult, err, rel, ms, plain_ms, lib_ms, case):
     acc = table.setdefault(key, dict(
         launches=0, max_abs_err=0.0, max_rel_err=0.0, ms=0.0, plain_ms=0.0,
-        library_ms=None, nbytes=0.0, flops=0.0))
+        library_ms=None, nbytes=0.0, flops=0.0, tc_bound_ms=0.0))
     acc["launches"] += mult
     acc["max_abs_err"] = max(acc["max_abs_err"], err)
     acc["max_rel_err"] = max(acc["max_rel_err"], rel)
@@ -277,6 +326,8 @@ def _acc(table, key, mult, err, rel, ms, plain_ms, lib_ms, case):
         acc["library_ms"] = (acc["library_ms"] or 0.0) + mult * lib_ms
     acc["nbytes"] += mult * case.nbytes
     acc["flops"] += mult * case.flops
+    acc["tc_bound_ms"] += mult * bound(case.nbytes, case.flops,
+                                       PEAK_BF16_TC_FLOPS)[0]
 
 
 def replay(calls, geometry, dev):
@@ -293,8 +344,10 @@ def replay(calls, geometry, dev):
         distinct.setdefault(key, [entry, name, args, 0])[3] += 1
     for entry, name, args, mult in distinct.values():
         case = make_case(name, args, geometry, dev, gen)
+        tol = (REL_TOL if _dtype_of(name, args) == torch.float32
+               else REL_TOL_BF16)
         err, rel = check(f"{name}{_shape_str(name, args)}", case.run(),
-                         case.plain())
+                         case.plain(), tol)
         ms = cuda_ms(case.run)
         plain_ms = cuda_ms(case.plain)
         lib_ms = None if case.library is None else cuda_ms(case.library)
@@ -327,7 +380,9 @@ def _shape_str(name, args):
 # ---------------------------------------------------------------------------
 
 
-def entry_point_checks(batch, geometry, dev):
+def entry_point_checks(batch, geometry, dev, dt=None, tol=REL_TOL):
+    """Rows 1-7 at the flagship shapes in type ``dt`` (default float32):
+    each port entry point against the composition of plain versions."""
     import torch
 
     from lt_tpu_torch.ops.kernels import conv_mp, res3d, unproject, updown
@@ -335,23 +390,30 @@ def entry_point_checks(batch, geometry, dev):
 
     gen = torch.Generator(device=dev).manual_seed(2)
 
-    def randn(*shape, scale=1.0):
-        return torch.randn(shape, generator=gen, device=dev) * scale
+    dt = dt or torch.float32
+
+    def randn(*shape, scale=1.0, dtype=None):
+        return (torch.randn(shape, generator=gen, device=dev)
+                * scale).to(dtype or dt)
+
+    def fb(c):
+        """A float32 bias."""
+        return randn(c, scale=0.1, dtype=torch.float32)
 
     def conv_w(k, cin, cout):
         return randn(k, k, k, cin, cout, scale=(k ** 3 * cin) ** -0.5)
 
     def block(cin, c, proj=False):
-        blk = [conv_w(3, cin, c), randn(c, scale=0.1), conv_w(3, c, c),
-               randn(c, scale=0.1)]
+        blk = [conv_w(3, cin, c), fb(c), conv_w(3, c, c),
+               fb(c)]
         if proj:
-            blk.append((randn(cin, c, scale=cin ** -0.5), randn(c, scale=0.1)))
+            blk.append((randn(cin, c, scale=cin ** -0.5), fb(c)))
         return blk
 
     def tail(c, out):
-        return [(randn(c, c, scale=c ** -0.5), randn(c, scale=0.1), True),
-                (randn(c, c, scale=c ** -0.5), randn(c, scale=0.1), True),
-                (randn(c, out, scale=c ** -0.5), randn(out, scale=0.1),
+        return [(randn(c, c, scale=c ** -0.5), fb(c), True),
+                (randn(c, c, scale=c ** -0.5), fb(c), True),
+                (randn(c, out, scale=c ** -0.5), fb(out),
                  False)]
 
     def pw(x, w, b, relu=False):
@@ -380,7 +442,7 @@ def entry_point_checks(batch, geometry, dev):
         got, ref = kernel_fn(), plain_fn()
         got = got if isinstance(got, tuple) else (got,)
         ref = ref if isinstance(ref, tuple) else (ref,)
-        errs = [check(label, g, r) for g, r in zip(got, ref)]
+        errs = [check(label, g, r, tol) for g, r in zip(got, ref)]
         torch.cuda.synchronize()
         ms, plain_ms = cuda_ms(kernel_fn, 100), cuda_ms(plain_fn, 100)
         log(f"  {label}: max_abs_err {max(e for e, _ in errs):.3e} rel "
@@ -391,7 +453,7 @@ def entry_point_checks(batch, geometry, dev):
     h = s // 2
     feats = randn(b, 4, hm, hm, 32)
     m = geometry(b)
-    conf = randn(b, 4, 32).abs()
+    conf = randn(b, 4, 32, dtype=torch.float32).abs()
     for method in ("softmax", "sum", "max", "conf"):
         for masked in (False, True):
             mask = torch.ones(b, 4, device=dev)
@@ -406,7 +468,7 @@ def entry_point_checks(batch, geometry, dev):
 
     x16 = randn(b, s, s, s, 16)
     x32 = randn(b, s, s, s, 32)
-    w7, b7 = conv_w(7, 32, 16), randn(16, scale=0.1)
+    w7, b7 = conv_w(7, 32, 16), fb(16)
     run(f"conv3d_mp k7 32->16 @{s}^3",
         lambda: conv_mp.conv3d_mp(x32, w7, b7, relu=True),
         lambda: conv3d_fused_plain(x32, w7, b7, relu=True))
@@ -441,7 +503,7 @@ def entry_point_checks(batch, geometry, dev):
         lambda: res3d.res3d_block_fused(h64, *blk64, emit_pooled=True),
         lambda: (p_block(h64, blk64), updown.max_pool3d_2x_plain(h64)))
     w8 = randn(64, 8 * 32, scale=64 ** -0.5)
-    b8 = randn(32, scale=0.1).repeat(8)
+    b8 = fb(32).repeat(8)
     run(f"upsample_res3d_fused {h}^3x64 -> {s}^3x32 + back_res + tail",
         lambda: res3d.upsample_res3d_fused(h64, w8, b8, x32, [blk32], tail=t),
         lambda: p_tail(p_block(
@@ -460,23 +522,22 @@ def entry_point_checks(batch, geometry, dev):
 # ---------------------------------------------------------------------------
 
 
-def train_entry_points(geometry, dev):
-    """K5 and K6 vs plain (rel REL_TOL) at the flagship training shapes, with
-    kernel, plain and library times and the bound; returns their rows."""
+def _sampling_inputs(geometry, dev, seed):
+    """Features, matrices and the ``F.grid_sample`` yardstick at the
+    flagship training shapes (20 views of 96^2 x 32 into 64^3).
+
+    Returns (feats (BV, H, W, C), m (BV, 3, 4), library forward, library
+    input gradient taking a (BV, C, 1, N)-shaped cotangent).  The library
+    grid is the projected one with voxels at w <= 0 moved off the map."""
     import torch
     import torch.nn.functional as F
 
-    from lt_tpu_torch.ops.kernels import sample, unproject
+    from lt_tpu_torch.ops.kernels import sample
 
     b, s, hm, c = TRAIN_BATCH, FLAGSHIP["volume"], FLAGSHIP["heatmap"], 32
-    bv, n = b * 4, FLAGSHIP["volume"] ** 3
-    gen = torch.Generator(device=dev).manual_seed(3)
-    feats = torch.randn((bv, hm, hm, c), generator=gen, device=dev)
-    m = geometry(b).reshape(bv, 3, 4).contiguous()
-    g = torch.randn((bv, c, n), generator=gen, device=dev)
-
-    # The library yardstick: F.grid_sample on the projected grid (voxels at
-    # w <= 0 moved off the map) and its input gradient.
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    feats = torch.randn((b * 4, hm, hm, c), generator=gen, device=dev)
+    m = geometry(b).reshape(b * 4, 3, 4).contiguous()
     uvw = sample._project(m, s)
     w = uvw[..., 2]
     gx = 2.0 * uvw[..., 0] / (w * hm) - 1.0
@@ -486,17 +547,36 @@ def train_entry_points(geometry, dev):
     grid = grid[:, None].contiguous()                 # (BV, 1, N, 2)
     f_nchw = feats.permute(0, 3, 1, 2).contiguous().requires_grad_()
     lib_out = F.grid_sample(f_nchw, grid, align_corners=True)
+
+    def lib_fwd():
+        return F.grid_sample(f_nchw.detach(), grid, align_corners=True)
+
+    def lib_grad(g_lib):
+        return torch.autograd.grad(lib_out, f_nchw, g_lib, retain_graph=True)
+
+    return feats, m, gen, lib_fwd, lib_grad
+
+
+def train_entry_points(geometry, dev):
+    """K5 and K6 vs plain (rel REL_TOL) at the flagship training shapes, with
+    kernel, plain and library times and the bound; returns their rows."""
+    import torch
+
+    from lt_tpu_torch.ops.kernels import sample, unproject
+
+    b, s, hm, c = TRAIN_BATCH, FLAGSHIP["volume"], FLAGSHIP["heatmap"], 32
+    bv, n = b * 4, FLAGSHIP["volume"] ** 3
+    feats, m, gen, lib_fwd, lib_grad = _sampling_inputs(geometry, dev, 3)
+    g = torch.randn((bv, c, n), generator=gen, device=dev)
     g_lib = g[:, :, None, :]
 
     k5 = (lambda: sample.sample_views_t(feats, m, s),
           lambda: sample.sample_views_t_plain(feats, m, s),
-          lambda: F.grid_sample(f_nchw.detach(), grid, align_corners=True),
-          4.0 * (feats.numel() + m.numel() + bv * c * n))
+          lib_fwd, 4.0 * (feats.numel() + m.numel() + bv * c * n))
     k6 = (lambda: sample.sample_views_grad_t(g, m, tuple(feats.shape), s),
           lambda: sample.sample_views_grad_t_plain(g, m, tuple(feats.shape),
                                                    s),
-          lambda: torch.autograd.grad(lib_out, f_nchw, g_lib,
-                                      retain_graph=True),
+          lambda: lib_grad(g_lib),
           4.0 * (g.numel() + m.numel() + feats.numel()))
     # The fused aggregation's backward (K5, the softmax VJP, K6) against
     # autograd of the plain aggregation, at the same shapes.
@@ -534,9 +614,199 @@ def train_entry_points(geometry, dev):
             f"library {lib_ms:.4f} ms  bound {b_ms:.4f} ms ({b_by})")
         rows[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                       "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms}
-    del feats, g, lib_out, f_nchw, grid, uvw
+    del feats, g, g_lib, lib_fwd, lib_grad, k5, k6
     torch.cuda.empty_cache()
     return rows
+
+
+def alt_entry_points(batch, geometry, dev):
+    """The TPU entry points with no caller on the model paths, at the
+    flagship shapes: ``conv3d_same`` and the three ``res3d_block_*`` at
+    64^3 (float32 and bfloat16), ``sample_views_affine`` forward and
+    backward (K7, K8) at the training shapes.  Each is held to its plain
+    version and must launch its kernel.  Returns (launches by kernel, the
+    K7 / K8 rows)."""
+    import torch
+    import torch.nn.functional as F
+
+    from lt_tpu_torch.ops.kernels import (_build, conv3d, conv_mp,
+                                          res3d_folded, res3d_q4, sample)
+    from lt_tpu_torch.ops.kernels.conv3d import conv3d_fused_plain
+
+    gen = torch.Generator(device=dev).manual_seed(4)
+    b, s = batch, FLAGSHIP["volume"]
+    vox = b * s ** 3
+    totals = dict.fromkeys(_build.SOURCES, 0)
+
+    def randn(*shape, scale=1.0, dtype=torch.float32):
+        return (torch.randn(shape, generator=gen, device=dev)
+                * scale).to(dtype)
+
+    def run(label, kernels, fn, plain, library, nbytes, flops, tol):
+        """One entry point: check, count its launches, time, bound."""
+        kernels = (kernels,) if isinstance(kernels, str) else kernels
+        _build.reset_launches()
+        got = fn()
+        made = {k: v for k, v in _build.LAUNCHES.items() if v}
+        if set(made) != set(kernels):
+            raise AssertionError(f"{label}: launched {made}, want "
+                                 f"{kernels}")
+        for k, v in made.items():
+            totals[k] += v
+        kernel, n_launch = "+".join(made), sum(made.values())
+        err, rel = check(label, got, plain(), tol)
+        del got
+        torch.cuda.synchronize()
+        ms, plain_ms = cuda_ms(fn, 100), cuda_ms(plain, 100)
+        lib_ms = cuda_ms(library, 100)
+        b_ms, b_by = bound(nbytes, flops)
+        tc_ms, _ = bound(nbytes, flops, PEAK_BF16_TC_FLOPS)
+        log(f"  {label}: {n_launch} launches of {kernel}, max_abs_err "
+            f"{err:.3e} rel {rel:.3e}  kernel {ms:.4f} ms  plain "
+            f"{plain_ms:.4f} ms  library {lib_ms:.4f} ms  bound {b_ms:.4f} "
+            f"ms ({b_by}; with tensor cores {tc_ms:.4f} ms)")
+        torch.cuda.empty_cache()
+        return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms}
+
+    def lib_conv(x, w, bias):
+        """F.conv3d on the NCDHW view, cuDNN in x's type."""
+        k = w.shape[0]
+        return F.conv3d(x.permute(0, 4, 1, 2, 3),
+                        w.permute(4, 3, 0, 1, 2), bias.to(x.dtype),
+                        padding=(k - 1) // 2)
+
+    def pw(w):
+        return w.reshape(1, 1, 1, *w.shape)
+
+    for dt, tol in ((torch.float32, REL_TOL), (torch.bfloat16, REL_TOL_BF16)):
+        name = str(dt).replace("torch.", "")
+        f = dt.itemsize
+
+        def cw(k, cin, cout):
+            return randn(k, k, k, cin, cout, scale=(k ** 3 * cin) ** -0.5,
+                         dtype=dt)
+
+        def fb(c):
+            return randn(c, scale=0.1)
+
+        x32 = randn(b, s, s, s, 32, dtype=dt)
+        x16 = randn(b, s, s, s, 16, dtype=dt)
+        w, bias = cw(3, 32, 32), fb(32)
+        w_lib = w.permute(4, 3, 0, 1, 2).contiguous()
+        conv_flops = 2.0 * vox * 27 * 32 * 32
+        for residual in (None, x32):
+            run(f"conv3d_same 32->32 @{s}^3 x{b} {name} residual="
+                f"{residual is not None}", "conv3d_fused",
+                lambda: conv3d.conv3d_same(x32, w, bias, relu=True,
+                                           residual=residual),
+                lambda: conv3d_fused_plain(x32, w, bias, residual, True),
+                lambda: F.conv3d(x32.permute(0, 4, 1, 2, 3), w_lib,
+                                 bias.to(dt), padding=1),
+                f * (vox * 32 * (3 if residual is not None else 2)
+                     + w.numel()) + 4 * 32, conv_flops, tol)
+
+        # Res3D blocks: two k=3 convs, a 1x1x1 projection or a per-voxel
+        # tail; bytes as one fused pass (input read once, output written
+        # once), the bound the TPU's whole-block kernels aim at.
+        proj = (cw(3, 16, 32), fb(32), cw(3, 32, 32), fb(32))
+        ws, bs = randn(16, 32, scale=0.25, dtype=dt), fb(32)
+        same = (cw(3, 32, 32), fb(32), cw(3, 32, 32), fb(32))
+        tail = [(randn(32, 32, scale=32 ** -0.5, dtype=dt), fb(32), True),
+                (randn(32, 32, scale=32 ** -0.5, dtype=dt), fb(32), True),
+                (randn(32, 17, scale=32 ** -0.5, dtype=dt), fb(17), False)]
+
+        def plain_block(x, prm, skip=None, tl=()):
+            y = conv3d_fused_plain(x, prm[0], prm[1], relu=True)
+            sk = x if skip is None else conv3d_fused_plain(x, pw(skip[0]),
+                                                           skip[1])
+            y = conv3d_fused_plain(y, prm[2], prm[3], residual=sk, relu=True)
+            for wt, bt, relu in tl:
+                y = conv3d_fused_plain(y, pw(wt), bt, relu=relu)
+            return y
+
+        def lib_block(x, prm, skip=None, tl=()):
+            y = lib_conv(lib_conv(x, prm[0], prm[1]).permute(0, 2, 3, 4, 1),
+                         prm[2], prm[3])
+            if skip is not None:
+                lib_conv(x, pw(skip[0]), skip[1])
+            for wt, bt, _ in tl:
+                y = lib_conv(y.permute(0, 2, 3, 4, 1), pw(wt), bt)
+            return y
+
+        def weights(prm, skip=None, tl=()):
+            return (sum(t.numel() for t in prm[::2])
+                    + (skip[0].numel() if skip else 0)
+                    + sum(t[0].numel() for t in tl))
+
+        proj_flops = 2.0 * vox * (27 * 16 * 32 + 27 * 32 * 32 + 16 * 32)
+        tail_flops = 2.0 * vox * (2 * 27 * 32 * 32 + 2 * 32 * 32 + 32 * 17)
+        block_tol = tol if dt == torch.float32 else 2 * tol
+        for sp in (2, 4):
+            run(f"res3d_block_mp s={sp} 16->32 projection @{s}^3 x{b} {name}",
+                "conv3d_fused",
+                lambda: conv_mp.res3d_block_mp(x16, *proj, skip_proj=(ws, bs),
+                                               s=sp),
+                lambda: plain_block(x16, proj, (ws, bs)),
+                lambda: lib_block(x16, proj, (ws, bs)),
+                f * (vox * (16 + 32) + weights(proj, (ws, bs))) + 4 * 96,
+                proj_flops, block_tol)
+        run(f"res3d_block_q4 32 + tail 32->32->32->17 @{s}^3 x{b} {name}",
+            "conv3d_fused",
+            lambda: res3d_q4.res3d_block_q4(x32, *same, tail=tail),
+            lambda: plain_block(x32, same, tl=tail),
+            lambda: lib_block(x32, same, tl=tail),
+            f * (vox * (32 + 17) + weights(same, tl=tail)) + 4 * 145,
+            tail_flops, block_tol)
+        run(f"res3d_block_folded 32 @{s}^3 x{b} {name}", "conv3d_fused",
+            lambda: res3d_folded.res3d_block_folded(x32, *same),
+            lambda: plain_block(x32, same),
+            lambda: lib_block(x32, same),
+            f * (vox * 64 + weights(same)) + 4 * 64,
+            2.0 * vox * 2 * 27 * 32 * 32, block_tol)
+        del x32, x16, w, w_lib, proj, same, tail
+        torch.cuda.empty_cache()
+
+    # sample_views_affine: forward K7, backward K8, at the training shapes.
+    hm, c, n = FLAGSHIP["heatmap"], 32, s ** 3
+    feats, m, gen5, lib_fwd, lib_grad = _sampling_inputs(geometry, dev, 5)
+    bv = feats.shape[0]
+    g = torch.randn((bv, n, c), generator=gen5, device=dev)
+    g_lib = g.transpose(1, 2)[:, :, None, :]
+    shape = tuple(feats.shape)
+    ops = bv * n * (30.0 + 8.0 * c)
+    rows = {}
+    rows["sample_views"] = run(
+        f"sample_views_affine forward ({bv},{hm},{hm},{c},S={s}) float32",
+        "sample_views", lambda: sample.sample_views_affine(feats, m, s),
+        lambda: sample.sample_views_plain(feats, m, s), lib_fwd,
+        4.0 * (feats.numel() + m.numel() + bv * n * c), ops, REL_TOL)
+    run(f"sample_views_affine forward ({bv},{hm},{hm},{c},S={s}) bfloat16 "
+        f"out", "sample_views",
+        lambda: sample.sample_views_affine(feats, m, s, torch.bfloat16),
+        lambda: sample.sample_views_plain(feats, m, s, torch.bfloat16),
+        lib_fwd, 4.0 * (feats.numel() + m.numel()) + 2.0 * bv * n * c, ops,
+        REL_TOL_BF16)
+
+    def backward():
+        x = feats.detach().requires_grad_()
+        sample.sample_views_affine(x, m, s).backward(g)
+        return x.grad
+
+    rows["sample_views_grad"] = run(
+        f"sample_views_affine backward ({bv},{n},{c}) -> ({bv},{hm},{hm},{c})"
+        f" float32", ("sample_views", "sample_views_grad"), backward,
+        lambda: sample.sample_views_grad_plain(g, m, shape, s),
+        lambda: lib_grad(g_lib),
+        4.0 * (g.numel() + m.numel() + feats.numel()), ops, REL_TOL)
+    # The kernel alone, without the forward that the autograd call runs.
+    k8_ms = cuda_ms(lambda: sample.sample_views_grad(g, m, shape, s))
+    log(f"  sample_views_grad alone: {k8_ms:.4f} ms (the backward line "
+        f"above times forward + backward)")
+    rows["sample_views_grad"]["ms"] = k8_ms
+    del feats, g, g_lib, lib_fwd, lib_grad
+    torch.cuda.empty_cache()
+    return totals, rows
 
 
 def train_flagship(dev):
@@ -739,6 +1009,91 @@ def main(argv=None) -> int:
             rescale_proj_to_heatmap(proj[:nb], (fl["image"],) * 2,
                                     (fl["heatmap"],) * 2), aff).contiguous()
 
+    def build_model(use_kernels="fused", dt=torch.float32, like=None):
+        net = VolumetricTriangulationNet(
+            num_joints=17, num_layers=fl["layers"], volume_size=fl["volume"],
+            cuboid_side=2500.0, volume_aggregation_method="softmax",
+            kind="mpii", use_kernels=use_kernels, device=dev, seed=0,
+            compute_dtype=dt)
+        if like is not None:
+            net.load_state_dict(like.state_dict())
+        return net
+
+    def drive(net, n, what):
+        """``n`` timed requests after the counts were set to 0; checks
+        shapes, finiteness and that K1-K4 were all launched."""
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        times, outs = [], []
+        for _ in range(n):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            outs.append(net(images, proj, pelvis))
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        launches = dict(_build.LAUNCHES)
+        log(f"  launches over {n} requests: "
+            f"{ {k: v for k, v in launches.items() if v} }")
+        missing = [k for k in EVAL_KERNELS if launches[k] == 0]
+        if missing:
+            raise AssertionError(f"kernels never launched on the {what} "
+                                 f"path: {missing}")
+        for out in outs:
+            kp, vols = out.keypoints_3d, out.volumes
+            if tuple(kp.shape) != (b, 17, 3) or tuple(vols.shape) != (
+                    b, 17) + (fl["volume"],) * 3:
+                raise AssertionError(f"output shapes {tuple(kp.shape)}, "
+                                     f"{tuple(vols.shape)}")
+            if kp.dtype != torch.float32 or not (
+                    bool(kp.isfinite().all())
+                    and bool(vols.isfinite().all())):
+                raise AssertionError(f"non-finite {what} output")
+        ms = float(np.median(times))
+        log(f"  forward ms per request (median of {n}): {ms:.1f}  all: "
+            f"{[round(t, 1) for t in times]}  frames/s at batch {b}: "
+            f"{b / ms * 1e3:.2f}")
+        return outs, launches
+
+    def timed_plain(net, label):
+        net(images, proj, pelvis)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = net(images, proj, pelvis)
+        torch.cuda.synchronize()
+        log(f"  plain path ({label}): "
+            f"{(time.perf_counter() - t0) * 1e3:.1f} ms")
+        return out
+
+    def kernel_table(calls, launches, n):
+        """Replay one forward's launches; per-kernel sums of this path."""
+        per_kernel, per_entry = replay(calls, geometry, dev)
+        for entry, e in per_entry.items():
+            b_ms, b_by = bound(e["nbytes"], e["flops"])
+            log(f"  entry point {entry}: {e['launches']} launches/forward, "
+                f"kernels {e['ms']:.3f} ms, plain {e['plain_ms']:.3f} ms, "
+                f"bound {b_ms:.4f} ms ({b_by}; with tensor cores "
+                f"{e['tc_bound_ms']:.4f} ms), max rel err "
+                f"{e['max_rel_err']:.3e}")
+        table = {}
+        for name in EVAL_KERNELS:
+            k = per_kernel[name]
+            b_ms, b_by = bound(k["nbytes"], k["flops"])
+            table[name] = {
+                "max_abs_err": k["max_abs_err"], "ms": k["ms"],
+                "plain_ms": k["plain_ms"], "bound_ms": b_ms,
+                "bound_by": b_by, "library_ms": k["library_ms"],
+                "tc_bound_ms": k["tc_bound_ms"]}
+            log(f"  {name}: {launches[name] // n} launches/forward, kernel "
+                f"{k['ms']:.3f} ms, plain {k['plain_ms']:.3f} ms, library "
+                f"{_ms(k['library_ms'])}, bound {b_ms:.4f} ms ({b_by}; with "
+                f"tensor cores {k['tc_bound_ms']:.4f} ms), max rel err "
+                f"{k['max_rel_err']:.3e}")
+        return table
+
+    def kp_dist(a, ref):
+        """Per-joint distances (mm) between two keypoint sets."""
+        return (a - ref).norm(dim=-1).flatten()
+
     # Phase 3: entry points at flagship shapes, kernel vs plain.
     log(f"[entry points] batch {b}, flagship shapes, tolerance rel "
         f"{REL_TOL}")
@@ -749,52 +1104,12 @@ def main(argv=None) -> int:
         f"{fl['image']}^2 x4 views, {fl['volume']}^3, softmax, 17 joints, "
         f"f32, seed 0, batch {b}")
     t0 = time.perf_counter()
-    model = VolumetricTriangulationNet(
-        num_joints=17, num_layers=fl["layers"], volume_size=fl["volume"],
-        cuboid_side=2500.0,
-        volume_aggregation_method="softmax", kind="mpii", device=dev, seed=0)
+    model = build_model()
     log(f"  model built in {time.perf_counter() - t0:.1f} s")
     calls = record_launches(lambda: model(images, proj, pelvis))  # warm-up
-    torch.cuda.synchronize()
-    _build.reset_launches()
-    times, outs = [], []
-    for _ in range(REQUESTS):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        outs.append(model(images, proj, pelvis))
-        torch.cuda.synchronize()
-        times.append((time.perf_counter() - t0) * 1e3)
-    launches = dict(_build.LAUNCHES)
-    log(f"  launches over {REQUESTS} requests: {launches}")
-    missing = [k for k in EVAL_KERNELS if launches[k] == 0]
-    if missing:
-        raise AssertionError(f"kernels never launched on the eval path: "
-                             f"{missing}")
-    for out in outs:
-        kp, vols = out.keypoints_3d, out.volumes
-        if tuple(kp.shape) != (b, 17, 3) or tuple(vols.shape) != (
-                b, 17) + (fl["volume"],) * 3:
-            raise AssertionError(f"output shapes {tuple(kp.shape)}, "
-                                 f"{tuple(vols.shape)}")
-        if not (bool(kp.isfinite().all()) and bool(vols.isfinite().all())):
-            raise AssertionError("non-finite flagship output")
-    ms = float(np.median(times))
-    log(f"  forward ms per request (median of {len(times)}): {ms:.1f}  "
-        f"all: {[round(t, 1) for t in times]}  frames/s at batch {b}: "
-        f"{b / ms * 1e3:.2f}")
-
-    plain_model = VolumetricTriangulationNet(
-        num_joints=17, num_layers=fl["layers"], volume_size=fl["volume"],
-        cuboid_side=2500.0,
-        use_kernels=False, device=dev, seed=0)
-    plain_model.load_state_dict(model.state_dict())
-    plain_out = plain_model(images, proj, pelvis)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    plain_out = plain_model(images, proj, pelvis)
-    torch.cuda.synchronize()
-    plain_ms = (time.perf_counter() - t0) * 1e3
-    log(f"  plain path (PyTorch modules, cuDNN f32): {plain_ms:.1f} ms")
+    outs, launches = drive(model, REQUESTS, "eval")
+    plain_model = build_model(False, like=model)
+    plain_out = timed_plain(plain_model, "PyTorch modules, cuDNN f32")
     for i, out in enumerate(outs):
         kp_err = (out.keypoints_3d - plain_out.keypoints_3d).abs().max().item()
         vol_err, vol_rel = rel_err(out.volumes, plain_out.volumes)
@@ -803,36 +1118,119 @@ def main(argv=None) -> int:
         if kp_err > KP_TOL_MM or vol_rel > REL_TOL:
             raise AssertionError(f"flagship request {i}: kernel path "
                                  f"disagrees with the plain path")
-    del plain_model, plain_out, outs, out
+    kp_f32 = outs[0].keypoints_3d.clone()
+    del plain_out, outs, out
     torch.cuda.empty_cache()
 
     # Phase 5: every main-path launch shape, kernel vs plain vs library.
     log(f"[kernels] {len(calls)} launches per flagship forward; distinct "
         f"shapes held to rel {REL_TOL}, times summed over one forward")
-    per_kernel, per_entry = replay(calls, geometry, dev)
-    for entry, e in per_entry.items():
-        b_ms, b_by = bound(e["nbytes"], e["flops"])
-        log(f"  entry point {entry}: {e['launches']} launches/forward, "
-            f"kernels {e['ms']:.3f} ms, plain {e['plain_ms']:.3f} ms, bound "
-            f"{b_ms:.4f} ms ({b_by}), max rel err {e['max_rel_err']:.3e}")
+    table = kernel_table(calls, launches, REQUESTS)
     rows = []
     for name in EVAL_KERNELS:
-        k = per_kernel[name]
-        b_ms, b_by = bound(k["nbytes"], k["flops"])
         rows.append({
             "name": name, "route": "cuda",
             "source": f"lt_tpu_torch/ops/kernels/csrc/{name}.cu",
             "replaces": REPLACES[name], "launches": launches[name],
             "launches_by_path": {"eval": launches[name]},
-            "max_abs_err": k["max_abs_err"], "ms": k["ms"],
-            "plain_ms": k["plain_ms"], "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": k["library_ms"]})
-        log(f"  {name}: {launches[name] // REQUESTS} launches/forward, "
-            f"kernel {k['ms']:.3f} ms, plain {k['plain_ms']:.3f} ms, library "
-            f"{k['library_ms']}, bound {b_ms:.4f} ms ({b_by}), max rel err "
-            f"{k['max_rel_err']:.3e}")
-    del model
+            **{k: v for k, v in table[name].items() if k != "tc_bound_ms"}})
+
+    def add_path(path, path_launches):
+        for row in rows:
+            n = path_launches.get(row["name"], 0)
+            if n:
+                row["launches"] += n
+                row["launches_by_path"][path] = n
+
+    # Phase 5b: rows 1-7 in bfloat16 at the flagship shapes.
+    log(f"[entry points bf16] batch {b}, flagship shapes, bfloat16, "
+        f"tolerance rel {REL_TOL_BF16}")
+    entry_point_checks(b, geometry, dev, torch.bfloat16, REL_TOL_BF16)
+
+    # Phase 5c: the bfloat16 flagship forward on the fused kernel path.
+    log(f"[flagship bf16] the same model and weights, bf16: true "
+        f"(compute_dtype bfloat16), use_kernels='fused', batch {b}")
+    model16 = build_model(dt=torch.bfloat16, like=model)
+    calls16 = record_launches(lambda: model16(images, proj, pelvis))
+    outs, launches16 = drive(model16, REQUESTS, "bfloat16 eval")
+    add_path("eval_bf16", launches16)
+    plain16 = build_model(False, torch.bfloat16, like=model)
+    plain_out = timed_plain(plain16, "PyTorch modules under autocast, "
+                                     "cuDNN bf16")
+    # The plain path's own spread: the images scaled by one bfloat16 ulp.
+    moved = plain16(images * (1.0 + 2.0 ** -8), proj, pelvis)
+    spread = kp_dist(moved.keypoints_3d, plain_out.keypoints_3d)
+    log(f"  plain bf16 path under images * (1 + 2^-8): keypoints move mean "
+        f"{spread.mean().item():.3e} p95 "
+        f"{spread.quantile(0.95).item():.3e} max {spread.max().item():.3e} "
+        f"mm (largest coordinate "
+        f"{(moved.keypoints_3d - plain_out.keypoints_3d).abs().max().item():.3e}"
+        f" mm)")
+    for i, out in enumerate(outs):
+        kp_err = (out.keypoints_3d - plain_out.keypoints_3d).abs().max().item()
+        vol_err, vol_rel = rel_err(out.volumes, plain_out.volumes)
+        log(f"  request {i}: keypoints max |kernel - plain| {kp_err:.3e} mm "
+            f"(limit {KP_TOL_BF16_MM}); volumes max abs {vol_err:.3e} (rel "
+            f"{vol_rel:.3e})")
+        if kp_err > KP_TOL_BF16_MM:
+            raise AssertionError(f"bfloat16 flagship request {i}: kernel "
+                                 f"path {kp_err:.3e} mm from the plain "
+                                 f"bfloat16 path (> {KP_TOL_BF16_MM})")
+    kp_bf16 = outs[0].keypoints_3d.clone()
+    d = kp_dist(kp_bf16, kp_f32)
+    log(f"  bf16 kernel path vs f32 kernel path keypoints: mean "
+        f"{d.mean().item():.3f} p95 {d.quantile(0.95).item():.3f} max "
+        f"{d.max().item():.3f} mm (random weights)")
+    del plain16, plain_out, moved, outs, out
     torch.cuda.empty_cache()
+    log(f"[kernels bf16] {len(calls16)} launches per bfloat16 forward; "
+        f"distinct shapes held to rel {REL_TOL_BF16}")
+    table16 = kernel_table(calls16, launches16, REQUESTS)
+    for row in rows:
+        row["bf16"] = table16[row["name"]]
+    del model16
+    torch.cuda.empty_cache()
+
+    # Phase 5d: the per-conv V2V configuration, float32 and bfloat16.
+    log(f"[flagship conv] use_kernels='conv': every V2V layer its own "
+        f"launch (conv3d_mp, conv3d_same, max_pool3d_2x, upsample3d_2x)")
+    for dt, ref_kp, path in ((torch.float32, kp_f32, "eval_conv"),
+                             (torch.bfloat16, kp_bf16, "eval_conv_bf16")):
+        net = build_model("conv", dt, like=model)
+        net(images, proj, pelvis)                       # warm-up
+        outs, conv_launches = drive(net, REQUESTS, f"per-conv {dt}")
+        add_path(path, conv_launches)
+        kp_err = (outs[0].keypoints_3d - ref_kp).abs().max().item()
+        log(f"  {dt}: keypoints max |conv - fused| {kp_err:.3e} mm (limit "
+            f"{KP_TOL_MM})")
+        if kp_err > KP_TOL_MM:
+            raise AssertionError(f"per-conv path ({dt}) disagrees with the "
+                                 f"fused path: {kp_err:.3e} mm")
+        del net, outs
+        torch.cuda.empty_cache()
+    del model, plain_model
+    torch.cuda.empty_cache()
+
+    # Phase 5e: the entry points with no caller on the model paths.
+    log(f"[alt entry points] conv3d_same, res3d_block_mp / _q4 / _folded at "
+        f"{fl['volume']}^3 batch {b}; sample_views_affine at {TRAIN_BATCH * 4}"
+        f" views; tolerance rel {REL_TOL} (float32), {REL_TOL_BF16} "
+        f"(bfloat16; {2 * REL_TOL_BF16} for a block, which rounds thrice)")
+    alt_launches, alt_rows = alt_entry_points(b, geometry, dev)
+    log(f"  launches over the alternative entry points: "
+        f"{ {k: v for k, v in alt_launches.items() if v} }")
+    missing = [k for k in ALT_KERNELS if alt_launches[k] == 0]
+    if missing:
+        raise AssertionError(f"kernels never launched by the alternative "
+                             f"entry points: {missing}")
+    add_path("alt", alt_launches)
+    for name in ("sample_views", "sample_views_grad"):
+        rows.append({"name": name, "route": "cuda",
+                     "source": f"lt_tpu_torch/ops/kernels/csrc/{name}.cu",
+                     "replaces": REPLACES[name],
+                     "launches": alt_launches[name],
+                     "launches_by_path": {"alt": alt_launches[name]},
+                     **alt_rows[name]})
 
     # Phase 6: the committed trained fixture (RN-18, 128^2, 32^3).
     fix = ROOT / "tests" / "fixtures" / "vol_rn18_synth.npz"
@@ -842,7 +1240,7 @@ def main(argv=None) -> int:
     for use_kernels in (True, False):
         net = VolumetricTriangulationNet(
             num_joints=17, num_layers=18, volume_size=32, cuboid_side=2500.0,
-            use_kernels=use_kernels, device=dev)
+            use_kernels="fused" if use_kernels else False, device=dev)
         load_volumetric_npz(net, str(fix), num_layers=18)
         outs.append(net(im_s, pj_s, kp_s))
     fk_err = (outs[0].keypoints_3d - outs[1].keypoints_3d).abs().max().item()
@@ -867,11 +1265,7 @@ def main(argv=None) -> int:
     # Phase 8: the flagship training step (kernel path vs plain path, then
     # timed on the kernel path).
     train_launches = train_flagship(dev)
-    for row in rows:
-        if row["name"] in TRAIN_KERNELS:
-            n = train_launches[row["name"]]
-            row["launches"] += n
-            row["launches_by_path"]["train"] = n
+    add_path("train", {k: train_launches[k] for k in TRAIN_KERNELS})
     for name in ("sample_views_t", "sample_views_grad_t"):
         rows.append({"name": name, "route": "cuda",
                      "source": f"lt_tpu_torch/ops/kernels/csrc/{name}.cu",

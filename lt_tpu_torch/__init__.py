@@ -24,3 +24,11 @@ def resolve_device(device="cuda") -> torch.device:
             f"device {device!r} requested but torch.cuda.is_available() is "
             "False; pass device='cpu' to run the plain PyTorch path")
     return dev
+
+
+def compute_context(x: torch.Tensor, compute_dtype: torch.dtype):
+    """The context in which PyTorch's own convolutions run in
+    ``compute_dtype`` on ``x``'s device: ``torch.autocast`` for bfloat16,
+    nothing for float32."""
+    return torch.autocast(x.device.type, dtype=torch.bfloat16,
+                          enabled=compute_dtype == torch.bfloat16)

@@ -18,16 +18,20 @@ from lt_tpu_torch.models.triangulation import VolumetricTriangulationNet
 GROUPS = ("backbone", "process_features", "volume_net")
 
 
-def make_model(config, device="cuda", use_kernels: bool = True,
+def make_model(config, device="cuda", use_kernels="fused",
                seed: int = 0) -> VolumetricTriangulationNet:
     """The configured volumetric model on ``device`` (the CUDA kernels
-    there; their plain versions only where ``device`` is the CPU)."""
+    there; their plain versions only where ``device`` is the CPU).
+
+    ``use_kernels``: ``"fused"``, ``"conv"`` or ``False``
+    (``models/v2v.py``).  ``bf16: true`` in the config (top level or under
+    ``model``) builds the bfloat16 eval model, as in ``lt_tpu``; training
+    it raises ``NotImplementedError``: the port trains in float32."""
     m = config.model
     if m.name != "vol":
         raise NotImplementedError(f"the port has the volumetric model only, "
                                   f"not {m.name!r}")
-    if config.get("bf16", m.get("bf16", False)):
-        raise NotImplementedError("the port computes in float32 only")
+    bf16 = bool(config.get("bf16", m.get("bf16", False)))
     backbone = m.backbone
     return VolumetricTriangulationNet(
         num_joints=backbone.num_joints, num_layers=backbone.num_layers,
@@ -41,7 +45,8 @@ def make_model(config, device="cuda", use_kernels: bool = True,
         kind=m.get("kind", "mpii"),
         transfer_cmu_to_human36m=m.get("transfer_cmu_to_human36m", False),
         use_kernels=use_kernels, remat=bool(config.opt.get("remat", False)),
-        device=device, seed=seed)
+        device=device, seed=seed,
+        compute_dtype=torch.bfloat16 if bf16 else torch.float32)
 
 
 def make_criterion(config):

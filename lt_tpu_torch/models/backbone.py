@@ -12,6 +12,20 @@ heads' ``features.*`` / ``head.*``), so a state_dict converts to ``lt_tpu``
 variables with ``lt_tpu.utils.torch_import``.  The convolutions are
 PyTorch's own (cuDNN on the card): they are XLA convolutions, not Pallas
 kernels, in ``lt_tpu``.  Input NCHW.
+
+``compute_dtype=torch.bfloat16`` (eval only) follows ``lt_tpu``'s bfloat16
+compute: parameters and BatchNorm statistics stay float32, every
+convolution and transposed convolution runs in bfloat16, the confidence
+heads pool and run their MLP in float32, and heatmaps and features come
+back as float32.  The forward runs under ``torch.autocast`` rather than on
+cast copies of the modules: the float32 master weights stay the only
+weights (a later optimizer step or ``load_state_dict`` needs no re-cast),
+and autocast casts exactly what flax's ``nn.Conv(dtype=bfloat16)`` casts,
+the input and the kernel of each convolution.  BatchNorm is outside
+autocast's lists, so ``F.batch_norm`` gets the bfloat16 activation with its
+float32 statistics and affine, normalizes in float32 and rounds the result
+to bfloat16 once: flax's ``BatchNorm(dtype=x.dtype)`` promotes ``x - mean``
+to float32 and casts its result to ``x.dtype`` the same way.
 """
 
 from __future__ import annotations
@@ -19,7 +33,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from lt_tpu_torch import resolve_device
+from lt_tpu_torch import compute_context, resolve_device
 from lt_tpu_torch.models.batchnorm import BatchNorm, run_block
 from lt_tpu_torch.models.init import init_weights
 
@@ -96,7 +110,12 @@ class GlobalAveragePoolingHead(nn.Module):
             if isinstance(layer, nn.MaxPool2d) and min(x.shape[2:]) < 2:
                 continue
             x = layer(x)
-        return torch.sigmoid(self.head(x.mean(dim=(2, 3))))
+        # As lt_tpu: under bfloat16 compute the pooling and the MLP are
+        # float32 (float32 and float64 activations pass as they are).
+        if x.dtype == torch.bfloat16:
+            x = x.float()
+        with torch.autocast(x.device.type, enabled=False):
+            return torch.sigmoid(self.head(x.mean(dim=(2, 3))))
 
 
 class PoseResNet(nn.Module):
@@ -110,9 +129,11 @@ class PoseResNet(nn.Module):
     def __init__(self, num_joints: int, num_layers: int = 152,
                  style: str = "simple", alg_confidences: bool = False,
                  vol_confidences: bool = False, remat: bool = False,
-                 device="cuda", seed: int = 0):
+                 device="cuda", seed: int = 0,
+                 compute_dtype: torch.dtype = torch.float32):
         super().__init__()
         self.remat = remat
+        self.compute_dtype = compute_dtype
         block_kind, layers = RESNET_SPEC[num_layers]
         block = BasicBlock if block_kind == "basic" else Bottleneck
         caffe = style == "caffe"
@@ -150,6 +171,13 @@ class PoseResNet(nn.Module):
         self.to(resolve_device(device)).eval()
 
     def forward(self, x):
+        if self.compute_dtype == torch.float32:
+            return self._forward(x)
+        with compute_context(x, self.compute_dtype):
+            heatmaps, features, alg_conf, vol_conf = self._forward(x)
+        return heatmaps.float(), features.float(), alg_conf, vol_conf
+
+    def _forward(self, x):
         x = self.maxpool(torch.relu(self.bn1(self.conv1(x))))
         for stage in (self.layer1, self.layer2, self.layer3, self.layer4):
             for block in stage:

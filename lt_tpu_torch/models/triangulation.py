@@ -7,6 +7,13 @@ cuDNN module graph in training) -> channels-last volumetric soft-argmax.
 In training the unprojection's backward runs kernels K5 and K6.  Public
 layouts as in ``lt_tpu``: images (B, V, H, W, 3), projections (B, V, 3, 4)
 in image pixels.
+
+``compute_dtype=torch.bfloat16`` (eval only) is ``lt_tpu``'s ``bf16: true``
+(``triangulation.py:208-231, 303-317``): the backbone and
+``process_features`` convolve in bfloat16, K1 reads bfloat16 features and
+writes the aggregated volume in bfloat16, V2V runs in bfloat16, and the
+soft-argmax widens its volume to float32.  Cameras, grids, the projection
+arithmetic and the keypoints are float32 throughout.
 """
 
 from __future__ import annotations
@@ -17,10 +24,10 @@ from typing import NamedTuple, Optional
 import torch
 from torch import nn
 
-from lt_tpu_torch import resolve_device
+from lt_tpu_torch import compute_context, resolve_device
 from lt_tpu_torch.models.backbone import PoseResNet
 from lt_tpu_torch.models.init import init_weights
-from lt_tpu_torch.models.v2v import V2VModel
+from lt_tpu_torch.models.v2v import V2VModel, kernel_path
 from lt_tpu_torch.ops import heatmaps as hm_ops
 from lt_tpu_torch.ops import volumetric as vol_ops
 from lt_tpu_torch.ops.kernels.unproject import unproject_heatmaps_affine
@@ -61,7 +68,9 @@ class VolumetricTriangulationNet(nn.Module):
     """Backbone features -> unprojection -> V2V -> volumetric soft-argmax.
 
     Built in eval mode; ``model.train()`` switches BatchNorm to batch
-    statistics and the forward to autograd.  ``use_kernels=False`` runs the
+    statistics and the forward to autograd.  ``use_kernels`` is ``"fused"``
+    (the default, also ``True``), ``"conv"`` (V2V's per-conv kernel
+    configuration, ``models/v2v.py``) or ``False``, which runs the
     plain reference path instead of the kernels:
     ``volumetric.unproject_heatmaps`` (under autograd in training) and V2V's
     unfused module graph (used to hold the kernel path to account).  The
@@ -75,10 +84,15 @@ class VolumetricTriangulationNet(nn.Module):
                  volume_softmax: bool = True, volume_multiplier: float = 1.0,
                  volume_size: int = 64, cuboid_side: float = 2500.0,
                  kind: str = "mpii", transfer_cmu_to_human36m: bool = False,
-                 use_kernels: bool = True, remat: bool = False,
-                 device="cuda", seed: int = 0):
+                 use_kernels="fused", remat: bool = False,
+                 device="cuda", seed: int = 0,
+                 compute_dtype: torch.dtype = torch.float32):
         super().__init__()
         dev = resolve_device(device)
+        if compute_dtype not in (torch.float32, torch.bfloat16):
+            raise ValueError(f"compute_dtype must be float32 or bfloat16, "
+                             f"got {compute_dtype}")
+        self.compute_dtype = compute_dtype
         self.volume_aggregation_method = volume_aggregation_method
         self.volume_softmax = volume_softmax
         self.volume_multiplier = volume_multiplier
@@ -86,15 +100,17 @@ class VolumetricTriangulationNet(nn.Module):
         self.cuboid_side = cuboid_side
         self.kind = kind
         self.transfer_cmu_to_human36m = transfer_cmu_to_human36m
-        self.use_kernels = use_kernels
+        self.use_kernels = kernel_path(use_kernels)
         self.backbone = PoseResNet(
             num_joints, num_layers, style, alg_confidences=False,
             vol_confidences=volume_aggregation_method.startswith("conf"),
-            remat=remat, device=dev, seed=seed)
+            remat=remat, device=dev, seed=seed,
+            compute_dtype=compute_dtype)
         self.process_features = nn.Sequential(nn.Conv2d(256, 32, 1))
         init_weights(self.process_features, seed + 1)
         self.volume_net = V2VModel(32, num_joints, use_kernels=use_kernels,
-                                   remat=remat, device=dev, seed=seed + 2)
+                                   remat=remat, device=dev, seed=seed + 2,
+                                   compute_dtype=compute_dtype)
         self.to(dev).eval()
 
     def forward(self, images: torch.Tensor, proj_matrices: torch.Tensor,
@@ -113,6 +129,10 @@ class VolumetricTriangulationNet(nn.Module):
             ``torch.Generator``, so a seed gives the same draw on every
             device), as ``lt_tpu`` draws from its 'aug' stream.
         """
+        if self.training and self.compute_dtype != torch.float32:
+            raise NotImplementedError(
+                "training runs in float32 only: compute_dtype=bfloat16 "
+                "(bf16: true) is an eval configuration of the port")
         if not self.training:
             with torch.no_grad():
                 return self._forward(images, proj_matrices, pelvis_keypoints,
@@ -152,7 +172,9 @@ class VolumetricTriangulationNet(nn.Module):
                    rotation_thetas, axis, self.transfer_cmu_to_human36m)
         coord_volumes = vol_ops.build_coord_volumes(*cv_args)
 
-        features = self.process_features(features).permute(0, 2, 3, 1)
+        with compute_context(features, self.compute_dtype):
+            features = self.process_features(features)
+        features = features.permute(0, 2, 3, 1)
         features = features.reshape((b, v) + features.shape[1:]).contiguous()
 
         if self.use_kernels:

@@ -6,18 +6,35 @@ Parameter names follow the reference PyTorch code (``front_layers.0-3``,
 ``encoder_decoder.*``, ``back_layers.0-2``, ``output_layer``), so a
 state_dict converts with ``lt_tpu.utils.torch_import.import_v2v``.
 
-``V2VModel.forward`` takes and returns NDHWC volumes.  With
-``use_kernels=True`` (the default) it runs the fused composition that the
-JAX TPU path runs (``lt_tpu/models/v2v.py:554-741``), through the port's
-kernel wrappers: the k=7 front conv through ``conv3d_mp``; front_res1..3 +
-skip_res1 + its pool through ``res3d_chain_fused``; each encoder pair
-through ``res3d_chain_fused(emit_pooled=True)``; encoder_res5, mid_res and
-decoder_res5 through ``res3d_block_fused``; each decoder pair, and
-decoder_upsample1 + skip1 + back_res + the k=1 back tail, through
-``upsample_res3d_fused``.  BN is folded into the weights once per weight
-version and device, not on every call.  ``use_kernels=False`` runs the
-reference's unfused module graph (PyTorch Conv3d and the shared
-``models/batchnorm.BatchNorm``) instead.
+``V2VModel.forward`` takes and returns NDHWC volumes.  ``use_kernels``
+selects the eval path (``lt_tpu`` selects with ``LT_TPU_*`` environment
+switches, ``lt_tpu/models/v2v.py:52-96``; the port reads no environment):
+
+- ``"fused"`` (the default; ``True`` means the same): the fused
+  composition that the JAX TPU path runs (``lt_tpu/models/v2v.py:554-741``),
+  through the port's kernel wrappers: the k=7 front conv through
+  ``conv3d_mp``; front_res1..3 + skip_res1 + its pool through
+  ``res3d_chain_fused``; each encoder pair through
+  ``res3d_chain_fused(emit_pooled=True)``; encoder_res5, mid_res and
+  decoder_res5 through ``res3d_block_fused``; each decoder pair, and
+  decoder_upsample1 + skip1 + back_res + the k=1 back tail, through
+  ``upsample_res3d_fused``.
+- ``"conv"``: ``lt_tpu``'s per-conv configuration
+  (``LT_TPU_ENABLE_PALLAS_CONV3D`` with the whole-block kernels off,
+  ``v2v.py:197-229``, ``:390-401``), in the reference's module order: the
+  k=7 front conv through ``conv3d_mp``, every Res3D block as two
+  ``conv3d_same`` calls with the projection skip as a folded 1x1x1 conv,
+  pools through ``max_pool3d_2x``, upsamples through ``upsample3d_2x``, the
+  k=1 back layers and the output layer as 1x1x1 convs (K2).
+- ``False``: the reference's unfused module graph (PyTorch Conv3d and the
+  shared ``models/batchnorm.BatchNorm``), the plain path.
+
+BN is folded into the weights in float32 once per weight version, device
+and compute dtype, not on every call; with ``compute_dtype=torch.bfloat16``
+(eval only) the folded weights are cast to bfloat16 once there, biases stay
+float32, and the volume enters and leaves the kernels as bfloat16.  The
+module graph runs bfloat16 under ``torch.autocast`` (see
+``models/backbone.py``).
 
 Training always runs the unfused module graph under autograd, NCDHW, with
 batch-statistics BatchNorm: ``lt_tpu`` gates its V2V Pallas kernels off in
@@ -30,15 +47,30 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from lt_tpu_torch import resolve_device
+from lt_tpu_torch import compute_context, resolve_device
 from lt_tpu_torch.models.batchnorm import BatchNorm, run_block
 from lt_tpu_torch.models.init import init_weights
-from lt_tpu_torch.ops.kernels.conv3d import fold_bn
+from lt_tpu_torch.ops.kernels.conv3d import (conv3d_fused, conv3d_same,
+                                             fold_bn)
 from lt_tpu_torch.ops.kernels.conv_mp import conv3d_mp
 from lt_tpu_torch.ops.kernels.res3d import (res3d_block_fused,
                                             res3d_chain_fused,
                                             upsample_res3d_fused)
-from lt_tpu_torch.ops.kernels.updown import pack_upsample_weights
+from lt_tpu_torch.ops.kernels.updown import (max_pool3d_2x,
+                                             pack_upsample_weights,
+                                             upsample3d_2x)
+
+KERNEL_PATHS = ("fused", "conv", False)
+
+
+def kernel_path(use_kernels):
+    """``use_kernels`` as one of :data:`KERNEL_PATHS` (``True`` -> 'fused')."""
+    if use_kernels is True:
+        return "fused"
+    if use_kernels not in KERNEL_PATHS:
+        raise ValueError(f"use_kernels must be one of {KERNEL_PATHS}, got "
+                         f"{use_kernels!r}")
+    return use_kernels
 
 
 def _dhwio(w: torch.Tensor) -> torch.Tensor:
@@ -150,11 +182,13 @@ class V2VModel(nn.Module):
     """
 
     def __init__(self, input_channels: int = 32, output_channels: int = 17,
-                 use_kernels: bool = True, remat: bool = False,
-                 device="cuda", seed: int = 0):
+                 use_kernels="fused", remat: bool = False,
+                 device="cuda", seed: int = 0,
+                 compute_dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.use_kernels = use_kernels
+        self.use_kernels = kernel_path(use_kernels)
         self.remat = remat
+        self.compute_dtype = compute_dtype
         self.front_layers = nn.Sequential(
             Basic3DBlock(input_channels, 16, 7), Res3DBlock(16, 32),
             Res3DBlock(32, 32), Res3DBlock(32, 32))
@@ -169,15 +203,36 @@ class V2VModel(nn.Module):
 
     def _pack_key(self):
         tensors = list(self.parameters()) + list(self.buffers())
-        return tuple(t._version for t in tensors) + (tensors[0].device,)
+        return tuple(t._version for t in tensors) + (tensors[0].device,
+                                                     self.compute_dtype)
 
     @torch.no_grad()
     def packed_params(self) -> dict:
-        """The folded / packed weights of the fused path, rebuilt only when
-        a weight or the device changed since the last call."""
+        """The folded / packed weights of the kernel paths, rebuilt only
+        when a weight, the device or the compute dtype changed since the
+        last call.  Folded in float32; the weights are then cast to the
+        compute dtype, the biases stay float32."""
         key = self._pack_key()
         if self._packed is not None and self._packed[0] == key:
             return self._packed[1]
+        p = self._cast_weights(self._fold_params())
+        self._packed = (key, p)
+        return p
+
+    def _cast_weights(self, tree):
+        """Cast every weight (ndim >= 2) of a packed tree to the compute
+        dtype; biases (ndim 1) and flags stay as they are."""
+        if self.compute_dtype == torch.float32:
+            return tree
+        if isinstance(tree, dict):
+            return {k: self._cast_weights(v) for k, v in tree.items()}
+        if isinstance(tree, (list, tuple)):
+            return type(tree)(self._cast_weights(v) for v in tree)
+        if torch.is_tensor(tree) and tree.dim() >= 2:
+            return tree.to(self.compute_dtype)
+        return tree
+
+    def _fold_params(self) -> dict:
         ed = self.encoder_decoder
         p = {"front": self.front_layers[0].folded(),
              "front_chain": [self.front_layers[i].folded() for i in (1, 2, 3)]
@@ -194,15 +249,25 @@ class V2VModel(nn.Module):
         tail.append((wo.reshape(wo.shape[-2:]).contiguous(),
                      self.output_layer.bias.contiguous(), False))
         p["tail"] = tail
-        self._packed = (key, p)
         return p
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """(B, X, Y, Z, C_in) -> (B, X, Y, Z, output_channels)."""
+        """(B, X, Y, Z, C_in) -> (B, X, Y, Z, output_channels), in the
+        compute dtype."""
+        if self.training and self.compute_dtype != torch.float32:
+            raise NotImplementedError(
+                "V2V trains in float32 only; compute_dtype=bfloat16 is an "
+                "eval configuration")
         if self.training or not self.use_kernels:
-            return self._forward_modules(x)
+            with compute_context(x, self.compute_dtype):
+                return self._forward_modules(x)
         with torch.no_grad():
-            return self._forward_fused(x.contiguous())
+            if self.compute_dtype == torch.bfloat16:
+                x = x.to(torch.bfloat16)
+            x = x.contiguous()
+            if self.use_kernels == "conv":
+                return self._forward_conv(x)
+            return self._forward_fused(x)
 
     def _forward_modules(self, x: torch.Tensor) -> torch.Tensor:
         y = x.permute(0, 4, 1, 2, 3)
@@ -230,3 +295,34 @@ class V2VModel(nn.Module):
                                      skips[i - 1], [p[f"decoder_res{i - 1}"]])
         return upsample_res3d_fused(x, *p["decoder_upsample1"], skips[0],
                                     [p["back_res"]], tail=p["tail"])
+
+    def _forward_conv(self, x: torch.Tensor) -> torch.Tensor:
+        """The per-conv configuration: one kernel launch per layer of the
+        reference's module graph, from the same folded weights."""
+        p = self.packed_params()
+
+        def res(x, prm):
+            w1, b1, w2, b2 = prm[:4]
+            skip = x
+            if len(prm) == 5:
+                ws, bs = prm[4]
+                skip = conv3d_fused(x, ws.reshape(1, 1, 1, *ws.shape), bs)
+            y = conv3d_same(x, w1, b1, relu=True)
+            return conv3d_same(y, w2, b2, relu=True, residual=skip)
+
+        x = conv3d_mp(x, *p["front"], relu=True)
+        for prm in p["front_chain"][:3]:
+            x = res(x, prm)
+        skips = []
+        for i in range(1, 6):
+            skips.append(res(x, p[f"skip_res{i}"]))
+            x = res(max_pool3d_2x(x), p[f"encoder_res{i}"])
+        x = res(x, p["mid_res"])
+        for i in range(5, 0, -1):
+            x = res(x, p[f"decoder_res{i}"])
+            x = upsample3d_2x(x, *p[f"decoder_upsample{i}"],
+                              skip=skips[i - 1])
+        x = res(x, p["back_res"])
+        for wt, bt, relu in p["tail"]:
+            x = conv3d_fused(x, wt.reshape(1, 1, 1, *wt.shape), bt, relu=relu)
+        return x

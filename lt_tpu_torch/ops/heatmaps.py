@@ -31,12 +31,16 @@ def integrate_tensor_3d_with_coordinates_channels_last(
         softmax: bool = True):
     """Channels-last twin: (B, X, Y, Z, J) volumes straight from the NDHWC
     V2V net.  Softmax is normalized after the reductions,
-    E[x] = sum(e * x) / sum(e) with e = exp(l - max), as in ``lt_tpu``.
+    E[x] = sum(e * x) / sum(e) with e = exp(l - max), as in ``lt_tpu``.  A
+    bfloat16 volume is widened to float32 before the maximum, the
+    exponential and the sums; keypoints and volumes come back float32.
 
     Returns (keypoints (B, J, 3), normalized volumes (B, J, X, Y, Z)).
     """
     b, xs, ys, zs, j = volumes.shape
     flat = volumes.reshape(b, xs * ys * zs, j)
+    if flat.dtype == torch.bfloat16:
+        flat = flat.float()
     cv = coord_volumes.reshape(b, -1, 1, 3)
     if softmax:
         e = torch.exp(flat - flat.amax(1, keepdim=True))

@@ -25,7 +25,8 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = ("unproject_agg", "conv3d_fused", "upsample3d_2x", "max_pool3d_2x",
-           "sample_views_t", "sample_views_grad_t")
+           "sample_views_t", "sample_views_grad_t", "sample_views",
+           "sample_views_grad")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
               "-lineinfo")
@@ -122,12 +123,22 @@ def launch(name: str, fn: str, device: torch.device, argtypes,
     LAUNCHES[name] += 1
 
 
-def check_cuda(t: torch.Tensor, name: str, ndim: int = None) -> None:
-    """Raise unless ``t`` is a contiguous float32 CUDA tensor."""
+#: The element types a kernel may take, and their codes in the C interface
+#: (``common.cuh``: kLtkF32, kLtkBF16).
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+F32 = (torch.float32,)
+F32_BF16 = (torch.float32, torch.bfloat16)
+
+
+def check_cuda(t: torch.Tensor, name: str, ndim: int = None,
+               dtypes=F32) -> None:
+    """Raise unless ``t`` is a contiguous CUDA tensor of one of ``dtypes``
+    (float32 unless the kernel also takes bfloat16 there)."""
     if not t.is_cuda:
         raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
-    if t.dtype != torch.float32:
-        raise TypeError(f"{name}: kernels take float32, got {t.dtype}")
+    if t.dtype not in dtypes:
+        want = " or ".join(str(d).replace("torch.", "") for d in dtypes)
+        raise TypeError(f"{name}: kernel takes {want}, got {t.dtype}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: tensor must be contiguous")
     if ndim is not None and t.dim() != ndim:

@@ -1,12 +1,29 @@
 // Shared by every kernel library of lt_tpu_torch (each .cu is its own .so).
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
 extern "C" const char* ltk_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
+
+// Element types of activations and weights: float32 or bfloat16.  Every
+// kernel loads through ltk_ld into float32, accumulates and adds its bias in
+// float32, and rounds once (to nearest even) where ltk_st stores bfloat16.
+// The C entry points take the type as an int: kLtkF32 or kLtkBF16.
+enum { kLtkF32 = 0, kLtkBF16 = 1 };
+constexpr int kLtkBadDtype = static_cast<int>(cudaErrorInvalidValue);
+
+__device__ __forceinline__ float ltk_ld(const float* p) { return *p; }
+__device__ __forceinline__ float ltk_ld(const __nv_bfloat16* p) {
+  return __bfloat162float(*p);
+}
+__device__ __forceinline__ void ltk_st(float* p, float v) { *p = v; }
+__device__ __forceinline__ void ltk_st(__nv_bfloat16* p, float v) {
+  *p = __float2bfloat16_rn(v);
 }
 
 // Blocks for a grid-stride loop over `total` items, `threads` per block.
@@ -27,11 +44,12 @@ struct LtkTaps {
 // Project voxel n = (gx * S + gy) * S + gz through the composed 3x4 matrix
 // mm (grid index -> homogeneous heatmap pixel) and pick its bilinear taps:
 // x = u/w * sx, y = v/w * sy (sx = (W-1)/W, sy = (H-1)/H), align_corners=True,
-// zero padding, no tap where w <= 0.  K1 (unproject_agg), K5 (sample_views_t)
-// and K6 (sample_views_grad_t) all sample through this one function, so the
-// backward recomputes exactly the taps that the forward aggregated, also at
-// pixel edges.  Taps are tested in float coordinates: a far-off projection
-// never reaches an integer conversion that could overflow.
+// zero padding, no tap where w <= 0.  K1 (unproject_agg), K5 / K6
+// (sample_views_t, sample_views_grad_t) and K7 / K8 (sample_views,
+// sample_views_grad) all sample through this one function, so a backward
+// recomputes exactly the taps that its forward took, also at pixel edges.
+// Taps are tested in float coordinates: a far-off projection never reaches
+// an integer conversion that could overflow.
 __device__ __forceinline__ LtkTaps ltk_voxel_taps(const float* __restrict__ mm,
                                                   int64_t n, int S, int H,
                                                   int W, float sx, float sy) {
@@ -75,11 +93,13 @@ __device__ __forceinline__ LtkTaps ltk_voxel_taps(const float* __restrict__ mm,
 
 // The bilinear sample of one channel: fc points at channel c of pixel 0 of
 // an (H, W, C) map.
+template <typename T>
 __device__ __forceinline__ float ltk_bilinear(const LtkTaps& t,
-                                              const float* __restrict__ fc,
+                                              const T* __restrict__ fc,
                                               int C) {
   float val = 0.f;
   for (int k = 0; k < 4; ++k)
-    if (t.in & (1u << k)) val += t.wt[k] * fc[static_cast<int64_t>(t.off[k]) * C];
+    if (t.in & (1u << k))
+      val += t.wt[k] * ltk_ld(fc + static_cast<int64_t>(t.off[k]) * C);
   return val;
 }

@@ -1,4 +1,5 @@
-// K4: MaxPool3d(kernel=2, stride=2) over an NDHWC float32 volume.
+// K4: MaxPool3d(kernel=2, stride=2) over an NDHWC volume, float32 or
+// bfloat16 (a maximum rounds nothing: the output keeps the input's type).
 //
 // Replaces lt_tpu/ops/pallas/updown.py:max_pool3d_2x (pallas_call at :143
 // and :185; kernel bodies _pool_kernel :34, _pool_kernel_reshape :53,
@@ -13,8 +14,9 @@
 
 #include "common.cuh"
 
-__global__ void max_pool3d_2x_kernel(const float* __restrict__ x,
-                                     float* __restrict__ out, int B, int X,
+template <typename T>
+__global__ void max_pool3d_2x_kernel(const T* __restrict__ x,
+                                     T* __restrict__ out, int B, int X,
                                      int Y, int Z, int C) {
   const int xo = X / 2, yo = Y / 2, zo = Z / 2;
   const int64_t total = static_cast<int64_t>(B) * xo * yo * zo * C;
@@ -29,7 +31,7 @@ __global__ void max_pool3d_2x_kernel(const float* __restrict__ x,
     r /= yo;
     const int ox = static_cast<int>(r % xo);
     const int64_t b = r / xo;
-    const float* base =
+    const T* base =
         x + (((b * X + 2 * ox) * Y + 2 * oy) * static_cast<int64_t>(Z) +
              2 * oz) * C + c;
     float m = -INFINITY;
@@ -39,17 +41,24 @@ __global__ void max_pool3d_2x_kernel(const float* __restrict__ x,
       for (int dy = 0; dy < 2; ++dy)
 #pragma unroll
         for (int dz = 0; dz < 2; ++dz)
-          m = fmaxf(m, base[((static_cast<int64_t>(dx) * Y + dy) * Z + dz) * C]);
-    out[i] = m;
+          m = fmaxf(m, ltk_ld(base + ((static_cast<int64_t>(dx) * Y + dy) * Z + dz) * C));
+    ltk_st(out + i, m);
   }
 }
 
-extern "C" int max_pool3d_2x(const float* x, float* out, int B, int X, int Y,
-                             int Z, int C, void* stream) {
+extern "C" int max_pool3d_2x(const void* x, void* out, int B, int X, int Y,
+                             int Z, int C, int dtype, void* stream) {
   const int64_t total =
       static_cast<int64_t>(B) * (X / 2) * (Y / 2) * (Z / 2) * C;
-  max_pool3d_2x_kernel<<<ltk_blocks(total, 256), 256, 0,
-                         static_cast<cudaStream_t>(stream)>>>(x, out, B, X, Y,
-                                                              Z, C);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == kLtkF32)
+    max_pool3d_2x_kernel<float><<<ltk_blocks(total, 256), 256, 0, s>>>(
+        static_cast<const float*>(x), static_cast<float*>(out), B, X, Y, Z, C);
+  else if (dtype == kLtkBF16)
+    max_pool3d_2x_kernel<__nv_bfloat16><<<ltk_blocks(total, 256), 256, 0, s>>>(
+        static_cast<const __nv_bfloat16*>(x), static_cast<__nv_bfloat16*>(out),
+        B, X, Y, Z, C);
+  else
+    return kLtkBadDtype;
   return static_cast<int>(cudaGetLastError());
 }

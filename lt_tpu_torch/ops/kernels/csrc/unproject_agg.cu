@@ -7,7 +7,9 @@
 //               x = u/w * (W-1)/W, y = v/w * (H-1)/H
 // then aggregate over views: softmax (masked logits -1e9), sum, max (-inf ->
 // 0) or conf (per-view, per-channel confidences), with view_mask removing
-// views.  Output (B, S^3, C): NDHWC, channels fastest.
+// views.  Output (B, S^3, C): NDHWC, channels fastest.  The features and the
+// output are float32 or bfloat16 (one type for both); m, the mask, the
+// confidences and all projection and aggregation arithmetic are float32.
 //
 // Replaces lt_tpu/ops/pallas/unproject.py:_sample_views_agg_impl (pallas_call
 // :427; kernel bodies _unproject_agg_kernel :177, _tile_sample_t :256).  As
@@ -28,10 +30,11 @@
 
 enum Method { kSoftmax = 0, kSum = 1, kMax = 2, kConf = 3 };
 
+template <typename T>
 __global__ void unproject_agg_kernel(
-    const float* __restrict__ feats, const float* __restrict__ m,
+    const T* __restrict__ feats, const float* __restrict__ m,
     const float* __restrict__ mask, const float* __restrict__ conf,
-    float* __restrict__ out, int B, int V, int H, int W, int C, int S,
+    T* __restrict__ out, int B, int V, int H, int W, int C, int S,
     int method, float sx, float sy) {
   const int lane = threadIdx.x & 31;
   const int64_t N = static_cast<int64_t>(S) * S * S;
@@ -79,19 +82,29 @@ __global__ void unproject_agg_kernel(
       }
       if (method == kSoftmax) acc = acc / den;
       if (method == kMax && isinf(acc) && acc < 0.f) acc = 0.f;
-      if (active) out[t * C + c] = acc;
+      if (active) ltk_st(out + t * C + c, acc);
     }
   }
 }
 
-extern "C" int unproject_agg(const float* feats, const float* m,
-                             const float* mask, const float* conf, float* out,
+extern "C" int unproject_agg(const void* feats, const float* m,
+                             const float* mask, const float* conf, void* out,
                              int B, int V, int H, int W, int C, int S,
-                             int method, float sx, float sy, void* stream) {
+                             int method, float sx, float sy, int dtype,
+                             void* stream) {
   const int64_t total = static_cast<int64_t>(B) * S * S * S;
   const int threads = 256;
-  unproject_agg_kernel<<<ltk_blocks(total, threads / 32, 132 * 64), threads,
-                         0, static_cast<cudaStream_t>(stream)>>>(
-      feats, m, mask, conf, out, B, V, H, W, C, S, method, sx, sy);
+  const int blocks = ltk_blocks(total, threads / 32, 132 * 64);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == kLtkF32)
+    unproject_agg_kernel<float><<<blocks, threads, 0, s>>>(
+        static_cast<const float*>(feats), m, mask, conf,
+        static_cast<float*>(out), B, V, H, W, C, S, method, sx, sy);
+  else if (dtype == kLtkBF16)
+    unproject_agg_kernel<__nv_bfloat16><<<blocks, threads, 0, s>>>(
+        static_cast<const __nv_bfloat16*>(feats), m, mask, conf,
+        static_cast<__nv_bfloat16*>(out), B, V, H, W, C, S, method, sx, sy);
+  else
+    return kLtkBadDtype;
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,14 +1,22 @@
-"""Per-view sampling of an affine voxel grid (kernel K5) and its feature
-gradient (kernel K6).
+"""Per-view sampling of an affine voxel grid and its feature gradient, in
+both output orientations.
 
-Port of ``lt_tpu/ops/pallas/unproject.py:612-658``
-(``_sample_views_fwd_impl_t``), ``:993-1037``
-(``_sample_views_grad_features_t``) and ``:1040-1070``
-(``sample_views_affine_t``).  The CUDA kernels are ``csrc/sample_views_t.cu``
-and ``csrc/sample_views_grad_t.cu``; :func:`sample_views_t_plain` and
-:func:`sample_views_grad_t_plain` are their plain versions.  The plain
-gradient is an explicit ``index_add_`` scatter, not autograd of the plain
-sampling, so that it checks K6 independently of K5.
+Channels-major, (BV, C, S^3): kernels K5 and K6, the training path.  Port
+of ``lt_tpu/ops/pallas/unproject.py:612-658`` (``_sample_views_fwd_impl_t``),
+``:993-1037`` (``_sample_views_grad_features_t``) and ``:1040-1070``
+(``sample_views_affine_t``); CUDA kernels ``csrc/sample_views_t.cu`` and
+``csrc/sample_views_grad_t.cu``.
+
+Voxels-major, (BV, S^3, C): kernels K7 and K8.  Port of ``:507-586``
+(``_sample_views_fwd_impl``), ``:896-918`` (``_sample_views_grad_features``)
+and ``:1073-1108`` (``sample_views_affine``); CUDA kernels
+``csrc/sample_views.cu`` and ``csrc/sample_views_grad.cu``.  The forward
+takes float32 or bfloat16 features and writes ``out_dtype``; the gradient
+is float32, computed in float32.
+
+The ``*_plain`` functions are the plain versions.  The plain gradients are
+explicit ``index_add_`` scatters, not autograd of the plain sampling, so
+that they check K6 and K8 independently of K5 and K7.
 """
 
 from __future__ import annotations
@@ -70,6 +78,13 @@ def sample_views_grad_t_plain(g: torch.Tensor, affine: torch.Tensor,
                               feat_shape, grid_size: int) -> torch.Tensor:
     """Plain version of K6: g (BV, C, S^3) -> dF (BV, H, W, C) by an
     ``index_add_`` of every voxel's four weighted taps."""
+    return _scatter_taps(g.transpose(1, 2), affine, feat_shape, grid_size)
+
+
+def _scatter_taps(gt: torch.Tensor, affine: torch.Tensor, feat_shape,
+                  grid_size: int) -> torch.Tensor:
+    """gt (BV, S^3, C) -> dF (BV, H, W, C): every voxel's gradient row added
+    to its four taps with their bilinear weights."""
     bv, h, w, c = feat_shape
     uvw = _project(affine, grid_size)                      # (BV, N, 3)
     z = uvw[..., 2]
@@ -79,9 +94,8 @@ def sample_views_grad_t_plain(g: torch.Tensor, affine: torch.Tensor,
     y = uvw[..., 1] / z_safe * ((h - 1) / h)
     x0, y0 = torch.floor(x), torch.floor(y)
     wx, wy = x - x0, y - y0
-    base = torch.arange(bv, device=g.device)[:, None] * (h * w)
-    gt = g.transpose(1, 2)                                 # (BV, N, C)
-    df = torch.zeros((bv * h * w, c), dtype=g.dtype, device=g.device)
+    base = torch.arange(bv, device=gt.device)[:, None] * (h * w)
+    df = torch.zeros((bv * h * w, c), dtype=gt.dtype, device=gt.device)
     for xi, yi, wt in ((x0, y0, (1 - wx) * (1 - wy)),
                        (x0 + 1, y0, wx * (1 - wy)),
                        (x0, y0 + 1, (1 - wx) * wy),
@@ -145,3 +159,119 @@ def sample_views_affine_t(features: torch.Tensor, affine: torch.Tensor,
     """Differentiable :func:`sample_views_t`: (BV, H, W, C) -> (BV, C, S^3),
     gradients to ``features`` only (cameras and grids are inputs)."""
     return _SampleViewsAffineT.apply(features, affine, grid_size)
+
+
+# ---------------------------------------------------------------------------
+# The voxels-major orientation: K7 / K8
+# ---------------------------------------------------------------------------
+
+
+def sample_views_plain(features: torch.Tensor, affine: torch.Tensor,
+                       grid_size: int, out_dtype=torch.float32
+                       ) -> torch.Tensor:
+    """Plain version of K7: (BV, H, W, C), (BV, 3, 4) -> (BV, S^3, C).
+    bfloat16 features are widened to float32; the result is rounded once."""
+    uvw = _project(affine, grid_size)
+    f = features.float() if features.dtype == torch.bfloat16 else features
+    return sample_homogeneous(f[None], uvw[None])[0].to(out_dtype)
+
+
+def sample_views(features: torch.Tensor, affine: torch.Tensor,
+                 grid_size: int, out_dtype=torch.float32) -> torch.Tensor:
+    """K7 on a CUDA tensor, its plain version on a CPU tensor.
+
+    Args:
+      features: (BV, H, W, C) feature maps, float32 or bfloat16.
+      affine: (BV, 3, 4) float32 composed grid-index -> heatmap-pixel
+        matrices.
+      out_dtype: float32 or bfloat16.
+    Returns:
+      (BV, S^3, C) samples, voxel n = (gx * S + gy) * S + gz; 0 where
+      w <= 0 or a tap falls outside the map.
+    """
+    bv, h, w, c = features.shape
+    _check_affine(affine, bv)
+    if not features.is_cuda:
+        return sample_views_plain(features, affine, grid_size, out_dtype)
+    if out_dtype not in _build.DTYPE_CODES:
+        raise TypeError(f"out_dtype: kernel writes float32 or bfloat16, got "
+                        f"{out_dtype}")
+    _build.check_cuda(features, "features", 4, dtypes=_build.F32_BF16)
+    affine = affine.contiguous()
+    _build.check_cuda(affine, "affine", 3)
+    out = torch.empty((bv, grid_size ** 3, c), dtype=out_dtype,
+                      device=features.device)
+    p, i, f = _build.ptr, _build.i32, _build.f32
+    _build.launch("sample_views", "sample_views", features.device,
+                  [p, p, p, i, i, i, i, i, f, f, i, i], features.data_ptr(),
+                  affine.data_ptr(), out.data_ptr(), bv, h, w, c, grid_size,
+                  (w - 1) / w, (h - 1) / h,
+                  _build.DTYPE_CODES[features.dtype],
+                  _build.DTYPE_CODES[out_dtype])
+    return out
+
+
+def sample_views_grad_plain(g: torch.Tensor, affine: torch.Tensor,
+                            feat_shape, grid_size: int) -> torch.Tensor:
+    """Plain version of K8: g (BV, S^3, C) -> float32 dF (BV, H, W, C) by an
+    ``index_add_`` of every voxel's four weighted taps."""
+    return _scatter_taps(g.float() if g.dtype == torch.bfloat16 else g,
+                         affine, feat_shape, grid_size)
+
+
+def sample_views_grad(g: torch.Tensor, affine: torch.Tensor, feat_shape,
+                      grid_size: int) -> torch.Tensor:
+    """K8 on a CUDA tensor, its plain version on a CPU tensor.
+
+    Args:
+      g: (BV, S^3, C) cotangent of :func:`sample_views`, float32 or
+        bfloat16.
+      affine: (BV, 3, 4) as there.
+      feat_shape: (BV, H, W, C) of the sampled features.
+    Returns:
+      dF (BV, H, W, C) float32.
+    """
+    bv, h, w, c = feat_shape
+    _check_affine(affine, bv)
+    if tuple(g.shape) != (bv, grid_size ** 3, c):
+        raise ValueError(f"g {tuple(g.shape)} != {(bv, grid_size ** 3, c)}")
+    if not g.is_cuda:
+        return sample_views_grad_plain(g, affine, feat_shape, grid_size)
+    _build.check_cuda(g, "g", 3, dtypes=_build.F32_BF16)
+    affine = affine.contiguous()
+    _build.check_cuda(affine, "affine", 3)
+    df = torch.zeros((bv, h, w, c), dtype=torch.float32, device=g.device)
+    p, i, f = _build.ptr, _build.i32, _build.f32
+    _build.launch("sample_views_grad", "sample_views_grad", g.device,
+                  [p, p, p, i, i, i, i, i, f, f, i], g.data_ptr(),
+                  affine.data_ptr(), df.data_ptr(), bv, h, w, c, grid_size,
+                  (w - 1) / w, (h - 1) / h, _build.DTYPE_CODES[g.dtype])
+    return df
+
+
+class _SampleViewsAffine(torch.autograd.Function):
+    """Forward K7, backward K8; ``affine`` gets no gradient."""
+
+    @staticmethod
+    def forward(ctx, features, affine, grid_size, out_dtype):
+        ctx.save_for_backward(affine)
+        ctx.feat_shape = tuple(features.shape)
+        ctx.feat_dtype = features.dtype
+        ctx.grid_size = grid_size
+        return sample_views(features, affine, grid_size, out_dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        (affine,) = ctx.saved_tensors
+        df = sample_views_grad(g.contiguous(), affine, ctx.feat_shape,
+                               ctx.grid_size)
+        return df.to(ctx.feat_dtype), None, None, None
+
+
+def sample_views_affine(features: torch.Tensor, affine: torch.Tensor,
+                        grid_size: int, out_dtype=torch.float32
+                        ) -> torch.Tensor:
+    """Differentiable :func:`sample_views`: (BV, H, W, C) -> (BV, S^3, C) in
+    ``out_dtype``, gradients to ``features`` only (cameras and grids are
+    inputs), computed in float32 and cast to the features' type."""
+    return _SampleViewsAffine.apply(features, affine, grid_size, out_dtype)

@@ -41,11 +41,15 @@ def unproject_agg_plain(features: torch.Tensor, m: torch.Tensor,
                         view_mask: torch.Tensor,
                         vol_confidences: Optional[torch.Tensor],
                         method: str, grid_size: int) -> torch.Tensor:
-    """Plain version of K1: (B, V, H, W, C), m (B, V, 3, 4) -> (B, S^3, C)."""
+    """Plain version of K1: (B, V, H, W, C), m (B, V, 3, 4) -> (B, S^3, C).
+    bfloat16 features are widened to float32 and the result rounded once."""
     grid = index_grid(grid_size, features.device, m.dtype).reshape(-1, 4)
     uvw = (m[:, :, None, :, :] * grid[None, None, :, None, :]).sum(-1)
-    return aggregate_views(sample_homogeneous(features, uvw), method,
-                           vol_confidences, view_mask)
+    wide = features.dtype == torch.bfloat16
+    out = aggregate_views(
+        sample_homogeneous(features.float() if wide else features, uvw),
+        method, vol_confidences, view_mask)
+    return out.to(features.dtype) if wide else out
 
 
 def unproject_agg(features: torch.Tensor, m: torch.Tensor,
@@ -55,8 +59,9 @@ def unproject_agg(features: torch.Tensor, m: torch.Tensor,
     """K1 on a CUDA tensor, its plain version on a CPU tensor.
 
     Args:
-      features: (B, V, H, W, C) float32.
-      m: (B, V, 3, 4) composed grid-index -> pixel matrices.
+      features: (B, V, H, W, C) float32 or bfloat16; the output has their
+        type, everything between is float32.
+      m: (B, V, 3, 4) float32 composed grid-index -> pixel matrices.
       view_mask: (B, V); views with mask <= 0 are left out.
       vol_confidences: (B, V, C) for 'conf' / 'conf_norm', else None.
     Returns:
@@ -70,7 +75,7 @@ def unproject_agg(features: torch.Tensor, m: torch.Tensor,
         return unproject_agg_plain(features, m, view_mask, vol_confidences,
                                    method, grid_size)
     b, v, h, w, c = features.shape
-    _build.check_cuda(features, "features", 5)
+    _build.check_cuda(features, "features", 5, dtypes=_build.F32_BF16)
     m = m.contiguous()
     _build.check_cuda(m, "m", 4)
     view_mask = view_mask.to(torch.float32).contiguous()
@@ -86,15 +91,15 @@ def unproject_agg(features: torch.Tensor, m: torch.Tensor,
             raise ValueError(f"vol_confidences {tuple(vol_confidences.shape)}"
                              f" != {(b, v, c)}")
         conf_ptr = vol_confidences.data_ptr()
-    out = torch.empty((b, grid_size ** 3, c), dtype=torch.float32,
+    out = torch.empty((b, grid_size ** 3, c), dtype=features.dtype,
                       device=features.device)
     p, i, f = _build.ptr, _build.i32, _build.f32
     _build.launch(
         "unproject_agg", "unproject_agg", features.device,
-        [p, p, p, p, p, i, i, i, i, i, i, i, f, f],
+        [p, p, p, p, p, i, i, i, i, i, i, i, f, f, i],
         features.data_ptr(), m.data_ptr(), view_mask.data_ptr(), conf_ptr,
         out.data_ptr(), b, v, h, w, c, grid_size, METHODS[method],
-        (w - 1) / w, (h - 1) / h)
+        (w - 1) / w, (h - 1) / h, _build.DTYPE_CODES[features.dtype])
     return out
 
 

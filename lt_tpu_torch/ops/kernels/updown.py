@@ -2,7 +2,9 @@
 
 Port of ``lt_tpu/ops/pallas/updown.py:98-416``.  CUDA kernels:
 ``csrc/max_pool3d_2x.cu`` and ``csrc/upsample3d_2x.cu``; the ``*_plain``
-functions are their plain versions.  NDHWC layout.
+functions are their plain versions.  NDHWC layout.  Volumes (and K3's
+packed weights and skip) are float32 or bfloat16, one type per call; K3's
+bias is float32, its sum, ReLU and skip add float32, rounded once.
 """
 
 from __future__ import annotations
@@ -29,12 +31,13 @@ def max_pool3d_2x(x: torch.Tensor) -> torch.Tensor:
                          f"{tuple(x.shape)}")
     if not x.is_cuda:
         return max_pool3d_2x_plain(x)
-    _build.check_cuda(x, "x")
-    out = torch.empty((b, sx // 2, sy // 2, sz // 2, c), dtype=torch.float32,
+    _build.check_cuda(x, "x", dtypes=_build.F32_BF16)
+    out = torch.empty((b, sx // 2, sy // 2, sz // 2, c), dtype=x.dtype,
                       device=x.device)
     p, i = _build.ptr, _build.i32
-    _build.launch("max_pool3d_2x", "max_pool3d_2x", x.device, [p, p] + [i] * 5,
-                  x.data_ptr(), out.data_ptr(), b, sx, sy, sz, c)
+    _build.launch("max_pool3d_2x", "max_pool3d_2x", x.device, [p, p] + [i] * 6,
+                  x.data_ptr(), out.data_ptr(), b, sx, sy, sz, c,
+                  _build.DTYPE_CODES[x.dtype])
     return out
 
 
@@ -43,11 +46,15 @@ def upsample3d_2x_plain(x: torch.Tensor, w8: torch.Tensor,
                         skip: Optional[torch.Tensor] = None) -> torch.Tensor:
     b, sx, sy, sz, cin = x.shape
     cout = w8.shape[1] // 8
-    q = torch.relu(x.reshape(-1, cin) @ w8 + bias)   # (voxels, 8 * Cout)
+    wide = x.dtype == torch.bfloat16     # then float32 until the result
+    xf, wf = (x.float(), w8.float()) if wide else (x, w8)
+    q = torch.relu(xf.reshape(-1, cin) @ wf + bias)  # (voxels, 8 * Cout)
     q = q.reshape(b, sx, sy, sz, 2, 2, 2, cout)      # (.., dx, dy, dz, co)
     out = q.permute(0, 1, 4, 2, 5, 3, 6, 7).reshape(
         b, 2 * sx, 2 * sy, 2 * sz, cout)
-    return out if skip is None else out + skip
+    if skip is not None:
+        out = out + (skip.float() if wide else skip)
+    return out.to(x.dtype)
 
 
 def upsample3d_2x(x: torch.Tensor, w8: torch.Tensor, bias: torch.Tensor,
@@ -56,10 +63,11 @@ def upsample3d_2x(x: torch.Tensor, w8: torch.Tensor, bias: torch.Tensor,
     the ReLU]: K3 on CUDA, plain on CPU.
 
     Args:
-      x: (B, X, Y, Z, Cin).
-      w8: (Cin, 8*Cout) packed taps, column block (dx*4 + dy*2 + dz)*Cout.
-      bias: (8*Cout,).
-      skip: optional (B, 2X, 2Y, 2Z, Cout).
+      x: (B, X, Y, Z, Cin), float32 or bfloat16.
+      w8: (Cin, 8*Cout) packed taps in x's type, column block
+        (dx*4 + dy*2 + dz)*Cout.
+      bias: (8*Cout,) float32.
+      skip: optional (B, 2X, 2Y, 2Z, Cout) in x's type.
     """
     b, sx, sy, sz, cin = x.shape
     cout = w8.shape[1] // 8
@@ -69,18 +77,23 @@ def upsample3d_2x(x: torch.Tensor, w8: torch.Tensor, bias: torch.Tensor,
     out_shape = (b, 2 * sx, 2 * sy, 2 * sz, cout)
     if skip is not None and tuple(skip.shape) != out_shape:
         raise ValueError(f"skip {tuple(skip.shape)} != {out_shape}")
+    for name, t in (("w8", w8), ("skip", skip)):
+        if t is not None and t.dtype != x.dtype:
+            raise TypeError(f"{name} is {t.dtype} but x is {x.dtype}: K3 "
+                            f"takes one type for x, w8 and the skip")
     if not x.is_cuda:
         return upsample3d_2x_plain(x, w8, bias, skip)
-    for name, t in (("x", x), ("w8", w8), ("bias", bias)) + (
-            (("skip", skip),) if skip is not None else ()):
-        _build.check_cuda(t, name)
-    out = torch.empty(out_shape, dtype=torch.float32, device=x.device)
+    for name, t in (("x", x), ("w8", w8), ("skip", skip)):
+        if t is not None:
+            _build.check_cuda(t, name, dtypes=_build.F32_BF16)
+    _build.check_cuda(bias, "bias")
+    out = torch.empty(out_shape, dtype=x.dtype, device=x.device)
     p, i = _build.ptr, _build.i32
     _build.launch("upsample3d_2x", "upsample3d_2x", x.device,
-                  [p] * 5 + [i] * 6,
+                  [p] * 5 + [i] * 7,
                   x.data_ptr(), w8.data_ptr(), bias.data_ptr(),
                   None if skip is None else skip.data_ptr(), out.data_ptr(),
-                  b, sx, sy, sz, cin, cout)
+                  b, sx, sy, sz, cin, cout, _build.DTYPE_CODES[x.dtype])
     return out
 
 

@@ -1,10 +1,11 @@
 """Where the flagship forward's, or training step's, time goes on the card.
 
-    python -m lt_tpu_torch.profile_stages [--batch 8]
+    python -m lt_tpu_torch.profile_stages [--batch 8] [--bf16]
     python -m lt_tpu_torch.profile_stages --train [--batch 5]
 
 Times one warm request of the volumetric forward (RN-152, 384^2, 4 views,
-64^3, f32, TF32 off, seeded random weights) split by stage with CUDA
+64^3, f32 with TF32 off or, with ``--bf16``, the bfloat16 eval
+configuration; seeded random weights) split by stage with CUDA
 events on module hooks (backbone, coord volumes, process_features,
 unprojection, V2V, soft-argmax), then traces one more request with
 ``torch.profiler`` and prints the device's busy share of the window and the
@@ -40,7 +41,11 @@ def main(argv=None) -> None:
                     help="default 8, or the training config's 5 with --train")
     ap.add_argument("--train", action="store_true",
                     help="profile a training step instead of a request")
+    ap.add_argument("--bf16", action="store_true",
+                    help="the bfloat16 eval configuration (requests only)")
     args = ap.parse_args(argv)
+    if args.train and args.bf16:
+        ap.error("training runs in float32 only")
 
     dev = resolve_device("cuda")
     torch.backends.cudnn.allow_tf32 = False
@@ -66,8 +71,9 @@ def main(argv=None) -> None:
             optimizer.step()
     else:
         args.batch = args.batch or 8
-        model = VolumetricTriangulationNet(num_layers=LAYERS,
-                                           volume_size=VOLUME, device=dev)
+        model = VolumetricTriangulationNet(
+            num_layers=LAYERS, volume_size=VOLUME, device=dev,
+            compute_dtype=torch.bfloat16 if args.bf16 else torch.float32)
         inputs = [torch.from_numpy(a).to(dev)
                   for a in example_batch(args.batch, 4, IMAGE, 17)]
 
@@ -123,7 +129,8 @@ def main(argv=None) -> None:
         split["soft-argmax"] = span("v2v:end", "run:end")
     total = span("run:start", "run:end")
     print(f"{torch.cuda.get_device_name(0)}; batch {args.batch}, RN-"
-          f"{LAYERS} {IMAGE}^2, {VOLUME}^3; "
+          f"{LAYERS} {IMAGE}^2, {VOLUME}^3, "
+          f"{'bfloat16' if args.bf16 else 'float32'}; "
           f"{'training step' if args.train else 'request'} {total:.1f} ms on "
           f"device events, {wall:.1f} ms on the host clock; peak memory "
           f"{peak:.2f} GiB")

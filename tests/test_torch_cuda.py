@@ -2,7 +2,10 @@
 awkward shapes (odd sizes, Cout = 17, Cin = 16, k = 1 / 3 / 7, ragged
 tiles), plus K1's, K5's and K6's edge cases, the fused aggregation's
 gradient, the wrappers' device / launch rules, and V2V's folded weights
-after an optimizer step.
+after an optimizer step; K1-K4 in bfloat16, the voxels-major sampling
+kernels K7 / K8, ``conv3d_same`` and the three ``res3d_block_*`` entry
+points at a small and at the flagship shape, and V2V's per-conv and
+bfloat16 paths.
 
 Marked ``cuda``: without a GPU every test skips.  On a machine with one
 (this file imports torch only, so ``--noconftest`` keeps JAX out):
@@ -10,7 +13,9 @@ Marked ``cuda``: without a GPU every test skips.  On a machine with one
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 
 Tolerance: max |kernel - plain| <= 1e-4 * max |plain| (float32, other
-summation orders); TF32 is off for the plain versions.
+summation orders); TF32 is off for the plain versions.  bfloat16: 1.6e-2
+(two bfloat16 ulps of the largest value), the plain version rounding where
+the kernel rounds.
 """
 
 import pytest
@@ -19,6 +24,8 @@ import torch
 pytestmark = pytest.mark.cuda
 
 REL = 1e-4
+REL_BF16 = 1.6e-2
+BF16 = torch.bfloat16
 
 
 @pytest.fixture
@@ -32,8 +39,9 @@ def dev():
 
 def _close(got, ref, rel=REL):
     torch.cuda.synchronize()
-    assert got.shape == ref.shape
+    assert got.shape == ref.shape and got.dtype == ref.dtype
     assert bool(got.isfinite().all())
+    got, ref = got.float(), ref.float()
     err = (got - ref).abs().max().item()
     assert err <= rel * max(ref.abs().max().item(), 1e-30), err
 
@@ -121,6 +129,68 @@ def test_wrappers_count_launches_and_reject_bad_tensors(dev):
     with pytest.raises(TypeError, match="float32"):
         updown.max_pool3d_2x(x.double())
     assert _build.LAUNCHES["max_pool3d_2x"] == 1
+
+
+def test_no_wrapper_takes_its_plain_version_on_the_card(dev, monkeypatch):
+    """Every wrapper, old and new, in float32 and bfloat16: on a CUDA tensor
+    the plain version is never called and exactly the expected kernels are
+    launched."""
+    from lt_tpu_torch.ops.kernels import (_build, conv3d, conv_mp, res3d,
+                                          res3d_folded, res3d_q4, sample,
+                                          unproject, updown)
+
+    def forbidden(*a, **k):
+        raise AssertionError("plain version called for a CUDA tensor")
+
+    for mod, names in ((conv3d, ["conv3d_fused_plain"]),
+                       (updown, ["max_pool3d_2x_plain",
+                                 "upsample3d_2x_plain"]),
+                       (unproject, ["unproject_agg_plain"]),
+                       (sample, ["sample_views_t_plain",
+                                 "sample_views_grad_t_plain",
+                                 "sample_views_plain",
+                                 "sample_views_grad_plain"])):
+        for name in names:
+            monkeypatch.setattr(mod, name, forbidden)
+    for dt in (torch.float32, BF16):
+        x = _randn(dev, 1, 4, 4, 4, 8).to(dt)
+        w = _randn(dev, 3, 3, 3, 8, 8, scale=0.1, seed=1).to(dt)
+        b = _randn(dev, 8, scale=0.1, seed=2)
+        ws = (_randn(dev, 8, 8, scale=0.3, seed=3).to(dt), b)
+        w8 = _randn(dev, 8, 64, scale=0.3, seed=4).to(dt)
+        feats = _randn(dev, 2, 6, 5, 8, seed=5).to(dt)
+        m = torch.tensor([[1., 0, 0, .3], [0, 1., 0, .2], [0, 0, 0, 1.]],
+                         device=dev).expand(2, 3, 4).contiguous()
+        for want, fn in (
+                ({"conv3d_fused": 1}, lambda: conv3d.conv3d_same(x, w, b)),
+                ({"conv3d_fused": 1}, lambda: conv_mp.conv3d_mp(x, w, b)),
+                ({"conv3d_fused": 3}, lambda: conv_mp.res3d_block_mp(
+                    x, w, b, w, b, skip_proj=ws, s=2)),
+                ({"conv3d_fused": 3}, lambda: res3d_q4.res3d_block_q4(
+                    x, w, b, w, b, tail=((ws[0], b, True),))),
+                ({"conv3d_fused": 2}, lambda: res3d_folded.res3d_block_folded(
+                    x, w, b, w, b)),
+                ({"conv3d_fused": 4, "max_pool3d_2x": 1},
+                 lambda: res3d.res3d_chain_fused(
+                     x, [(w, b, w, b)] * 2, emit_pooled=True)),
+                ({"upsample3d_2x": 1}, lambda: updown.upsample3d_2x(
+                    x, w8, b.repeat(8))),
+                ({"unproject_agg": 1}, lambda: unproject.unproject_agg(
+                    feats[None], m[None], torch.ones(1, 2, device=dev), None,
+                    "softmax", 4)),
+                ({"sample_views": 1}, lambda: sample.sample_views(
+                    feats, m, 4, out_dtype=dt))):
+            _build.reset_launches()
+            fn()
+            got = {k: v for k, v in _build.LAUNCHES.items() if v}
+            assert got == want, (dt, got, want)
+    f32 = _randn(dev, 2, 6, 5, 8, seed=6).requires_grad_()
+    _build.reset_launches()
+    sample.sample_views_affine(f32, m, 4).sum().backward()
+    sample.sample_views_affine_t(f32, m, 4).sum().backward()
+    assert {k: v for k, v in _build.LAUNCHES.items() if v} == {
+        "sample_views": 1, "sample_views_grad": 1, "sample_views_t": 1,
+        "sample_views_grad_t": 1}
 
 
 def test_v2v_kernel_path_matches_module_graph(dev):
@@ -250,3 +320,306 @@ def test_batchnorm_training_update_matches_cpu(dev, shape):
         outs.append((y, bn.running_mean, bn.running_var))
     for got, ref in zip(outs[1], outs[0]):
         _close(got.cpu(), ref, rel=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# bfloat16 K1-K4, the alternative entry points, K7 / K8
+# ---------------------------------------------------------------------------
+
+FLAG = 64       # the flagship volume side
+
+
+def _conv_inputs(dev, shape, k, cout, res, dt):
+    cin = shape[-1]
+    x = _randn(dev, *shape).to(dt)
+    w = _randn(dev, k, k, k, cin, cout, scale=(k ** 3 * cin) ** -0.5,
+               seed=1).to(dt)
+    b = _randn(dev, cout, scale=0.1, seed=2)
+    r = _randn(dev, *shape[:-1], cout, seed=3).to(dt) if res else None
+    return x, w, b, r
+
+
+@pytest.mark.parametrize("out_dtype", [None, torch.float32, BF16])
+@pytest.mark.parametrize("shape, k, cout, res, relu", [
+    ((2, 5, 7, 9, 16), 3, 32, True, True),
+    ((1, 6, 6, 6, 32), 7, 16, False, True),
+    ((1, 4, 4, 4, 32), 1, 17, False, False),
+    ((1, 9, 9, 9, 24), 3, 20, True, False),
+    ((2, FLAG, FLAG, FLAG, 32), 3, 32, True, True),
+])
+def test_conv3d_fused_bf16(dev, shape, k, cout, res, relu, out_dtype):
+    from lt_tpu_torch.ops.kernels import conv3d
+
+    x, w, b, r = _conv_inputs(dev, shape, k, cout, res, BF16)
+    got = conv3d.conv3d_fused(x, w, b, r, relu, out_dtype)
+    assert got.dtype == (out_dtype or BF16)
+    _close(got, conv3d.conv3d_fused_plain(x, w, b, r, relu, out_dtype),
+           REL if out_dtype == torch.float32 else REL_BF16)
+
+
+def test_conv3d_fused_float32_in_bfloat16_out(dev):
+    from lt_tpu_torch.ops.kernels import conv3d
+
+    x, w, b, r = _conv_inputs(dev, (1, 6, 5, 4, 16), 3, 32, True,
+                              torch.float32)
+    _close(conv3d.conv3d_fused(x, w, b, r, True, BF16),
+           conv3d.conv3d_fused_plain(x, w, b, r, True, BF16), REL_BF16)
+
+
+def test_kernels_refuse_mixed_types(dev):
+    from lt_tpu_torch.ops.kernels import conv3d, updown
+
+    x, w, b, r = _conv_inputs(dev, (1, 4, 4, 4, 8), 3, 8, True, BF16)
+    with pytest.raises(TypeError, match="one type"):
+        conv3d.conv3d_fused(x, w.float(), b)
+    with pytest.raises(TypeError, match="one type"):
+        conv3d.conv3d_fused(x, w, b, r.float())
+    with pytest.raises(TypeError, match="float32"):
+        conv3d.conv3d_fused(x, w, b.to(BF16))
+    with pytest.raises(TypeError, match="one type"):
+        updown.upsample3d_2x(x, _randn(dev, 8, 64), _randn(dev, 64))
+
+
+@pytest.mark.parametrize("dt", [torch.float32, BF16])
+@pytest.mark.parametrize("side, residual", [(6, True), (7, False),
+                                            (FLAG, True)])
+def test_conv3d_same(dev, dt, side, residual):
+    from lt_tpu_torch.ops.kernels import conv3d
+
+    b = 2 if side == FLAG else 1
+    x, w, bias, r = _conv_inputs(dev, (b, side, side, side, 32), 3, 32,
+                                 residual, dt)
+    got = conv3d.conv3d_same(x, w.float(), bias, relu=True, residual=r)
+    assert got.dtype == dt
+    _close(got, conv3d.conv3d_fused_plain(x, w, bias, r, True),
+           REL if dt == torch.float32 else REL_BF16)
+    no_bias = conv3d.conv3d_same(x, w)
+    _close(no_bias, conv3d.conv3d_fused_plain(x, w, torch.zeros_like(bias)),
+           REL if dt == torch.float32 else REL_BF16)
+
+
+@pytest.mark.parametrize("with_skip", [False, True])
+@pytest.mark.parametrize("shape, cout", [((2, 3, 2, 5, 64), 32),
+                                         ((1, 2, 2, 2, 128), 17),
+                                         ((2, 32, 32, 32, 64), 32)])
+def test_upsample3d_2x_bf16(dev, shape, cout, with_skip):
+    from lt_tpu_torch.ops.kernels import updown
+
+    b, sx, sy, sz, cin = shape
+    x = _randn(dev, *shape).to(BF16)
+    w8 = _randn(dev, cin, 8 * cout, scale=cin ** -0.5, seed=1).to(BF16)
+    b8 = _randn(dev, 8 * cout, scale=0.1, seed=2)
+    skip = (_randn(dev, b, 2 * sx, 2 * sy, 2 * sz, cout, seed=3).to(BF16)
+            if with_skip else None)
+    _close(updown.upsample3d_2x(x, w8, b8, skip),
+           updown.upsample3d_2x_plain(x, w8, b8, skip), REL_BF16)
+
+
+@pytest.mark.parametrize("shape", [(2, 4, 6, 8, 32), (1, 2, 2, 2, 17),
+                                   (2, FLAG, FLAG, FLAG, 32)])
+def test_max_pool3d_2x_bf16(dev, shape):
+    from lt_tpu_torch.ops.kernels import updown
+
+    x = _randn(dev, *shape).to(BF16)
+    got = updown.max_pool3d_2x(x)
+    assert got.dtype == BF16
+    assert torch.equal(got, updown.max_pool3d_2x_plain(x))
+
+
+@pytest.mark.parametrize("method", ["softmax", "sum", "max", "conf"])
+def test_unproject_agg_bf16(dev, method):
+    """K1 with bfloat16 features: the edge-case scene, and the flagship
+    shape (2 x 4 views of 96^2 x 32 into 64^3) on a perspective rig."""
+    from lt_tpu_torch.ops.kernels import unproject
+
+    b, v, h, w, c, s = 2, 3, 12, 10, 40, 8
+    feats = _randn(dev, b, v, h, w, c).to(BF16)
+    m = torch.zeros(b, v, 3, 4, device=dev)
+    m[..., 0, :] = torch.tensor([1.2, 0.2, 0.1, 0.3])
+    m[..., 1, :] = torch.tensor([0.1, 1.3, 0.15, 0.2])
+    m[..., 2, :] = torch.tensor([0.02, 0.01, 0.015, 1.0])
+    m += _randn(dev, b, v, 3, 4, scale=0.02, seed=1)
+    m[1, :, 2] = torch.tensor([1.0, 0.0, 0.0, -3.0], device=dev)
+    mask = torch.ones(b, v, device=dev)
+    mask[0, 1] = 0.0
+    conf = _randn(dev, b, v, c, seed=2).abs() if method == "conf" else None
+    got = unproject.unproject_agg(feats, m, mask, conf, method, s)
+    assert got.dtype == BF16
+    _close(got, unproject.unproject_agg_plain(feats, m, mask, conf, method,
+                                              s), REL_BF16)
+    big = _randn(dev, 2, 4, 96, 96, 32, seed=3).to(BF16)
+    mm = torch.zeros(2, 4, 3, 4, device=dev)
+    mm[..., 0, :] = torch.tensor([1.4, 0.1, 0.05, 3.0])
+    mm[..., 1, :] = torch.tensor([0.05, 1.4, 0.1, 2.0])
+    mm[..., 2, :] = torch.tensor([0.002, 0.001, 0.0015, 1.0])
+    conf = _randn(dev, 2, 4, 32, seed=4).abs() if method == "conf" else None
+    ones = torch.ones(2, 4, device=dev)
+    _close(unproject.unproject_agg(big, mm, ones, conf, method, FLAG),
+           unproject.unproject_agg_plain(big, mm, ones, conf, method, FLAG),
+           REL_BF16)
+
+
+def _block_params(dev, cin, c, dt, proj=False, tail_out=None):
+    def cw(k, i, o, seed):
+        return _randn(dev, k, k, k, i, o, scale=(k ** 3 * i) ** -0.5,
+                      seed=seed).to(dt)
+
+    prm = [cw(3, cin, c, 1), _randn(dev, c, scale=0.1, seed=2),
+           cw(3, c, c, 3), _randn(dev, c, scale=0.1, seed=4)]
+    skip = ((_randn(dev, cin, c, scale=cin ** -0.5, seed=5).to(dt),
+             _randn(dev, c, scale=0.1, seed=6)) if proj else None)
+    tail = ()
+    if tail_out:
+        tail = ((_randn(dev, c, c, scale=c ** -0.5, seed=7).to(dt),
+                 _randn(dev, c, scale=0.1, seed=8), True),
+                (_randn(dev, c, tail_out, scale=c ** -0.5, seed=9).to(dt),
+                 _randn(dev, tail_out, scale=0.1, seed=10), False))
+    return prm, skip, tail
+
+
+def _plain_block(x, prm, skip, tail):
+    from lt_tpu_torch.ops.kernels.conv3d import conv3d_fused_plain as cp
+
+    def pw(x, w, b, relu=False):
+        return cp(x, w.reshape(1, 1, 1, *w.shape), b, relu=relu)
+
+    y = cp(x, prm[0], prm[1], relu=True)
+    s = x if skip is None else pw(x, *skip)
+    y = cp(y, prm[2], prm[3], residual=s, relu=True)
+    for w, b, relu in tail:
+        y = pw(y, w, b, relu)
+    return y
+
+
+@pytest.mark.parametrize("dt", [torch.float32, BF16])
+@pytest.mark.parametrize("side", [8, FLAG])
+@pytest.mark.parametrize("entry", ["mp2", "mp4", "q4", "folded"])
+def test_res3d_block_entry_points(dev, entry, side, dt):
+    """res3d_block_mp (s = 2, 4; 16 -> 32 projection), res3d_block_q4 (with
+    the 32 -> 17 tail) and res3d_block_folded (32 ch, tail) against the plain
+    composition; a block rounds three times, hence twice the conv limit in
+    bfloat16."""
+    from lt_tpu_torch.ops.kernels import conv_mp, res3d_folded, res3d_q4
+
+    proj = entry.startswith("mp")
+    cin = 16 if proj else 32
+    prm, skip, tail = _block_params(dev, cin, 32, dt, proj=proj,
+                                    tail_out=None if proj else 17)
+    x = _randn(dev, 1, side, side, side, cin).to(dt)
+    if entry == "mp2":
+        got = conv_mp.res3d_block_mp(x, *prm, skip_proj=skip, s=2)
+    elif entry == "mp4":
+        got = conv_mp.res3d_block_mp(x, *prm, skip_proj=skip, s=4)
+    elif entry == "q4":
+        got = res3d_q4.res3d_block_q4(x, *prm, tail=tail)
+    else:
+        got = res3d_folded.res3d_block_folded(x, *prm, tail=tail)
+    _close(got, _plain_block(x, prm, skip, tail),
+           REL if dt == torch.float32 else 2 * REL_BF16)
+
+
+def test_res3d_entry_points_keep_their_shape_rules(dev):
+    from lt_tpu_torch.ops.kernels import conv_mp, res3d_folded, res3d_q4
+
+    prm, skip, _ = _block_params(dev, 16, 32, torch.float32, proj=True)
+    same, _, _ = _block_params(dev, 32, 32, torch.float32)
+    with pytest.raises(ValueError, match="X % s"):
+        conv_mp.res3d_block_mp(_randn(dev, 1, 6, 4, 4, 16), *prm,
+                               skip_proj=skip, s=4)
+    with pytest.raises(ValueError, match="X % 4"):
+        res3d_q4.res3d_block_q4(_randn(dev, 1, 6, 4, 4, 32), *same)
+    with pytest.raises(ValueError, match="Z % 4"):
+        res3d_folded.res3d_block_folded(_randn(dev, 1, 4, 4, 6, 32), *same)
+    with pytest.raises(ValueError, match="identity"):
+        res3d_folded.res3d_block_folded(_randn(dev, 1, 4, 4, 4, 16), *prm)
+
+
+@pytest.mark.parametrize("out_dtype", [torch.float32, BF16])
+@pytest.mark.parametrize("in_dtype", [torch.float32, BF16])
+def test_sample_views(dev, in_dtype, out_dtype):
+    """K7 on the edge-case scene, and its float32 result as K5's,
+    transposed, bit for bit (same taps, same sum)."""
+    from lt_tpu_torch.ops.kernels import sample
+
+    feats, m, s = _sampling_scene(dev)
+    feats = feats.to(in_dtype)
+    got = sample.sample_views(feats, m, s, out_dtype)
+    assert got.dtype == out_dtype
+    exact = in_dtype == out_dtype == torch.float32
+    _close(got, sample.sample_views_plain(feats, m, s, out_dtype),
+           REL if exact else REL_BF16)
+    assert bool((got[3] == 0).all()) and bool((got[5] == 0).all())
+    if exact:
+        assert torch.equal(got, sample.sample_views_t(feats, m, s)
+                           .transpose(1, 2))
+
+
+@pytest.mark.parametrize("g_dtype", [torch.float32, BF16])
+def test_sample_views_grad(dev, g_dtype):
+    from lt_tpu_torch.ops.kernels import sample
+
+    feats, m, s = _sampling_scene(dev)
+    shape = tuple(feats.shape)
+    g = _randn(dev, shape[0], s ** 3, shape[-1], seed=4).to(g_dtype)
+    got = sample.sample_views_grad(g, m, shape, s)
+    assert got.dtype == torch.float32
+    _close(got, sample.sample_views_grad_plain(g, m, shape, s))
+    assert bool((got[3] == 0).all()) and bool((got[5] == 0).all())
+
+
+def test_sample_views_affine_at_training_shapes(dev):
+    """20 views of 96^2 x 32 into 64^3: forward vs plain, backward vs the
+    plain scatter and vs K6 on the transposed cotangent."""
+    from lt_tpu_torch.ops.kernels import sample
+
+    bv, hm, c, s = 20, 96, 32, FLAG
+    feats = _randn(dev, bv, hm, hm, c).requires_grad_()
+    m = torch.zeros(bv, 3, 4, device=dev)
+    m[:, 0] = torch.tensor([1.4, 0.1, 0.05, 3.0])
+    m[:, 1] = torch.tensor([0.05, 1.4, 0.1, 2.0])
+    m[:, 2] = torch.tensor([0.002, 0.001, 0.0015, 1.0])
+    m += _randn(dev, bv, 3, 4, scale=1e-3, seed=1)
+    out = sample.sample_views_affine(feats, m, s)
+    _close(out.detach(), sample.sample_views_plain(feats.detach(), m, s))
+    g = _randn(dev, bv, s ** 3, c, seed=2)
+    out.backward(g)
+    _close(feats.grad, sample.sample_views_grad_plain(g, m, tuple(feats.shape),
+                                                      s))
+    _close(feats.grad, sample.sample_views_grad_t(
+        g.transpose(1, 2).contiguous(), m, tuple(feats.shape), s), rel=1e-5)
+
+
+@pytest.mark.parametrize("dt", [torch.float32, BF16])
+def test_v2v_conv_path_matches_fused_path(dev, dt):
+    """V2V at 32^3: the per-conv configuration launches K2-K4 only and
+    agrees with the fused composition (the same launches in another order of
+    pools: bit for bit)."""
+    from lt_tpu_torch.models.v2v import V2VModel
+    from lt_tpu_torch.ops.kernels import _build
+
+    fused = V2VModel(32, 17, device=dev, seed=5, compute_dtype=dt)
+    conv = V2VModel(32, 17, use_kernels="conv", device=dev, seed=5,
+                    compute_dtype=dt)
+    x = _randn(dev, 1, 32, 32, 32, 32)
+    with torch.no_grad():
+        ref = fused(x)
+        _build.reset_launches()
+        got = conv(x)
+    assert got.dtype == dt
+    assert {k for k, v in _build.LAUNCHES.items() if v} == {
+        "conv3d_fused", "upsample3d_2x", "max_pool3d_2x"}
+    assert torch.equal(got, ref)
+
+
+def test_v2v_bf16_kernel_path_near_float32(dev):
+    """V2V at 32^3 in bfloat16 against its float32 self: relative 5e-2 of
+    the output's max at random weights (about 40 roundings deep)."""
+    from lt_tpu_torch.models.v2v import V2VModel
+
+    f32 = V2VModel(32, 17, device=dev, seed=5)
+    b16 = V2VModel(32, 17, device=dev, seed=5, compute_dtype=BF16)
+    x = _randn(dev, 1, 32, 32, 32, 32)
+    with torch.no_grad():
+        ref, got = f32(x), b16(x)
+    assert got.dtype == BF16
+    _close(got.float(), ref, rel=5e-2)

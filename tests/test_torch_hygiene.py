@@ -2,6 +2,9 @@
 
 - No file of ``lt_tpu_torch/`` or ``chip_smoke.py`` imports ``jax``,
   ``flax``, ``optax``, ``orbax`` or ``lt_tpu`` (AST scan).
+- No module of the port reads an environment switch (``lt_tpu`` selects
+  its kernel paths with ``LT_TPU_*`` variables; the port takes arguments):
+  the only read is ``CUDA_HOME`` in the kernels' build.
 - Without CUDA the default device raises instead of running on the CPU.
 """
 
@@ -40,6 +43,44 @@ def _imported_roots(path: pathlib.Path):
 def test_port_imports_no_jax_or_lt_tpu(path):
     bad = sorted(set(_imported_roots(path)) & set(FORBIDDEN))
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def _environment_reads(path: pathlib.Path):
+    """Names read from the environment: ``os.environ[...]``, ``.get(...)``
+    and ``os.getenv(...)`` (the string argument, or '?' if not a literal)."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        hit = None
+        if isinstance(node, ast.Subscript) and ast.unparse(
+                node.value) == "os.environ":
+            hit = node.slice
+        elif isinstance(node, ast.Call) and ast.unparse(node.func) in (
+                "os.environ.get", "os.getenv", "os.environ.setdefault"):
+            hit = node.args[0] if node.args else None
+        elif isinstance(node, ast.Attribute) and ast.unparse(
+                node) == "os.environ" and not isinstance(
+                getattr(node, "ctx", None), ast.Load):
+            hit = node
+        if hit is not None:
+            yield hit.value if isinstance(hit, ast.Constant) else "?"
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_reads_no_environment_switch(path):
+    allowed = {"CUDA_HOME"} if path.name == "_build.py" else set()
+    reads = set(_environment_reads(path))
+    assert reads <= allowed, f"{path.relative_to(ROOT)} reads {reads}"
+
+
+def test_new_kernel_modules_are_part_of_the_port():
+    names = {p.name for p in PORT_FILES}
+    assert {"res3d_q4.py", "res3d_folded.py", "conv_mp.py", "conv3d.py",
+            "sample.py"} <= names
+    csrc = {p.stem for p in (ROOT / "lt_tpu_torch" / "ops" / "kernels"
+                             / "csrc").glob("*.cu")}
+    from lt_tpu_torch.ops.kernels import _build
+    assert csrc == set(_build.SOURCES)
 
 
 def test_default_device_raises_without_cuda(monkeypatch, tmp_path):
