@@ -1,8 +1,11 @@
 #!/usr/bin/env python3
 """Smoke run of lt_tpu_torch on one NVIDIA GPU.
 
-Builds the eight CUDA kernels of the port from ``lt_tpu_torch/ops/kernels/
-csrc`` and holds each against its plain PyTorch version.  Then it drives
+Builds the nine CUDA kernels of the port from ``lt_tpu_torch/ops/kernels/
+csrc`` and holds each against its plain PyTorch version.  K2 has two
+bodies: ``conv3d_fused`` (CUDA cores) for float32 inputs and
+``conv3d_mma`` (tensor cores) for bfloat16 inputs; every bfloat16 path must
+launch only the second, every float32 path only the first.  Then it drives
 the port's paths at the flagship width (ResNet-152, 384^2 images, 4 views,
 64^3 volume, softmax aggregation, 17 joints, seeded random weights): the
 eval forward through K1-K4 (requests at batch 8) in float32 and in the
@@ -27,6 +30,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import re
 import subprocess
 import sys
 import time
@@ -35,11 +39,11 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 
 # H100 SXM published peaks (NVIDIA data sheet, 700 W): float32 on the CUDA
-# cores (the kernels use no tensor cores) and HBM3 bandwidth.
+# cores (all kernels but conv3d_mma) and HBM3 bandwidth.
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
-# Dense bfloat16 on the tensor cores: not what these kernels run on, but
-# what a tensor-core redesign of K2 / K3 would be held to.
+# Dense bfloat16 on the tensor cores: conv3d_mma's peak, and what a
+# tensor-core redesign of the other kernels would be held to.
 PEAK_BF16_TC_FLOPS = 989e12
 # The flagship configuration (bench.py's shapes): ResNet-152 backbone at
 # 384^2 (96^2 heatmaps), a 64^3 volume, 4 views, 17 joints.
@@ -76,10 +80,18 @@ LOSS_TOL = 1e-5         # kernel-path vs plain-path training loss, relative
 STEP_GRAD_TOL = 3e-2
 GRAD_MODULES = ("process_features", "backbone.deconv_layers",
                 "volume_net.front_layers")
-EVAL_KERNELS = ("unproject_agg", "conv3d_fused", "upsample3d_2x",
-                "max_pool3d_2x")
+EVAL_KERNELS = {"float32": ("unproject_agg", "conv3d_fused", "upsample3d_2x",
+                             "max_pool3d_2x"),
+                "bfloat16": ("unproject_agg", "conv3d_mma", "upsample3d_2x",
+                             "max_pool3d_2x")}
+# K2's body for each activation type; the other never launches there.
+K2 = {"float32": "conv3d_fused", "bfloat16": "conv3d_mma"}
+K2_PER_FORWARD = 47     # K2 launches per flagship V2V forward, both configs
 TRAIN_KERNELS = ("unproject_agg", "sample_views_t", "sample_views_grad_t")
-ALT_KERNELS = ("conv3d_fused", "sample_views", "sample_views_grad")
+ALT_KERNELS = ("conv3d_fused", "conv3d_mma", "sample_views",
+               "sample_views_grad")
+# The peak each kernel's bound is taken against (default PEAK_F32_FLOPS).
+PEAK_OF = {"conv3d_mma": PEAK_BF16_TC_FLOPS}
 
 # The TPU kernels (pallas_call sites) each CUDA kernel replaces.
 REPLACES = {
@@ -89,6 +101,11 @@ REPLACES = {
                     "lt_tpu/ops/pallas/conv3d.py:205, "
                     "lt_tpu/ops/pallas/res3d_q4.py:245, "
                     "lt_tpu/ops/pallas/res3d_folded.py:302",
+    "conv3d_mma": "lt_tpu/ops/pallas/conv_mp.py:237, :442, "
+                  "lt_tpu/ops/pallas/res3d.py:742, :950, :1180, "
+                  "lt_tpu/ops/pallas/conv3d.py:205, "
+                  "lt_tpu/ops/pallas/res3d_q4.py:245, "
+                  "lt_tpu/ops/pallas/res3d_folded.py:302",
     "upsample3d_2x": "lt_tpu/ops/pallas/updown.py:376, :330, "
                      "lt_tpu/ops/pallas/res3d.py:1180",
     "max_pool3d_2x": "lt_tpu/ops/pallas/updown.py:185, :143, "
@@ -185,9 +202,9 @@ def make_case(name, args, geometry, dev, gen):
         return (torch.randn(shape, generator=gen, device=dev)
                 * scale).to(dtype)
 
-    if name == "conv3d_fused":
-        _, _, _, res_ptr, _, b, sx, sy, sz, cin, cout, k, relu, _, _ = args
-        out_dt = torch.bfloat16 if args[-1] else torch.float32
+    if name in ("conv3d_fused", "conv3d_mma"):
+        _, _, _, res_ptr, _, b, sx, sy, sz, cin, cout, k, relu = args[:13]
+        out_dt = torch.bfloat16 if args[14] else torch.float32
         x = randn(b, sx, sy, sz, cin)
         w = randn(k, k, k, cin, cout, scale=(k ** 3 * cin) ** -0.5)
         bias = randn(cout, scale=0.1, dtype=torch.float32)
@@ -306,17 +323,21 @@ def record_launches(fn):
 
 def _dtype_of(name, args):
     """The activation type of a recorded launch: its C dtype argument (the
-    last one; K2 has the input's before the output's)."""
+    last one; K2 has the input's before the output's, then its plan)."""
     import torch
 
-    code = args[-2] if name == "conv3d_fused" else args[-1]
+    code = args[13] if name in K2.values() else args[-1]
     return torch.bfloat16 if code else torch.float32
 
 
-def _acc(table, key, mult, err, rel, ms, plain_ms, lib_ms, case):
+def _acc(table, key, mult, err, rel, ms, plain_ms, lib_ms, case, peak):
+    """Add ``mult`` launches of ``case`` to ``table[key]``.  The bound of
+    several launches is the sum of each launch's bound (each is its own
+    pass over its bytes), on ``peak`` and on the tensor cores."""
     acc = table.setdefault(key, dict(
         launches=0, max_abs_err=0.0, max_rel_err=0.0, ms=0.0, plain_ms=0.0,
-        library_ms=None, nbytes=0.0, flops=0.0, tc_bound_ms=0.0))
+        library_ms=None, nbytes=0.0, flops=0.0, tc_bound_ms=0.0,
+        bound_ms=0.0, bound_by={"bytes": 0.0, "operations": 0.0}))
     acc["launches"] += mult
     acc["max_abs_err"] = max(acc["max_abs_err"], err)
     acc["max_rel_err"] = max(acc["max_rel_err"], rel)
@@ -328,6 +349,9 @@ def _acc(table, key, mult, err, rel, ms, plain_ms, lib_ms, case):
     acc["flops"] += mult * case.flops
     acc["tc_bound_ms"] += mult * bound(case.nbytes, case.flops,
                                        PEAK_BF16_TC_FLOPS)[0]
+    b_ms, b_by = bound(case.nbytes, case.flops, peak)
+    acc["bound_ms"] += mult * b_ms
+    acc["bound_by"][b_by] += mult * b_ms
 
 
 def replay(calls, geometry, dev):
@@ -351,26 +375,38 @@ def replay(calls, geometry, dev):
         ms = cuda_ms(case.run)
         plain_ms = cuda_ms(case.plain)
         lib_ms = None if case.library is None else cuda_ms(case.library)
-        b_ms, _ = bound(case.nbytes, case.flops)
+        b_ms, _ = bound(case.nbytes, case.flops,
+                        PEAK_OF.get(name, PEAK_F32_FLOPS))
+        tc = ""
+        if name == "conv3d_mma":
+            tc = (f"  {case.flops / ms / 1e9:.1f} TFLOP/s, {100 * b_ms / ms:.1f}"
+                  f" % of the tensor-core bound")
         log(f"  {entry}: {name}{_shape_str(name, args)} x{mult}: "
             f"max_abs_err {err:.3e} rel {rel:.3e}  kernel {ms:.4f} ms  plain "
             f"{plain_ms:.4f} ms  library "
             f"{'n/a' if lib_ms is None else f'{lib_ms:.4f} ms'}  bound "
-            f"{b_ms:.4f} ms")
+            f"{b_ms:.4f} ms{tc}")
         for table, k in ((per_kernel, name), (per_entry, entry)):
-            _acc(table, k, mult, err, rel, ms, plain_ms, lib_ms, case)
+            _acc(table, k, mult, err, rel, ms, plain_ms, lib_ms, case,
+                 PEAK_OF.get(name, PEAK_F32_FLOPS))
         del case
         torch.cuda.empty_cache()
     return per_kernel, per_entry
 
 
 # Argument slots that are pointers (kept as present / absent in the key).
-_PTR_SLOTS = {"conv3d_fused": range(5), "upsample3d_2x": range(5),
-              "max_pool3d_2x": range(2), "unproject_agg": range(5)}
+_PTR_SLOTS = {"conv3d_fused": range(5), "conv3d_mma": range(5),
+              "upsample3d_2x": range(5), "max_pool3d_2x": range(2),
+              "unproject_agg": range(5)}
 
 
 def _shape_str(name, args):
     ints = [a for i, a in enumerate(args) if i not in _PTR_SLOTS[name]]
+    if name == "conv3d_mma":    # the shapes, then the launch plan
+        nt, ck, bx, by, bz, nh, smem, grid = ints[10:]
+        return (f"({','.join(map(str, ints[:10]))}) plan nt={nt} ck={ck} "
+                f"brick={bx}x{by}x{bz} halo_buffers={nh} smem={smem} B "
+                f"grid={grid}")
     return "(" + ",".join(f"{a:g}" if isinstance(a, float) else str(a)
                           for a in ints) + ")"
 
@@ -659,7 +695,7 @@ def alt_entry_points(batch, geometry, dev):
         torch.cuda.synchronize()
         ms, plain_ms = cuda_ms(fn, 100), cuda_ms(plain, 100)
         lib_ms = cuda_ms(library, 100)
-        b_ms, b_by = bound(nbytes, flops)
+        b_ms, b_by = bound(nbytes, flops, PEAK_OF.get(kernel, PEAK_F32_FLOPS))
         tc_ms, _ = bound(nbytes, flops, PEAK_BF16_TC_FLOPS)
         log(f"  {label}: {n_launch} launches of {kernel}, max_abs_err "
             f"{err:.3e} rel {rel:.3e}  kernel {ms:.4f} ms  plain "
@@ -681,6 +717,7 @@ def alt_entry_points(batch, geometry, dev):
 
     for dt, tol in ((torch.float32, REL_TOL), (torch.bfloat16, REL_TOL_BF16)):
         name = str(dt).replace("torch.", "")
+        k2 = K2[name]
         f = dt.itemsize
 
         def cw(k, cin, cout):
@@ -697,7 +734,7 @@ def alt_entry_points(batch, geometry, dev):
         conv_flops = 2.0 * vox * 27 * 32 * 32
         for residual in (None, x32):
             run(f"conv3d_same 32->32 @{s}^3 x{b} {name} residual="
-                f"{residual is not None}", "conv3d_fused",
+                f"{residual is not None}", k2,
                 lambda: conv3d.conv3d_same(x32, w, bias, relu=True,
                                            residual=residual),
                 lambda: conv3d_fused_plain(x32, w, bias, residual, True),
@@ -744,7 +781,7 @@ def alt_entry_points(batch, geometry, dev):
         block_tol = tol if dt == torch.float32 else 2 * tol
         for sp in (2, 4):
             run(f"res3d_block_mp s={sp} 16->32 projection @{s}^3 x{b} {name}",
-                "conv3d_fused",
+                k2,
                 lambda: conv_mp.res3d_block_mp(x16, *proj, skip_proj=(ws, bs),
                                                s=sp),
                 lambda: plain_block(x16, proj, (ws, bs)),
@@ -752,13 +789,13 @@ def alt_entry_points(batch, geometry, dev):
                 f * (vox * (16 + 32) + weights(proj, (ws, bs))) + 4 * 96,
                 proj_flops, block_tol)
         run(f"res3d_block_q4 32 + tail 32->32->32->17 @{s}^3 x{b} {name}",
-            "conv3d_fused",
+            k2,
             lambda: res3d_q4.res3d_block_q4(x32, *same, tail=tail),
             lambda: plain_block(x32, same, tl=tail),
             lambda: lib_block(x32, same, tl=tail),
             f * (vox * (32 + 17) + weights(same, tl=tail)) + 4 * 145,
             tail_flops, block_tol)
-        run(f"res3d_block_folded 32 @{s}^3 x{b} {name}", "conv3d_fused",
+        run(f"res3d_block_folded 32 @{s}^3 x{b} {name}", k2,
             lambda: res3d_folded.res3d_block_folded(x32, *same),
             lambda: plain_block(x32, same),
             lambda: lib_block(x32, same),
@@ -988,8 +1025,17 @@ def main(argv=None) -> int:
         f"(parallel nvcc)")
     for name, text in _build.BUILD_LOG.items():
         for line in text.splitlines():
-            if "registers" in line or "spill" in line:
+            entry = re.search(r"Compiling entry.*conv3d_mma_kernelILi(\d+)ELi"
+                              r"(\d+)ELi(\d+)E(\w+?)EEv", line)
+            if entry:       # which instantiation the next lines describe
+                nt, ck, kt, to = entry.groups()
+                log(f"  {name}: conv3d_mma_kernel<NT={nt}, CK={ck}, "
+                    f"k={kt if kt != '0' else 'any'}, "
+                    f"{'bfloat16' if 'bfloat16' in to else 'float'} out>")
+            elif "registers" in line or "spill" in line:
                 log(f"  {name}: {line.strip()}")
+    log("  (conv3d_mma's shared memory is dynamic: each replayed launch "
+        "below prints its plan's bytes)")
 
     # Phase 2: full float32 everywhere (no TF32 in cuDNN or cuBLAS).
     torch.backends.cudnn.allow_tf32 = False
@@ -1019,9 +1065,10 @@ def main(argv=None) -> int:
             net.load_state_dict(like.state_dict())
         return net
 
-    def drive(net, n, what):
+    def drive(net, n, what, dt=torch.float32):
         """``n`` timed requests after the counts were set to 0; checks
-        shapes, finiteness and that K1-K4 were all launched."""
+        shapes, finiteness, that K1-K4 were all launched, K2 through the
+        body of ``dt`` only and K2_PER_FORWARD times a request."""
         torch.cuda.synchronize()
         _build.reset_launches()
         times, outs = [], []
@@ -1034,10 +1081,18 @@ def main(argv=None) -> int:
         launches = dict(_build.LAUNCHES)
         log(f"  launches over {n} requests: "
             f"{ {k: v for k, v in launches.items() if v} }")
-        missing = [k for k in EVAL_KERNELS if launches[k] == 0]
+        kind = str(dt).replace("torch.", "")
+        missing = [k for k in EVAL_KERNELS[kind] if launches[k] == 0]
         if missing:
             raise AssertionError(f"kernels never launched on the {what} "
                                  f"path: {missing}")
+        other = K2["bfloat16" if kind == "float32" else "float32"]
+        if (launches[K2[kind]] != K2_PER_FORWARD * n
+                or launches[other] != 0):
+            raise AssertionError(
+                f"{what}: {launches[K2[kind]]} {K2[kind]} and "
+                f"{launches[other]} {other} launches over {n} requests, want "
+                f"{K2_PER_FORWARD} and 0 a request")
         for out in outs:
             kp, vols = out.keypoints_3d, out.volumes
             if tuple(kp.shape) != (b, 17, 3) or tuple(vols.shape) != (
@@ -1067,17 +1122,21 @@ def main(argv=None) -> int:
     def kernel_table(calls, launches, n):
         """Replay one forward's launches; per-kernel sums of this path."""
         per_kernel, per_entry = replay(calls, geometry, dev)
+
+        def summed_bound(e):
+            return e["bound_ms"], max(e["bound_by"], key=e["bound_by"].get)
+
         for entry, e in per_entry.items():
-            b_ms, b_by = bound(e["nbytes"], e["flops"])
+            b_ms, b_by = summed_bound(e)
             log(f"  entry point {entry}: {e['launches']} launches/forward, "
                 f"kernels {e['ms']:.3f} ms, plain {e['plain_ms']:.3f} ms, "
                 f"bound {b_ms:.4f} ms ({b_by}; with tensor cores "
                 f"{e['tc_bound_ms']:.4f} ms), max rel err "
                 f"{e['max_rel_err']:.3e}")
         table = {}
-        for name in EVAL_KERNELS:
+        for name in per_kernel:
             k = per_kernel[name]
-            b_ms, b_by = bound(k["nbytes"], k["flops"])
+            b_ms, b_by = summed_bound(k)
             table[name] = {
                 "max_abs_err": k["max_abs_err"], "ms": k["ms"],
                 "plain_ms": k["plain_ms"], "bound_ms": b_ms,
@@ -1127,13 +1186,15 @@ def main(argv=None) -> int:
         f"shapes held to rel {REL_TOL}, times summed over one forward")
     table = kernel_table(calls, launches, REQUESTS)
     rows = []
-    for name in EVAL_KERNELS:
+    for name in EVAL_KERNELS["float32"] + ("conv3d_mma",):
         rows.append({
             "name": name, "route": "cuda",
             "source": f"lt_tpu_torch/ops/kernels/csrc/{name}.cu",
             "replaces": REPLACES[name], "launches": launches[name],
-            "launches_by_path": {"eval": launches[name]},
-            **{k: v for k, v in table[name].items() if k != "tc_bound_ms"}})
+            "launches_by_path": ({"eval": launches[name]} if launches[name]
+                                 else {}),
+            **{k: v for k, v in table.get(name, {}).items()
+               if k != "tc_bound_ms"}})
 
     def add_path(path, path_launches):
         for row in rows:
@@ -1152,7 +1213,8 @@ def main(argv=None) -> int:
         f"(compute_dtype bfloat16), use_kernels='fused', batch {b}")
     model16 = build_model(dt=torch.bfloat16, like=model)
     calls16 = record_launches(lambda: model16(images, proj, pelvis))
-    outs, launches16 = drive(model16, REQUESTS, "bfloat16 eval")
+    outs, launches16 = drive(model16, REQUESTS, "bfloat16 eval",
+                             torch.bfloat16)
     add_path("eval_bf16", launches16)
     plain16 = build_model(False, torch.bfloat16, like=model)
     plain_out = timed_plain(plain16, "PyTorch modules under autocast, "
@@ -1187,7 +1249,11 @@ def main(argv=None) -> int:
         f"distinct shapes held to rel {REL_TOL_BF16}")
     table16 = kernel_table(calls16, launches16, REQUESTS)
     for row in rows:
-        row["bf16"] = table16[row["name"]]
+        if row["name"] == "conv3d_mma":     # bfloat16 only: its main numbers
+            row.update({k: v for k, v in table16["conv3d_mma"].items()
+                        if k != "tc_bound_ms"})
+        elif row["name"] in table16:
+            row["bf16"] = table16[row["name"]]
     del model16
     torch.cuda.empty_cache()
 
@@ -1198,7 +1264,7 @@ def main(argv=None) -> int:
                              (torch.bfloat16, kp_bf16, "eval_conv_bf16")):
         net = build_model("conv", dt, like=model)
         net(images, proj, pelvis)                       # warm-up
-        outs, conv_launches = drive(net, REQUESTS, f"per-conv {dt}")
+        outs, conv_launches = drive(net, REQUESTS, f"per-conv {dt}", dt)
         add_path(path, conv_launches)
         kp_err = (outs[0].keypoints_3d - ref_kp).abs().max().item()
         log(f"  {dt}: keypoints max |conv - fused| {kp_err:.3e} mm (limit "
@@ -1265,6 +1331,9 @@ def main(argv=None) -> int:
     # Phase 8: the flagship training step (kernel path vs plain path, then
     # timed on the kernel path).
     train_launches = train_flagship(dev)
+    if train_launches["conv3d_fused"] or train_launches["conv3d_mma"]:
+        raise AssertionError(f"the training step launched K2: "
+                             f"{train_launches}")
     add_path("train", {k: train_launches[k] for k in TRAIN_KERNELS})
     for name in ("sample_views_t", "sample_views_grad_t"):
         rows.append({"name": name, "route": "cuda",

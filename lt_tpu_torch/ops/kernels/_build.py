@@ -24,9 +24,9 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("unproject_agg", "conv3d_fused", "upsample3d_2x", "max_pool3d_2x",
-           "sample_views_t", "sample_views_grad_t", "sample_views",
-           "sample_views_grad")
+SOURCES = ("unproject_agg", "conv3d_fused", "conv3d_mma", "upsample3d_2x",
+           "max_pool3d_2x", "sample_views_t", "sample_views_grad_t",
+           "sample_views", "sample_views_grad")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
               "-lineinfo")
@@ -37,6 +37,7 @@ LAUNCHES = dict.fromkeys(SOURCES, 0)
 #: nvcc's output (ptxas register / shared-memory report) per built source.
 BUILD_LOG: dict = {}
 _LIBS: dict = {}
+_FNS: dict = {}
 
 ptr = ctypes.c_void_p
 i32 = ctypes.c_int
@@ -111,15 +112,17 @@ def launch(name: str, fn: str, device: torch.device, argtypes,
     ctypes would pass a Python int as a 32-bit C int and cut the pointer.
     The entry point returns ``cudaGetLastError()``; non-zero raises.
     """
-    lib = _lib(name)
-    cfn = getattr(lib, fn)
-    cfn.argtypes = list(argtypes) + [ptr]
-    cfn.restype = i32
+    cfn = _FNS.get((name, fn))
+    if cfn is None:     # typed once: ctypes rebuilds its converters per set
+        cfn = getattr(_lib(name), fn)
+        cfn.argtypes = list(argtypes) + [ptr]
+        cfn.restype = i32
+        _FNS[(name, fn)] = cfn
     with torch.cuda.device(device):
         err = cfn(*args, torch.cuda.current_stream(device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"CUDA kernel {fn} failed to launch: error {err} "
-                           f"({lib.ltk_error_string(err).decode()})")
+                           f"({_lib(name).ltk_error_string(err).decode()})")
     LAUNCHES[name] += 1
 
 

@@ -6,9 +6,10 @@
 //
 // The residual is added BEFORE the ReLU (the Res3D block's
 // relu(bn2(conv2(.)) + skip)).  Weights are DHWIO (k, k, k, Cin, Cout).
-// x, w and res are float32 or bfloat16 (one type for the three), the bias is
-// float32, the sum is float32 and the output float32 or bfloat16, rounded
-// once: the Pallas bodies' preferred_element_type=float32 and out_dtype.
+// x, w and res are float32, the bias is float32, the sum is float32 and the
+// output float32 or bfloat16, rounded once: the Pallas bodies'
+// preferred_element_type=float32 and out_dtype.  bfloat16 inputs go to the
+// tensor-core body, conv3d_mma.cu; this entry point refuses them.
 //
 // Replaces the convolutions inside these TPU kernels:
 //   lt_tpu/ops/pallas/conv_mp.py:conv3d_mp (pallas_call :237,
@@ -24,18 +25,16 @@
 //
 // Bound on the card: operations.  A k=3 32->32 conv does 55 kflop per
 // output voxel against 256 bytes moved; float32 on CUDA cores (67 TFLOP/s
-// published) is the roof, as this kernel uses no tensor cores; bfloat16
-// inputs halve the bytes and leave the operations where they are.
+// published) is the roof, as this kernel uses no tensor cores.
 //
 // Design (implicit GEMM on CUDA cores, simple first): a block owns VT
 // consecutive output voxels x CO_T output channels.  For every tap and
 // every 32-channel slice of Cin it gathers the shifted input rows (zero
 // outside the volume) into shared memory -- one 128-byte coalesced row per
 // voxel -- with the matching 32 x CO_T weight tile, then each of the 256
-// threads accumulates a 4-voxel x 4-channel register tile.  Shared memory
-// holds float32 whatever the input type (bfloat16 converts on the way in),
-// so both types run one inner loop.  Offsets are 64-bit.  Later work: tensor cores (TF32 / bf16 wgmma) and reuse of the
-// gathered input across taps.
+// threads accumulates a 4-voxel x 4-channel register tile.  Offsets are
+// 64-bit.  Later work:
+// three-pass TF32 on the tiles of conv3d_mma.cu.
 
 #include "common.cuh"
 
@@ -165,26 +164,20 @@ static void conv3d_fused_launch(const void* x, const void* w,
   }
 }
 
-// in_dtype: the type of x, w and res; out_dtype: the type of out.
+// in_dtype: the type of x, w and res (kLtkF32 only); out_dtype: the type
+// of out.
 extern "C" int conv3d_fused(const void* x, const void* w, const float* bias,
                             const void* res, void* out, int B, int X, int Y,
                             int Z, int Cin, int Cout, int K, int relu,
                             int in_dtype, int out_dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int key = in_dtype * 2 + out_dtype;
-  if (in_dtype < 0 || in_dtype > 1 || out_dtype < 0 || out_dtype > 1)
+  if (in_dtype != kLtkF32 || out_dtype < 0 || out_dtype > 1)
     return kLtkBadDtype;
-  if (key == 0)
+  if (out_dtype == kLtkF32)
     conv3d_fused_launch<float, float>(x, w, bias, res, out, B, X, Y, Z, Cin,
                                       Cout, K, relu, s);
-  else if (key == 1)
+  else
     conv3d_fused_launch<float, __nv_bfloat16>(x, w, bias, res, out, B, X, Y, Z,
                                               Cin, Cout, K, relu, s);
-  else if (key == 2)
-    conv3d_fused_launch<__nv_bfloat16, float>(x, w, bias, res, out, B, X, Y, Z,
-                                              Cin, Cout, K, relu, s);
-  else
-    conv3d_fused_launch<__nv_bfloat16, __nv_bfloat16>(
-        x, w, bias, res, out, B, X, Y, Z, Cin, Cout, K, relu, s);
   return static_cast<int>(cudaGetLastError());
 }

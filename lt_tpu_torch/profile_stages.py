@@ -3,14 +3,15 @@
     python -m lt_tpu_torch.profile_stages [--batch 8] [--bf16]
     python -m lt_tpu_torch.profile_stages --train [--batch 5]
 
-Times one warm request of the volumetric forward (RN-152, 384^2, 4 views,
+Times warm requests of the volumetric forward (RN-152, 384^2, 4 views,
 64^3, f32 with TF32 off or, with ``--bf16``, the bfloat16 eval
-configuration; seeded random weights) split by stage with CUDA
-events on module hooks (backbone, coord volumes, process_features,
-unprojection, V2V, soft-argmax), then traces one more request with
-``torch.profiler`` and prints the device's busy share of the window and the
-kernels that take the most device time.  ``--train`` does the same for one
-training step of experiments/human36m/train/human36m_vol_softmax.yaml
+configuration; seeded random weights) split by stage with CUDA events on
+module hooks (backbone, coord volumes, process_features, unprojection,
+V2V, soft-argmax; the median of three requests after two warm-up ones),
+then traces one more request with ``torch.profiler`` and prints the
+device's busy share of the window and the kernels that take the most
+device time.  ``--train`` does the same for training steps of
+experiments/human36m/train/human36m_vol_softmax.yaml
 (forward stages, loss, backward, Adam) on the kernel path, and prints the
 peak device memory.  Needs an NVIDIA GPU.
 """
@@ -31,6 +32,8 @@ from lt_tpu_torch.utils.example import example_batch, example_train_batch
 
 # The flagship shape: ResNet-152 at 384^2, a 64^3 volume.
 LAYERS, IMAGE, VOLUME = 152, 384, 64
+WARMUP, TIMED = 2, 3        # runs before timing; timed runs (the median's
+                            # split is printed)
 TRAIN_YAML = (Path(__file__).resolve().parents[1] / "experiments" / "human36m"
               / "train" / "human36m_vol_softmax.yaml")
 
@@ -92,48 +95,56 @@ def main(argv=None) -> None:
             events[key] = ev
         return hook
 
-    run()                                     # warm-up (cuDNN, packing)
+    def span(a, b):
+        return events[a].elapsed_time(events[b])
+
+    def timed_run():
+        """One run between events; its split by stage, total and wall ms."""
+        mark("run:start")()
+        t0 = time.perf_counter()
+        run()
+        mark("run:end")()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        split = {
+            "input layout": span("run:start", "backbone:start"),
+            "backbone": span("backbone:start", "backbone:end"),
+            "coord volumes": span("backbone:end", "process_features:start"),
+            "process_features": span("process_features:start",
+                                     "process_features:end"),
+            "unprojection (K1)": span("process_features:end", "v2v:start"),
+            "v2v": span("v2v:start", "v2v:end"),
+        }
+        if args.train:
+            split["soft-argmax + losses"] = span("v2v:end", "loss:end")
+            split["backward (K5, K6 in it)"] = span("loss:end", "backward:end")
+            split["Adam step"] = span("backward:end", "run:end")
+        else:
+            split["soft-argmax"] = span("v2v:end", "run:end")
+        return split, span("run:start", "run:end"), wall
+
+    # Warm-up (cuDNN's plans, V2V's packing, kernels loaded at first
+    # launch): the first two requests after start-up are slower and vary.
+    for _ in range(WARMUP):
+        run()
     handles = []
     for name, mod in stages:
         handles.append(mod.register_forward_pre_hook(mark(f"{name}:start")))
         handles.append(mod.register_forward_hook(mark(f"{name}:end")))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    mark("run:start")()
-    t0 = time.perf_counter()
-    run()
-    mark("run:end")()
-    torch.cuda.synchronize()
-    wall = (time.perf_counter() - t0) * 1e3
+    runs = sorted((timed_run() for _ in range(TIMED)), key=lambda r: r[1])
+    split, total, wall = runs[len(runs) // 2]
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     for h in handles:
         h.remove()
-
-    def span(a, b):
-        return events[a].elapsed_time(events[b])
-
-    split = {
-        "input layout": span("run:start", "backbone:start"),
-        "backbone": span("backbone:start", "backbone:end"),
-        "coord volumes": span("backbone:end", "process_features:start"),
-        "process_features": span("process_features:start",
-                                 "process_features:end"),
-        "unprojection (K1)": span("process_features:end", "v2v:start"),
-        "v2v": span("v2v:start", "v2v:end"),
-    }
-    if args.train:
-        split["soft-argmax + losses"] = span("v2v:end", "loss:end")
-        split["backward (K5, K6 in it)"] = span("loss:end", "backward:end")
-        split["Adam step"] = span("backward:end", "run:end")
-    else:
-        split["soft-argmax"] = span("v2v:end", "run:end")
-    total = span("run:start", "run:end")
     print(f"{torch.cuda.get_device_name(0)}; batch {args.batch}, RN-"
           f"{LAYERS} {IMAGE}^2, {VOLUME}^3, "
           f"{'bfloat16' if args.bf16 else 'float32'}; "
           f"{'training step' if args.train else 'request'} {total:.1f} ms on "
-          f"device events, {wall:.1f} ms on the host clock; peak memory "
-          f"{peak:.2f} GiB")
+          f"device events (median of {TIMED}: "
+          f"{[round(r[1], 1) for r in runs]}), {wall:.1f} ms on the host "
+          f"clock; peak memory {peak:.2f} GiB")
     for name, ms in split.items():
         print(f"  {name:36s} {ms:9.2f} ms  {100 * ms / total:5.1f}%")
 

@@ -1,8 +1,9 @@
 """The CUDA kernels against their plain versions on the card, at small and
 awkward shapes (odd sizes, Cout = 17, Cin = 16, k = 1 / 3 / 7, ragged
-tiles), plus K1's, K5's and K6's edge cases, the fused aggregation's
-gradient, the wrappers' device / launch rules, and V2V's folded weights
-after an optimizer step; K1-K4 in bfloat16, the voxels-major sampling
+tiles), plus K1's, K5's and K6's edge cases, K2's tensor-core body for
+bfloat16 inputs (conv3d_mma.cu) over ragged channels and volumes, the fused
+aggregation's gradient, the wrappers' device / launch rules, and V2V's
+folded weights after an optimizer step; K1-K4 in bfloat16, the voxels-major sampling
 kernels K7 / K8, ``conv3d_same`` and the three ``res3d_block_*`` entry
 points at a small and at the flagship shape, and V2V's per-conv and
 bfloat16 paths.
@@ -17,6 +18,8 @@ summation orders); TF32 is off for the plain versions.  bfloat16: 1.6e-2
 (two bfloat16 ulps of the largest value), the plain version rounding where
 the kernel rounds.
 """
+
+import itertools
 
 import pytest
 import torch
@@ -153,6 +156,7 @@ def test_no_wrapper_takes_its_plain_version_on_the_card(dev, monkeypatch):
         for name in names:
             monkeypatch.setattr(mod, name, forbidden)
     for dt in (torch.float32, BF16):
+        k2 = "conv3d_fused" if dt == torch.float32 else "conv3d_mma"
         x = _randn(dev, 1, 4, 4, 4, 8).to(dt)
         w = _randn(dev, 3, 3, 3, 8, 8, scale=0.1, seed=1).to(dt)
         b = _randn(dev, 8, scale=0.1, seed=2)
@@ -162,15 +166,15 @@ def test_no_wrapper_takes_its_plain_version_on_the_card(dev, monkeypatch):
         m = torch.tensor([[1., 0, 0, .3], [0, 1., 0, .2], [0, 0, 0, 1.]],
                          device=dev).expand(2, 3, 4).contiguous()
         for want, fn in (
-                ({"conv3d_fused": 1}, lambda: conv3d.conv3d_same(x, w, b)),
-                ({"conv3d_fused": 1}, lambda: conv_mp.conv3d_mp(x, w, b)),
-                ({"conv3d_fused": 3}, lambda: conv_mp.res3d_block_mp(
+                ({k2: 1}, lambda: conv3d.conv3d_same(x, w, b)),
+                ({k2: 1}, lambda: conv_mp.conv3d_mp(x, w, b)),
+                ({k2: 3}, lambda: conv_mp.res3d_block_mp(
                     x, w, b, w, b, skip_proj=ws, s=2)),
-                ({"conv3d_fused": 3}, lambda: res3d_q4.res3d_block_q4(
+                ({k2: 3}, lambda: res3d_q4.res3d_block_q4(
                     x, w, b, w, b, tail=((ws[0], b, True),))),
-                ({"conv3d_fused": 2}, lambda: res3d_folded.res3d_block_folded(
+                ({k2: 2}, lambda: res3d_folded.res3d_block_folded(
                     x, w, b, w, b)),
-                ({"conv3d_fused": 4, "max_pool3d_2x": 1},
+                ({k2: 4, "max_pool3d_2x": 1},
                  lambda: res3d.res3d_chain_fused(
                      x, [(w, b, w, b)] * 2, emit_pooled=True)),
                 ({"upsample3d_2x": 1}, lambda: updown.upsample3d_2x(
@@ -364,6 +368,82 @@ def test_conv3d_fused_float32_in_bfloat16_out(dev):
                               torch.float32)
     _close(conv3d.conv3d_fused(x, w, b, r, True, BF16),
            conv3d.conv3d_fused_plain(x, w, b, r, True, BF16), REL_BF16)
+
+
+# K2's tensor-core body (conv3d_mma.cu): every bfloat16 call.
+MMA_CH = [(32, 16), (16, 32), (32, 32), (32, 64), (64, 128), (128, 128),
+          (32, 17), (24, 40)]
+
+
+@pytest.mark.parametrize("batch", [1, 3])
+@pytest.mark.parametrize("vol", [(2, 2, 2), (5, 6, 7), (1, 3, 5)])
+@pytest.mark.parametrize("cin, cout", MMA_CH)
+@pytest.mark.parametrize("k", [1, 3, 7])
+def test_conv3d_mma(dev, k, cin, cout, vol, batch):
+    """conv3d_mma against the plain version on volumes that are not
+    multiples of the brick, ragged Cin / Cout (17, 24, 40), residual and
+    ReLU on and off, output bfloat16 (1.6e-2 of max |plain|) and float32
+    (1e-4: the products of bfloat16 values are exact in float32; the sums
+    differ in order and in the tensor cores' float32 accumulation, whose
+    error grows with the number of terms)."""
+    from lt_tpu_torch.ops.kernels import conv3d
+
+    x, w, b, r = _conv_inputs(dev, (batch, *vol, cin), k, cout, True, BF16)
+    for res, relu, out_dtype in itertools.product((None, r), (False, True),
+                                                  (BF16, torch.float32)):
+        got = conv3d.conv3d_fused(x, w, b, res, relu, out_dtype)
+        _close(got, conv3d.conv3d_fused_plain(x, w, b, res, relu, out_dtype),
+               REL_BF16 if out_dtype == BF16 else REL)
+
+
+@pytest.mark.parametrize("shape, k, cout, misalign", [
+    ((1, 5, 6, 7, 17), 3, 20, False),      # Cin % 8 != 0: element-wise halo
+    ((1, 5, 6, 7, 5), 1, 3, False),
+    ((2, 5, 6, 7, 12), 7, 8, False),
+    ((2, 5, 6, 7, 32), 3, 32, True),       # x, w, residual 2 bytes off 16
+    ((1, 6, 5, 7, 128), 9, 64, False),     # one halo buffer, reloaded
+    ((2, 9, 10, 11, 128), 11, 128, False),  # a smaller brick, CK = 16
+])
+def test_conv3d_mma_element_paths_and_large_k(dev, shape, k, cout, misalign):
+    """conv3d_mma's element-by-element loads and stores (channel counts
+    that are not multiples of 8, pointers off a 16-byte boundary) and the
+    plans of a large k, against the plain version."""
+    from lt_tpu_torch.ops.kernels import conv3d
+
+    def off(t):
+        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+        view = buf[1:].view(t.shape)
+        view.copy_(t)
+        return view
+
+    x, w, b, r = _conv_inputs(dev, shape, k, cout, True, BF16)
+    if misalign:
+        x, w, r = off(x), off(w), off(r)
+        assert x.data_ptr() % 16 and x.is_contiguous()
+    for out_dtype in (BF16, torch.float32):
+        got = conv3d.conv3d_fused(x, w, b, r, True, out_dtype)
+        _close(got, conv3d.conv3d_fused_plain(x, w, b, r, True, out_dtype),
+               REL_BF16 if out_dtype == BF16 else REL)
+
+
+def test_bf16_conv_launches_only_the_tensor_core_body(dev):
+    """A bfloat16 K2 call counts one conv3d_mma launch and none of
+    conv3d_fused, a float32 call the other way round; conv3d_fused's C entry
+    point refuses a bfloat16 input."""
+    from lt_tpu_torch.ops.kernels import _build, conv3d
+
+    for dt, want in ((BF16, "conv3d_mma"), (torch.float32, "conv3d_fused")):
+        x, w, b, r = _conv_inputs(dev, (2, 6, 6, 6, 32), 3, 32, True, dt)
+        _build.reset_launches()
+        conv3d.conv3d_fused(x, w, b, r, True)
+        assert {k: v for k, v in _build.LAUNCHES.items() if v} == {want: 1}
+    x, w, b, _ = _conv_inputs(dev, (1, 4, 4, 4, 8), 3, 8, False, BF16)
+    out = torch.empty_like(x)
+    p, i = _build.ptr, _build.i32
+    with pytest.raises(RuntimeError, match="conv3d_fused failed"):
+        _build.launch("conv3d_fused", "conv3d_fused", dev, [p] * 5 + [i] * 10,
+                      x.data_ptr(), w.data_ptr(), b.data_ptr(), None,
+                      out.data_ptr(), 1, 4, 4, 4, 8, 8, 3, 0, 1, 1)
 
 
 def test_kernels_refuse_mixed_types(dev):
@@ -607,7 +687,8 @@ def test_v2v_conv_path_matches_fused_path(dev, dt):
         got = conv(x)
     assert got.dtype == dt
     assert {k for k, v in _build.LAUNCHES.items() if v} == {
-        "conv3d_fused", "upsample3d_2x", "max_pool3d_2x"}
+        "conv3d_fused" if dt == torch.float32 else "conv3d_mma",
+        "upsample3d_2x", "max_pool3d_2x"}
     assert torch.equal(got, ref)
 
 
