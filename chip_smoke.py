@@ -30,6 +30,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import re
 import subprocess
 import sys
@@ -168,6 +169,18 @@ def check(name, got, ref, tol=REL_TOL):
     return err, rel
 
 
+def conv_flops(b: int, dims, k: int, cin: int, cout: int) -> float:
+    """Operations of a 'same' convolution with kernel k over a (b, *dims,
+    cin) volume: two per multiply-add, counting only the taps that land
+    inside the volume (zero padding needs no product).  Along an axis of
+    size s, the (output, tap offset d) pairs inside number
+    sum_{|d| <= (k-1)/2} max(0, s - |d|)."""
+    h = (k - 1) // 2
+    inside = math.prod(sum(max(0, s - abs(d)) for d in range(-h, h + 1))
+                       for s in dims)
+    return 2.0 * b * inside * cin * cout
+
+
 def bound(nbytes: float, flops: float, peak_flops: float = PEAK_F32_FLOPS):
     t_bytes = nbytes / PEAK_BYTES * 1e3
     t_ops = flops / peak_flops * 1e3
@@ -221,7 +234,7 @@ def make_case(name, args, geometry, dev, gen):
                                               out_dt),
             lambda: F.conv3d(x.permute(0, 4, 1, 2, 3), w_lib, b_lib,
                              padding=(k - 1) // 2),
-            nbytes, 2.0 * vox * k ** 3 * cin * cout)
+            nbytes, conv_flops(b, (sx, sy, sz), k, cin, cout))
     if name == "upsample3d_2x":
         _, _, _, skip_ptr, _, b, sx, sy, sz, cin, cout, _ = args
         x = randn(b, sx, sy, sz, cin)
@@ -731,7 +744,7 @@ def alt_entry_points(batch, geometry, dev):
         x16 = randn(b, s, s, s, 16, dtype=dt)
         w, bias = cw(3, 32, 32), fb(32)
         w_lib = w.permute(4, 3, 0, 1, 2).contiguous()
-        conv_flops = 2.0 * vox * 27 * 32 * 32
+        c3 = conv_flops(b, (s, s, s), 3, 32, 32)   # one k=3 32->32 conv
         for residual in (None, x32):
             run(f"conv3d_same 32->32 @{s}^3 x{b} {name} residual="
                 f"{residual is not None}", k2,
@@ -741,7 +754,7 @@ def alt_entry_points(batch, geometry, dev):
                 lambda: F.conv3d(x32.permute(0, 4, 1, 2, 3), w_lib,
                                  bias.to(dt), padding=1),
                 f * (vox * 32 * (3 if residual is not None else 2)
-                     + w.numel()) + 4 * 32, conv_flops, tol)
+                     + w.numel()) + 4 * 32, c3, tol)
 
         # Res3D blocks: two k=3 convs, a 1x1x1 projection or a per-voxel
         # tail; bytes as one fused pass (input read once, output written
@@ -776,8 +789,9 @@ def alt_entry_points(batch, geometry, dev):
                     + (skip[0].numel() if skip else 0)
                     + sum(t[0].numel() for t in tl))
 
-        proj_flops = 2.0 * vox * (27 * 16 * 32 + 27 * 32 * 32 + 16 * 32)
-        tail_flops = 2.0 * vox * (2 * 27 * 32 * 32 + 2 * 32 * 32 + 32 * 17)
+        proj_flops = (conv_flops(b, (s, s, s), 3, 16, 32) + c3
+                      + 2.0 * vox * 16 * 32)
+        tail_flops = 2 * c3 + 2.0 * vox * (2 * 32 * 32 + 32 * 17)
         block_tol = tol if dt == torch.float32 else 2 * tol
         for sp in (2, 4):
             run(f"res3d_block_mp s={sp} 16->32 projection @{s}^3 x{b} {name}",
@@ -800,7 +814,7 @@ def alt_entry_points(batch, geometry, dev):
             lambda: plain_block(x32, same),
             lambda: lib_block(x32, same),
             f * (vox * 64 + weights(same)) + 4 * 64,
-            2.0 * vox * 2 * 27 * 32 * 32, block_tol)
+            2 * c3, block_tol)
         del x32, x16, w, w_lib, proj, same, tail
         torch.cuda.empty_cache()
 

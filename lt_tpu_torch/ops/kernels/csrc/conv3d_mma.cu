@@ -58,8 +58,9 @@
 //   - Ragged Cout is masked at the store, a volume smaller than the brick
 //     is masked by the brick's bounds; offsets are 64-bit.
 //   - k = 3 and 7 are template constants, so that each step's taps unroll
-//     into straight-line ldmatrix / mma code; other k take the runtime
-//     loop.
+//     into straight-line ldmatrix / mma code, for the (NT, CK) pairs that
+//     the flagship V2V launches with them (see unrolled()); every other
+//     launch takes the runtime loop.
 // The launch plan (NT, CK, brick, halo buffers, dynamic shared memory,
 // grid) is computed in Python (conv3d.conv3d_mma_plan, tested on the CPU)
 // and checked here before the launch.
@@ -167,8 +168,9 @@ __host__ __device__ inline int smem_bytes(int nt, int ck, int k, int bx,
   return main > epi ? main : epi;
 }
 
-// KT: the kernel size where it is a compile-time constant (3 and 7, the
-// V2V convs: every tap loop then unrolls into straight-line code), else 0.
+// KT: the kernel size where it is a compile-time constant (3 or 7 for the
+// pairs of unrolled(): every tap loop then unrolls into straight-line
+// code), else 0.
 template <int NT, int CK, int KT, typename TO>
 __global__ void __launch_bounds__(kThreads)
 conv3d_mma_kernel(const MmaArgs p) {
@@ -435,13 +437,25 @@ int launch(const MmaArgs& a, int smem, int grid, cudaStream_t s) {
   return static_cast<int>(cudaGetLastError());
 }
 
+// Whether (NT, CK) has an instance with k a template constant: k = 3 at
+// NT = 32 (Cin 16 or 32, Cout 32) and at NT = 64 with CK = 32 (Cin >= 32,
+// Cout >= 64); k = 7 at NT = 16, CK = 32 (the 32 -> 16 front conv).  Those
+// are the flagship V2V's k = 3 / 7 launches; each instance adds build time.
+template <int NT, int CK>
+constexpr bool unrolled(int k) {
+  return k == 3 ? NT == 32 || (NT == 64 && CK == 32)
+                : k == 7 && NT == 16 && CK == 32;
+}
+
 template <int NT, int CK, typename TO>
 int launch_k(const MmaArgs& a, int smem, int grid, cudaStream_t s) {
-  switch (a.K) {
-    case 3: return launch<NT, CK, 3, TO>(a, smem, grid, s);
-    case 7: return launch<NT, CK, 7, TO>(a, smem, grid, s);
-    default: return launch<NT, CK, 0, TO>(a, smem, grid, s);
+  if constexpr (unrolled<NT, CK>(3)) {
+    if (a.K == 3) return launch<NT, CK, 3, TO>(a, smem, grid, s);
   }
+  if constexpr (unrolled<NT, CK>(7)) {
+    if (a.K == 7) return launch<NT, CK, 7, TO>(a, smem, grid, s);
+  }
+  return launch<NT, CK, 0, TO>(a, smem, grid, s);
 }
 
 template <int NT, typename TO>

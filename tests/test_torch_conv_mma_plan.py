@@ -12,7 +12,9 @@ never runs, so the guard is here, where no card is needed:
   (shared memory <= 232,448 bytes, grid y / z <= 65,535, x < 2^31) and its
   bricks, decoded from the block index as the kernel decodes it, cover
   every output voxel and channel once;
-- the kernel's constants and shared-memory formula are the plan's.
+- the kernel's constants and shared-memory formula are the plan's, and
+  the flagship's k = 3 / 7 launches plan onto the (N tile, Cin chunk)
+  pairs for which the kernel has an unrolled instance.
 """
 
 import collections
@@ -198,3 +200,18 @@ def test_kernel_constants_are_the_plans():
     # mma_smem_bytes: spot-check the pitches it pads rows to.
     assert [conv3d._odd_pitch(n) for n in (16, 24, 32, 64)] == [48, 80, 80,
                                                                 144]
+
+
+@pytest.mark.parametrize("k, pairs", [(3, {(32, 16), (32, 32), (64, 32)}),
+                                      (7, {(16, 32)})])
+def test_flagship_plans_take_the_unrolled_instances(k, pairs):
+    """conv3d_mma.cu makes k = 3 and 7 template constants only for the
+    (N tile, Cin chunk) pairs of its unrolled(); the flagship's k = 3 / 7
+    launches must plan onto exactly those pairs."""
+    src = CSRC.read_text()
+    assert ("return k == 3 ? NT == 32 || (NT == 64 && CK == 32)\n"
+            "                : k == 7 && NT == 16 && CK == 32;") in src
+    got = {(p.nt, p.ck) for p in (
+        conv3d_mma_plan(BATCH, side, side, side, cin, cout, kk)
+        for side, cin, cout, kk in FLAGSHIP_K2 if kk == k)}
+    assert got == pairs
