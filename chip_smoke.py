@@ -1,11 +1,15 @@
 #!/usr/bin/env python3
 """Smoke run of lt_tpu_torch on one NVIDIA GPU.
 
-Builds the nine CUDA kernels of the port from ``lt_tpu_torch/ops/kernels/
-csrc`` and holds each against its plain PyTorch version.  K2 has two
-bodies: ``conv3d_fused`` (CUDA cores) for float32 inputs and
-``conv3d_mma`` (tensor cores) for bfloat16 inputs; every bfloat16 path must
-launch only the second, every float32 path only the first.  Then it drives
+Builds the CUDA kernels of the port from ``lt_tpu_torch/ops/kernels/csrc``
+(ten sources, eleven kernels) and holds each against its plain PyTorch
+version.  K2 runs on the tensor cores in two instances of one body:
+``conv3d_mma`` for bfloat16 inputs, ``conv3d_mma_f32`` (after
+``split_bf16`` of its input) for float32 inputs, as six (k <= 3) or three
+(k = 7) bfloat16 products; K3 has ``upsample3d_2x`` (CUDA cores) for float32 and
+``upsample3d_2x_mma`` (tensor cores) for bfloat16.  Every bfloat16 path
+must launch only the bfloat16 bodies, every float32 path only the float32
+ones.  Then it drives
 the port's paths at the flagship width (ResNet-152, 384^2 images, 4 views,
 64^3 volume, softmax aggregation, 17 joints, seeded random weights): the
 eval forward through K1-K4 (requests at batch 8) in float32 and in the
@@ -15,8 +19,9 @@ configuration; the entry points that have no caller on those paths
 ``sample_views_affine`` through K7 and K8) at the flagship shapes; and the
 training step of experiments/human36m/train/human36m_vol_softmax.yaml
 (batch 5, float32) through K1 and, in its backward, K5 and K6.  It also
-loads the committed trained RN-18 fixture and trains the synthetic config
-for one epoch through the CLI's ``run``, then resumes it.
+runs the committed trained RN-18 fixture in float32 and bfloat16, and
+trains the synthetic config for one epoch through the CLI's ``run``, then
+resumes it.
 
     python3 chip_smoke.py [--batch N]
 
@@ -40,11 +45,13 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 
 # H100 SXM published peaks (NVIDIA data sheet, 700 W): float32 on the CUDA
-# cores (all kernels but conv3d_mma) and HBM3 bandwidth.
+# cores (the kernels that use no tensor cores) and HBM3 bandwidth.
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
-# Dense bfloat16 on the tensor cores: conv3d_mma's peak, and what a
-# tensor-core redesign of the other kernels would be held to.
+# Dense bfloat16 on the tensor cores: the peak of conv3d_mma,
+# conv3d_mma_f32 (six or three bfloat16 products per float32 one) and
+# upsample3d_2x_mma, and what a tensor-core redesign of the other kernels
+# would be held to.
 PEAK_BF16_TC_FLOPS = 989e12
 # The flagship configuration (bench.py's shapes): ResNet-152 backbone at
 # 384^2 (96^2 heatmaps), a 64^3 volume, 4 views, 17 joints.
@@ -63,6 +70,11 @@ REL_TOL_BF16 = 1.6e-2
 # run prints that spread).  The limit is twice the largest difference
 # recorded (PERF.md, section 6).
 KP_TOL_BF16_MM = 4.0
+# The trained fixture in bfloat16 vs its float32 keypoints, per joint (mm):
+# the CPU test's band (tests/test_torch_bf16.py), around lt_tpu's measured
+# mean 1.33 / max 11.7 mm.
+FIX_BF16_MEAN_MM = 3.0
+FIX_BF16_MAX_MM = 15.0
 REQUESTS = 3            # flagship forwards answered on the kernel path
 TRAIN_YAML = "experiments/human36m/train/human36m_vol_softmax.yaml"
 SYNTH_YAML = "experiments/synthetic/vol_tiny_2stage.yaml"
@@ -81,34 +93,59 @@ LOSS_TOL = 1e-5         # kernel-path vs plain-path training loss, relative
 STEP_GRAD_TOL = 3e-2
 GRAD_MODULES = ("process_features", "backbone.deconv_layers",
                 "volume_net.front_layers")
-EVAL_KERNELS = {"float32": ("unproject_agg", "conv3d_fused", "upsample3d_2x",
-                             "max_pool3d_2x"),
-                "bfloat16": ("unproject_agg", "conv3d_mma", "upsample3d_2x",
-                             "max_pool3d_2x")}
-# K2's body for each activation type; the other never launches there.
-K2 = {"float32": "conv3d_fused", "bfloat16": "conv3d_mma"}
+EVAL_KERNELS = {"float32": ("unproject_agg", "split_bf16", "conv3d_mma_f32",
+                             "upsample3d_2x", "max_pool3d_2x"),
+                "bfloat16": ("unproject_agg", "conv3d_mma",
+                             "upsample3d_2x_mma", "max_pool3d_2x")}
+# K2's and K3's body for each activation type; the other never launches
+# there.  In float32 every K2 launch follows split_bf16 of its input.
+K2 = {"float32": "conv3d_mma_f32", "bfloat16": "conv3d_mma"}
+K3 = {"float32": "upsample3d_2x", "bfloat16": "upsample3d_2x_mma"}
 K2_PER_FORWARD = 47     # K2 launches per flagship V2V forward, both configs
+K3_PER_FORWARD = 5      # K3 launches per flagship V2V forward
 TRAIN_KERNELS = ("unproject_agg", "sample_views_t", "sample_views_grad_t")
-ALT_KERNELS = ("conv3d_fused", "conv3d_mma", "sample_views",
+ALT_KERNELS = ("split_bf16", "conv3d_mma_f32", "conv3d_mma", "sample_views",
                "sample_views_grad")
 # The peak each kernel's bound is taken against (default PEAK_F32_FLOPS).
-PEAK_OF = {"conv3d_mma": PEAK_BF16_TC_FLOPS}
+PEAK_OF = {"conv3d_mma": PEAK_BF16_TC_FLOPS,
+           "conv3d_mma_f32": PEAK_BF16_TC_FLOPS,
+           "upsample3d_2x_mma": PEAK_BF16_TC_FLOPS}
+# bfloat16 tensor-core products per float32 product in the bound of the
+# float32 K2 (conv3d_mma_f32): the fewest that compute a float32
+# convolution within K2's contract, hi*hi + hi*lo + lo*hi of two parts.
+# The body itself sums split_products(k) of them.
+F32_PRODUCTS = 3
+
+
+def split_products(k: int) -> int:
+    """bfloat16 products per float32 one that conv3d_mma_f32 sums: those
+    of the parts x_i * w_j with i + j < p, p = conv3d.split_parts(k)."""
+    from lt_tpu_torch.ops.kernels import conv3d
+
+    p = conv3d.split_parts(k)
+    return p * (p + 1) // 2
+
+
+# The C argument that carries a launch's activation type (default: the
+# last one); split_bf16 takes float32 only.
+DTYPE_ARG = {"conv3d_mma": 13, "conv3d_mma_f32": 13, "upsample3d_2x": 11,
+             "upsample3d_2x_mma": 11, "split_bf16": None}
 
 # The TPU kernels (pallas_call sites) each CUDA kernel replaces.
+_K2_SITES = ("lt_tpu/ops/pallas/conv_mp.py:237, :442, "
+             "lt_tpu/ops/pallas/res3d.py:742, :950, :1180, "
+             "lt_tpu/ops/pallas/conv3d.py:205, "
+             "lt_tpu/ops/pallas/res3d_q4.py:245, "
+             "lt_tpu/ops/pallas/res3d_folded.py:302")
+_K3_SITES = ("lt_tpu/ops/pallas/updown.py:376, :330, "
+             "lt_tpu/ops/pallas/res3d.py:1180")
 REPLACES = {
     "unproject_agg": "lt_tpu/ops/pallas/unproject.py:427",
-    "conv3d_fused": "lt_tpu/ops/pallas/conv_mp.py:237, :442, "
-                    "lt_tpu/ops/pallas/res3d.py:742, :950, :1180, "
-                    "lt_tpu/ops/pallas/conv3d.py:205, "
-                    "lt_tpu/ops/pallas/res3d_q4.py:245, "
-                    "lt_tpu/ops/pallas/res3d_folded.py:302",
-    "conv3d_mma": "lt_tpu/ops/pallas/conv_mp.py:237, :442, "
-                  "lt_tpu/ops/pallas/res3d.py:742, :950, :1180, "
-                  "lt_tpu/ops/pallas/conv3d.py:205, "
-                  "lt_tpu/ops/pallas/res3d_q4.py:245, "
-                  "lt_tpu/ops/pallas/res3d_folded.py:302",
-    "upsample3d_2x": "lt_tpu/ops/pallas/updown.py:376, :330, "
-                     "lt_tpu/ops/pallas/res3d.py:1180",
+    "conv3d_mma": _K2_SITES,
+    "conv3d_mma_f32": _K2_SITES,
+    "split_bf16": _K2_SITES,
+    "upsample3d_2x": _K3_SITES,
+    "upsample3d_2x_mma": _K3_SITES,
     "max_pool3d_2x": "lt_tpu/ops/pallas/updown.py:185, :143, "
                      "lt_tpu/ops/pallas/res3d.py:742, :950",
     "sample_views_t": "lt_tpu/ops/pallas/unproject.py:653",
@@ -181,6 +218,21 @@ def conv_flops(b: int, dims, k: int, cin: int, cout: int) -> float:
     return 2.0 * b * inside * cin * cout
 
 
+def deterministic_cudnn():
+    """cuDNN restricted to its deterministic algorithms (TF32 off), for the
+    float32 comparisons of a model's kernel path with its plain path (the
+    timed requests run with the defaults): the backbone's ConvTranspose2d
+    runs as cuDNN's backward-data, whose default algorithm sums with
+    atomics, so that identical forwards differ: the flagship's volumes of
+    three identical requests sat 7.9e-5 and 1.14e-4 of their max from the
+    plain path's on an H100, over REL_TOL, while K1-K4 are
+    bit-reproducible."""
+    import torch
+
+    return torch.backends.cudnn.flags(enabled=True, benchmark=False,
+                                      deterministic=True, allow_tf32=False)
+
+
 def bound(nbytes: float, flops: float, peak_flops: float = PEAK_F32_FLOPS):
     t_bytes = nbytes / PEAK_BYTES * 1e3
     t_ops = flops / peak_flops * 1e3
@@ -195,11 +247,15 @@ def bound(nbytes: float, flops: float, peak_flops: float = PEAK_F32_FLOPS):
 class Case:
     """One distinct launch of a kernel on the main path: random inputs of
     its shapes, the kernel, its plain version, the library call, and the
-    bytes / flops the function needs."""
+    bytes / flops the function needs (``flops``: on the kernel's peak, so
+    F32_PRODUCTS times the convolution's for conv3d_mma_f32; ``f32_flops``:
+    the function's own, for the CUDA-core bound)."""
 
-    def __init__(self, run, plain, library, nbytes, flops):
+    def __init__(self, run, plain, library, nbytes, flops, f32_flops=None):
         self.run, self.plain, self.library = run, plain, library
         self.nbytes, self.flops = nbytes, flops
+        self.f32_flops = flops if f32_flops is None else f32_flops
+        self.emulation = None
 
 
 def make_case(name, args, geometry, dev, gen):
@@ -215,7 +271,7 @@ def make_case(name, args, geometry, dev, gen):
         return (torch.randn(shape, generator=gen, device=dev)
                 * scale).to(dtype)
 
-    if name in ("conv3d_fused", "conv3d_mma"):
+    if name in ("conv3d_mma", "conv3d_mma_f32"):
         _, _, _, res_ptr, _, b, sx, sy, sz, cin, cout, k, relu = args[:13]
         out_dt = torch.bfloat16 if args[14] else torch.float32
         x = randn(b, sx, sy, sz, cin)
@@ -228,15 +284,42 @@ def make_case(name, args, geometry, dev, gen):
         nbytes = (f * (x.numel() + w.numel()
                        + (vox * cout if res is not None else 0))
                   + 4 * cout + out_dt.itemsize * vox * cout)
-        return Case(
-            lambda: conv3d.conv3d_fused(x, w, bias, res, bool(relu), out_dt),
+        ops = conv_flops(b, (sx, sy, sz), k, cin, cout)
+        if name == "conv3d_mma":
+            run = lambda: conv3d.conv3d_fused(x, w, bias, res, bool(relu),
+                                              out_dt)
+        else:       # the launch alone: its input's split is split_bf16's
+            parts = conv3d.split_parts(k)
+            xs, ws = (conv3d.split_bf16(t, parts) for t in (x, w))
+            # Bounded as the float32 function: its float32 operands' bytes
+            # (not the parts'), F32_PRODUCTS products per float32 one.
+            run = lambda: conv3d.conv3d_split(xs, ws, bias, res,
+                                              bool(relu), out_dt)
+        case = Case(
+            run,
             lambda: conv3d.conv3d_fused_plain(x, w, bias, res, bool(relu),
                                               out_dt),
             lambda: F.conv3d(x.permute(0, 4, 1, 2, 3), w_lib, b_lib,
                              padding=(k - 1) // 2),
-            nbytes, conv_flops(b, (sx, sy, sz), k, cin, cout))
-    if name == "upsample3d_2x":
-        _, _, _, skip_ptr, _, b, sx, sy, sz, cin, cout, _ = args
+            nbytes, ops * (F32_PRODUCTS if name == "conv3d_mma_f32" else 1),
+            ops)
+        if name == "conv3d_mma_f32":
+            # The same products summed in float32 F.conv3d: what the
+            # kernel's own (tensor-core) accumulation adds to the split's
+            # error.
+            case.emulation = lambda: conv3d.conv3d_split_plain(
+                xs, ws, bias, res, bool(relu), out_dt)
+        return case
+    if name == "split_bf16":
+        n, parts = args[2:4]
+        v = randn(n)
+        # No one PyTorch call computes the parts (the plain version is a
+        # cast and a subtraction per part).  One subtraction per part.
+        return Case(lambda: conv3d.split_bf16(v, parts),
+                    lambda: conv3d.split_bf16_plain(v, parts), None,
+                    (4.0 + 2 * parts) * n, float(parts * n))
+    if name in ("upsample3d_2x", "upsample3d_2x_mma"):
+        _, _, _, skip_ptr, _, b, sx, sy, sz, cin, cout, _ = args[:12]
         x = randn(b, sx, sy, sz, cin)
         w8 = randn(cin, 8 * cout, scale=cin ** -0.5)
         b8 = randn(cout, scale=0.1, dtype=torch.float32).repeat(8)
@@ -307,9 +390,9 @@ def record_launches(fn):
     calls, active, saved = [], [], []
     orig = _build.launch
 
-    def recording(name, cfn, device, argtypes, *args):
-        calls.append((active[-1] if active else None, name, args))
-        return orig(name, cfn, device, argtypes, *args)
+    def recording(kernel, device, argtypes, *args):
+        calls.append((active[-1] if active else None, kernel, args))
+        return orig(kernel, device, argtypes, *args)
 
     def tagged(entry, f):
         def g(*a, **k):
@@ -335,12 +418,12 @@ def record_launches(fn):
 
 
 def _dtype_of(name, args):
-    """The activation type of a recorded launch: its C dtype argument (the
-    last one; K2 has the input's before the output's, then its plan)."""
+    """The activation type of a recorded launch: its C dtype argument
+    (DTYPE_ARG; K2 has the input's before the output's, then its plan)."""
     import torch
 
-    code = args[13] if name in K2.values() else args[-1]
-    return torch.bfloat16 if code else torch.float32
+    i = DTYPE_ARG.get(name, -1)
+    return torch.bfloat16 if i is not None and args[i] else torch.float32
 
 
 def _acc(table, key, mult, err, rel, ms, plain_ms, lib_ms, case, peak):
@@ -350,7 +433,8 @@ def _acc(table, key, mult, err, rel, ms, plain_ms, lib_ms, case, peak):
     acc = table.setdefault(key, dict(
         launches=0, max_abs_err=0.0, max_rel_err=0.0, ms=0.0, plain_ms=0.0,
         library_ms=None, nbytes=0.0, flops=0.0, tc_bound_ms=0.0,
-        bound_ms=0.0, bound_by={"bytes": 0.0, "operations": 0.0}))
+        f32_bound_ms=0.0, bound_ms=0.0,
+        bound_by={"bytes": 0.0, "operations": 0.0}))
     acc["launches"] += mult
     acc["max_abs_err"] = max(acc["max_abs_err"], err)
     acc["max_rel_err"] = max(acc["max_rel_err"], rel)
@@ -362,6 +446,7 @@ def _acc(table, key, mult, err, rel, ms, plain_ms, lib_ms, case, peak):
     acc["flops"] += mult * case.flops
     acc["tc_bound_ms"] += mult * bound(case.nbytes, case.flops,
                                        PEAK_BF16_TC_FLOPS)[0]
+    acc["f32_bound_ms"] += mult * bound(case.nbytes, case.f32_flops)[0]
     b_ms, b_by = bound(case.nbytes, case.flops, peak)
     acc["bound_ms"] += mult * b_ms
     acc["bound_by"][b_by] += mult * b_ms
@@ -381,24 +466,40 @@ def replay(calls, geometry, dev):
         distinct.setdefault(key, [entry, name, args, 0])[3] += 1
     for entry, name, args, mult in distinct.values():
         case = make_case(name, args, geometry, dev, gen)
-        tol = (REL_TOL if _dtype_of(name, args) == torch.float32
+        tol = (0.0 if name == "split_bf16" else      # bit for bit
+               REL_TOL if _dtype_of(name, args) == torch.float32
                else REL_TOL_BF16)
-        err, rel = check(f"{name}{_shape_str(name, args)}", case.run(),
+        got = case.run()
+        err, rel = check(f"{name}{_shape_str(name, args)}", got,
                          case.plain(), tol)
+        emu = ""
+        if case.emulation is not None:
+            emu = (f"  (rel {rel_err(got, case.emulation())[1]:.3e} from its "
+                   f"products summed in float32)")
+        del got
         ms = cuda_ms(case.run)
         plain_ms = cuda_ms(case.plain)
         lib_ms = None if case.library is None else cuda_ms(case.library)
         b_ms, _ = bound(case.nbytes, case.flops,
                         PEAK_OF.get(name, PEAK_F32_FLOPS))
         tc = ""
-        if name == "conv3d_mma":
+        if PEAK_OF.get(name) == PEAK_BF16_TC_FLOPS:
             tc = (f"  {case.flops / ms / 1e9:.1f} TFLOP/s, {100 * b_ms / ms:.1f}"
                   f" % of the tensor-core bound")
+        if name == "conv3d_mma_f32":
+            own = split_products(args[11]) * case.f32_flops
+            tc += (f" ({F32_PRODUCTS} products per float32 one; this body "
+                   f"sums {split_products(args[11])}: "
+                   f"{own / ms / 1e9:.1f} TFLOP/s, bound at them "
+                   f"{bound(case.nbytes, own, PEAK_BF16_TC_FLOPS)[0]:.4f} ms;"
+                   f" {case.f32_flops / ms / 1e9:.1f} float32 TFLOP/s, "
+                   f"CUDA-core bound "
+                   f"{bound(case.nbytes, case.f32_flops)[0]:.4f} ms)")
         log(f"  {entry}: {name}{_shape_str(name, args)} x{mult}: "
             f"max_abs_err {err:.3e} rel {rel:.3e}  kernel {ms:.4f} ms  plain "
             f"{plain_ms:.4f} ms  library "
             f"{'n/a' if lib_ms is None else f'{lib_ms:.4f} ms'}  bound "
-            f"{b_ms:.4f} ms{tc}")
+            f"{b_ms:.4f} ms{tc}{emu}")
         for table, k in ((per_kernel, name), (per_entry, entry)):
             _acc(table, k, mult, err, rel, ms, plain_ms, lib_ms, case,
                  PEAK_OF.get(name, PEAK_F32_FLOPS))
@@ -408,17 +509,24 @@ def replay(calls, geometry, dev):
 
 
 # Argument slots that are pointers (kept as present / absent in the key).
-_PTR_SLOTS = {"conv3d_fused": range(5), "conv3d_mma": range(5),
-              "upsample3d_2x": range(5), "max_pool3d_2x": range(2),
+_PTR_SLOTS = {"conv3d_mma": range(5), "conv3d_mma_f32": range(5),
+              "split_bf16": range(2), "upsample3d_2x": range(5),
+              "upsample3d_2x_mma": range(5), "max_pool3d_2x": range(2),
               "unproject_agg": range(5)}
 
 
 def _shape_str(name, args):
     ints = [a for i, a in enumerate(args) if i not in _PTR_SLOTS[name]]
-    if name == "conv3d_mma":    # the shapes, then the launch plan
-        nt, ck, bx, by, bz, nh, smem, grid = ints[10:]
+    if name in ("conv3d_mma", "conv3d_mma_f32"):  # shapes, then the plan
+        nt, ck, bx, by, bz, nh, smem, grid = ints[10:18]
+        parts = f" parts={ints[18]}" if name == "conv3d_mma_f32" else ""
         return (f"({','.join(map(str, ints[:10]))}) plan nt={nt} ck={ck} "
                 f"brick={bx}x{by}x{bz} halo_buffers={nh} smem={smem} B "
+                f"grid={grid}{parts}")
+    if name == "upsample3d_2x_mma":
+        nt, kp, per, nsplit, smem, grid = ints[7:]
+        return (f"({','.join(map(str, ints[:7]))}) plan nt={nt} kp={kp} "
+                f"steps_per_block={per} n_split={nsplit} smem={smem} B "
                 f"grid={grid}")
     return "(" + ",".join(f"{a:g}" if isinstance(a, float) else str(a)
                           for a in ints) + ")"
@@ -685,7 +793,7 @@ def alt_entry_points(batch, geometry, dev):
     gen = torch.Generator(device=dev).manual_seed(4)
     b, s = batch, FLAGSHIP["volume"]
     vox = b * s ** 3
-    totals = dict.fromkeys(_build.SOURCES, 0)
+    totals = dict.fromkeys(_build.KERNELS, 0)
 
     def randn(*shape, scale=1.0, dtype=torch.float32):
         return (torch.randn(shape, generator=gen, device=dev)
@@ -708,12 +816,17 @@ def alt_entry_points(batch, geometry, dev):
         torch.cuda.synchronize()
         ms, plain_ms = cuda_ms(fn, 100), cuda_ms(plain, 100)
         lib_ms = cuda_ms(library, 100)
-        b_ms, b_by = bound(nbytes, flops, PEAK_OF.get(kernel, PEAK_F32_FLOPS))
-        tc_ms, _ = bound(nbytes, flops, PEAK_BF16_TC_FLOPS)
+        # The tensor-core K2 bodies: bounded on the tensor cores' peak, the
+        # float32 one with F32_PRODUCTS products per float32 one; the
+        # CUDA-core bound of the function's own operations beside it.
+        peak = max(PEAK_OF.get(k, PEAK_F32_FLOPS) for k in made)
+        b_ms, b_by = bound(nbytes, flops * (F32_PRODUCTS if "conv3d_mma_f32"
+                                            in made else 1), peak)
+        cc_ms, _ = bound(nbytes, flops)
         log(f"  {label}: {n_launch} launches of {kernel}, max_abs_err "
             f"{err:.3e} rel {rel:.3e}  kernel {ms:.4f} ms  plain "
             f"{plain_ms:.4f} ms  library {lib_ms:.4f} ms  bound {b_ms:.4f} "
-            f"ms ({b_by}; with tensor cores {tc_ms:.4f} ms)")
+            f"ms ({b_by}; on the CUDA cores {cc_ms:.4f} ms)")
         torch.cuda.empty_cache()
         return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                 "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms}
@@ -730,7 +843,8 @@ def alt_entry_points(batch, geometry, dev):
 
     for dt, tol in ((torch.float32, REL_TOL), (torch.bfloat16, REL_TOL_BF16)):
         name = str(dt).replace("torch.", "")
-        k2 = K2[name]
+        f32 = dt == torch.float32
+        k2 = (K2[name], "split_bf16") if f32 else K2[name]
         f = dt.itemsize
 
         def cw(k, cin, cout):
@@ -1020,6 +1134,7 @@ def main(argv=None) -> int:
     from lt_tpu_torch.ops import volumetric as vol_ops
     from lt_tpu_torch.ops.kernels import _build
     from lt_tpu_torch.ops.kernels.unproject import compose_grid_projection
+    from lt_tpu_torch.data.synthetic import SyntheticMultiViewDataset
     from lt_tpu_torch.utils.example import example_batch
     from lt_tpu_torch.utils.weights import load_volumetric_npz
 
@@ -1035,21 +1150,27 @@ def main(argv=None) -> int:
 
     # Phase 1: build.
     secs = _build.build()
-    log(f"[build] {len(_build.SOURCES)} kernels in {secs:.1f} s "
-        f"(parallel nvcc)")
+    log(f"[build] {len(_build.SOURCES)} sources ({len(_build.KERNELS)} "
+        f"kernels) in {secs:.1f} s (parallel nvcc)")
     for name, text in _build.BUILD_LOG.items():
         for line in text.splitlines():
             entry = re.search(r"Compiling entry.*conv3d_mma_kernelILi(\d+)ELi"
-                              r"(\d+)ELi(\d+)E(\w+?)EEv", line)
+                              r"(\d+)ELi(\d+)ELi(\d)E(\w+?)EEv", line)
+            up = re.search(r"Compiling entry.*upsample3d_2x_mma_kernelILi"
+                           r"(\d+)EEv", line)
             if entry:       # which instantiation the next lines describe
-                nt, ck, kt, to = entry.groups()
+                nt, ck, kt, parts, to = entry.groups()
                 log(f"  {name}: conv3d_mma_kernel<NT={nt}, CK={ck}, "
                     f"k={kt if kt != '0' else 'any'}, "
-                    f"{'bfloat16' if 'bfloat16' in to else 'float'} out>")
+                    f"{'bfloat16' if parts == '1' else parts + '-part float32'}"
+                    f" in, {'bfloat16' if 'bfloat16' in to else 'float'} "
+                    f"out>")
+            elif up:
+                log(f"  {name}: upsample3d_2x_mma_kernel<NT={up.group(1)}>")
             elif "registers" in line or "spill" in line:
                 log(f"  {name}: {line.strip()}")
-    log("  (conv3d_mma's shared memory is dynamic: each replayed launch "
-        "below prints its plan's bytes)")
+    log("  (the tensor-core kernels' shared memory is dynamic: each replayed "
+        "launch below prints its plan's bytes)")
 
     # Phase 2: full float32 everywhere (no TF32 in cuDNN or cuBLAS).
     torch.backends.cudnn.allow_tf32 = False
@@ -1081,8 +1202,9 @@ def main(argv=None) -> int:
 
     def drive(net, n, what, dt=torch.float32):
         """``n`` timed requests after the counts were set to 0; checks
-        shapes, finiteness, that K1-K4 were all launched, K2 through the
-        body of ``dt`` only and K2_PER_FORWARD times a request."""
+        shapes, finiteness, that K1-K4 were all launched, K2 and K3 through
+        the bodies of ``dt`` only, K2_PER_FORWARD and K3_PER_FORWARD times
+        a request, and in float32 one split_bf16 before each K2."""
         torch.cuda.synchronize()
         _build.reset_launches()
         times, outs = [], []
@@ -1100,13 +1222,16 @@ def main(argv=None) -> int:
         if missing:
             raise AssertionError(f"kernels never launched on the {what} "
                                  f"path: {missing}")
-        other = K2["bfloat16" if kind == "float32" else "float32"]
-        if (launches[K2[kind]] != K2_PER_FORWARD * n
-                or launches[other] != 0):
-            raise AssertionError(
-                f"{what}: {launches[K2[kind]]} {K2[kind]} and "
-                f"{launches[other]} {other} launches over {n} requests, want "
-                f"{K2_PER_FORWARD} and 0 a request")
+        other = "bfloat16" if kind == "float32" else "float32"
+        splits = K2_PER_FORWARD if kind == "float32" else 0
+        for k, per in ((K2, K2_PER_FORWARD), (K3, K3_PER_FORWARD)):
+            if (launches[k[kind]] != per * n or launches[k[other]] != 0
+                    or launches["split_bf16"] != splits * n):
+                raise AssertionError(
+                    f"{what}: {launches[k[kind]]} {k[kind]}, "
+                    f"{launches[k[other]]} {k[other]} and "
+                    f"{launches['split_bf16']} split_bf16 launches over {n} "
+                    f"requests, want {per}, 0 and {splits} a request")
         for out in outs:
             kp, vols = out.keypoints_3d, out.volumes
             if tuple(kp.shape) != (b, 17, 3) or tuple(vols.shape) != (
@@ -1144,8 +1269,10 @@ def main(argv=None) -> int:
             b_ms, b_by = summed_bound(e)
             log(f"  entry point {entry}: {e['launches']} launches/forward, "
                 f"kernels {e['ms']:.3f} ms, plain {e['plain_ms']:.3f} ms, "
-                f"bound {b_ms:.4f} ms ({b_by}; with tensor cores "
-                f"{e['tc_bound_ms']:.4f} ms), max rel err "
+                f"library {_ms(e['library_ms'])} (sum over the launches that "
+                f"have one), bound {b_ms:.4f} ms ({b_by}; with tensor cores "
+                f"{e['tc_bound_ms']:.4f} ms, on the CUDA cores "
+                f"{e['f32_bound_ms']:.4f} ms), max rel err "
                 f"{e['max_rel_err']:.3e}")
         table = {}
         for name in per_kernel:
@@ -1154,12 +1281,12 @@ def main(argv=None) -> int:
             table[name] = {
                 "max_abs_err": k["max_abs_err"], "ms": k["ms"],
                 "plain_ms": k["plain_ms"], "bound_ms": b_ms,
-                "bound_by": b_by, "library_ms": k["library_ms"],
-                "tc_bound_ms": k["tc_bound_ms"]}
+                "bound_by": b_by, "library_ms": k["library_ms"]}
             log(f"  {name}: {launches[name] // n} launches/forward, kernel "
                 f"{k['ms']:.3f} ms, plain {k['plain_ms']:.3f} ms, library "
                 f"{_ms(k['library_ms'])}, bound {b_ms:.4f} ms ({b_by}; with "
-                f"tensor cores {k['tc_bound_ms']:.4f} ms), max rel err "
+                f"tensor cores {k['tc_bound_ms']:.4f} ms, on the CUDA cores "
+                f"{k['f32_bound_ms']:.4f} ms), max rel err "
                 f"{k['max_rel_err']:.3e}")
         return table
 
@@ -1179,18 +1306,37 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     model = build_model()
     log(f"  model built in {time.perf_counter() - t0:.1f} s")
-    calls = record_launches(lambda: model(images, proj, pelvis))  # warm-up
+    # A warm-up forward packs (and in float32 splits) the V2V weights, once
+    # per weight version; the recorded forward is a later one.  The timed
+    # requests run with cuDNN's default algorithms.
+    model(images, proj, pelvis)
+    calls = record_launches(lambda: model(images, proj, pelvis))
     outs, launches = drive(model, REQUESTS, "eval")
     plain_model = build_model(False, like=model)
     plain_out = timed_plain(plain_model, "PyTorch modules, cuDNN f32")
     for i, out in enumerate(outs):
         kp_err = (out.keypoints_3d - plain_out.keypoints_3d).abs().max().item()
         vol_err, vol_rel = rel_err(out.volumes, plain_out.volumes)
-        log(f"  request {i}: keypoints max |kernel - plain| {kp_err:.3e} mm; "
-            f"volumes max abs {vol_err:.3e} (rel {vol_rel:.3e})")
-        if kp_err > KP_TOL_MM or vol_rel > REL_TOL:
-            raise AssertionError(f"flagship request {i}: kernel path "
-                                 f"disagrees with the plain path")
+        log(f"  request {i}, cuDNN's default algorithms: keypoints max "
+            f"|kernel - plain| {kp_err:.3e} mm (limit {KP_TOL_MM}); volumes "
+            f"max abs {vol_err:.3e} (rel {vol_rel:.3e}, not held to a limit: "
+            f"the backbone differs between identical requests)")
+        if kp_err > KP_TOL_MM:
+            raise AssertionError(f"flagship request {i}: keypoints "
+                                 f"{kp_err:.3e} mm from the plain path")
+    # The comparison that holds: both paths under cuDNN's deterministic
+    # algorithms, so that the backbone does not differ between them.
+    with deterministic_cudnn():
+        out = model(images, proj, pelvis)
+        plain_out = plain_model(images, proj, pelvis)
+    kp_err = (out.keypoints_3d - plain_out.keypoints_3d).abs().max().item()
+    vol_err, vol_rel = rel_err(out.volumes, plain_out.volumes)
+    log(f"  cuDNN's deterministic algorithms: keypoints max |kernel - plain| "
+        f"{kp_err:.3e} mm (limit {KP_TOL_MM}); volumes max abs {vol_err:.3e} "
+        f"(rel {vol_rel:.3e}, limit {REL_TOL})")
+    if kp_err > KP_TOL_MM or vol_rel > REL_TOL:
+        raise AssertionError("flagship: kernel path disagrees with the plain "
+                             "path")
     kp_f32 = outs[0].keypoints_3d.clone()
     del plain_out, outs, out
     torch.cuda.empty_cache()
@@ -1199,23 +1345,20 @@ def main(argv=None) -> int:
     log(f"[kernels] {len(calls)} launches per flagship forward; distinct "
         f"shapes held to rel {REL_TOL}, times summed over one forward")
     table = kernel_table(calls, launches, REQUESTS)
-    rows = []
-    for name in EVAL_KERNELS["float32"] + ("conv3d_mma",):
-        rows.append({
-            "name": name, "route": "cuda",
-            "source": f"lt_tpu_torch/ops/kernels/csrc/{name}.cu",
-            "replaces": REPLACES[name], "launches": launches[name],
-            "launches_by_path": ({"eval": launches[name]} if launches[name]
-                                 else {}),
-            **{k: v for k, v in table.get(name, {}).items()
-               if k != "tc_bound_ms"}})
+
+    def row(name, numbers):
+        return {"name": name, "route": "cuda",
+                "source": f"lt_tpu_torch/ops/kernels/csrc/"
+                          f"{_build.KERNELS[name]}.cu",
+                "replaces": REPLACES[name], "launches": 0,
+                "launches_by_path": {}, **numbers}
 
     def add_path(path, path_launches):
-        for row in rows:
-            n = path_launches.get(row["name"], 0)
+        for r in rows:
+            n = path_launches.get(r["name"], 0)
             if n:
-                row["launches"] += n
-                row["launches_by_path"][path] = n
+                r["launches"] += n
+                r["launches_by_path"][path] = n
 
     # Phase 5b: rows 1-7 in bfloat16 at the flagship shapes.
     log(f"[entry points bf16] batch {b}, flagship shapes, bfloat16, "
@@ -1229,7 +1372,6 @@ def main(argv=None) -> int:
     calls16 = record_launches(lambda: model16(images, proj, pelvis))
     outs, launches16 = drive(model16, REQUESTS, "bfloat16 eval",
                              torch.bfloat16)
-    add_path("eval_bf16", launches16)
     plain16 = build_model(False, torch.bfloat16, like=model)
     plain_out = timed_plain(plain16, "PyTorch modules under autocast, "
                                      "cuDNN bf16")
@@ -1262,12 +1404,16 @@ def main(argv=None) -> int:
     log(f"[kernels bf16] {len(calls16)} launches per bfloat16 forward; "
         f"distinct shapes held to rel {REL_TOL_BF16}")
     table16 = kernel_table(calls16, launches16, REQUESTS)
-    for row in rows:
-        if row["name"] == "conv3d_mma":     # bfloat16 only: its main numbers
-            row.update({k: v for k, v in table16["conv3d_mma"].items()
-                        if k != "tc_bound_ms"})
-        elif row["name"] in table16:
-            row["bf16"] = table16[row["name"]]
+    # One row per eval kernel: its float32 numbers where it serves float32,
+    # else its bfloat16 ones; K1 and K4 carry their bfloat16 numbers too.
+    rows = []
+    for name in dict.fromkeys(EVAL_KERNELS["float32"]
+                              + EVAL_KERNELS["bfloat16"]):
+        rows.append(row(name, table.get(name) or table16[name]))
+        if name in table and name in table16:
+            rows[-1]["bf16"] = table16[name]
+    add_path("eval", launches)
+    add_path("eval_bf16", launches16)
     del model16
     torch.cuda.empty_cache()
 
@@ -1303,14 +1449,9 @@ def main(argv=None) -> int:
     if missing:
         raise AssertionError(f"kernels never launched by the alternative "
                              f"entry points: {missing}")
-    add_path("alt", alt_launches)
     for name in ("sample_views", "sample_views_grad"):
-        rows.append({"name": name, "route": "cuda",
-                     "source": f"lt_tpu_torch/ops/kernels/csrc/{name}.cu",
-                     "replaces": REPLACES[name],
-                     "launches": alt_launches[name],
-                     "launches_by_path": {"alt": alt_launches[name]},
-                     **alt_rows[name]})
+        rows.append(row(name, alt_rows[name]))
+    add_path("alt", alt_launches)
 
     # Phase 6: the committed trained fixture (RN-18, 128^2, 32^3).
     fix = ROOT / "tests" / "fixtures" / "vol_rn18_synth.npz"
@@ -1322,7 +1463,8 @@ def main(argv=None) -> int:
             num_joints=17, num_layers=18, volume_size=32, cuboid_side=2500.0,
             use_kernels="fused" if use_kernels else False, device=dev)
         load_volumetric_npz(net, str(fix), num_layers=18)
-        outs.append(net(im_s, pj_s, kp_s))
+        with deterministic_cudnn():
+            outs.append(net(im_s, pj_s, kp_s))
     fk_err = (outs[0].keypoints_3d - outs[1].keypoints_3d).abs().max().item()
     fv_err, fv_rel = rel_err(outs[0].volumes, outs[1].volumes)
     peak = outs[0].volumes.flatten(2).amax(-1).mean().item()
@@ -1332,8 +1474,42 @@ def main(argv=None) -> int:
     if fk_err > KP_TOL_MM or fv_rel > REL_TOL:
         raise AssertionError("fixture kernel path disagrees with the plain "
                              "path")
-
     del net, outs
+    # The same weights in bfloat16 on the fused kernel path (conv3d_mma,
+    # upsample3d_2x_mma) against the float32 kernel path, per joint, on the
+    # fixture's 8 held-out validation poses: the CPU test's band
+    # (tests/test_torch_bf16.py), mean FIX_BF16_MEAN_MM, max FIX_BF16_MAX_MM.
+    ds = SyntheticMultiViewDataset(n_samples=8, n_views=4, image_size=128,
+                                   sample_offset=1_000_000)
+    val = [ds[i] for i in range(len(ds))]
+    im_v, pj_v, gt_v = (torch.from_numpy(np.stack(a)).to(dev) for a in (
+        [np.stack(v["images"]).astype(np.float32) for v in val],
+        [np.stack(v["proj_matrices"]) for v in val],
+        [v["keypoints_3d"][:, :3] for v in val]))
+    kps = {}
+    for dt in (torch.float32, torch.bfloat16):
+        net = VolumetricTriangulationNet(
+            num_joints=17, num_layers=18, volume_size=32, cuboid_side=2500.0,
+            use_kernels="fused", device=dev, compute_dtype=dt)
+        load_volumetric_npz(net, str(fix), num_layers=18)
+        _build.reset_launches()
+        kps[dt] = net(im_v, pj_v, gt_v).keypoints_3d
+        if not _build.LAUNCHES[K3[str(dt).replace("torch.", "")]]:
+            raise AssertionError(f"fixture {dt}: K3 was not launched")
+        del net
+    d = kp_dist(kps[torch.bfloat16], kps[torch.float32])
+    mpjpe = {dt: ds.evaluate(kp.cpu().numpy())[0] for dt, kp in kps.items()}
+    log(f"[fixture bf16] the same weights in bfloat16 (fused kernel path) vs "
+        f"float32, 8 validation poses: keypoints mean {d.mean().item():.3f} "
+        f"p95 {d.quantile(0.95).item():.3f} max {d.max().item():.3f} mm "
+        f"(limits {FIX_BF16_MEAN_MM} / {FIX_BF16_MAX_MM}); rel MPJPE float32 "
+        f"{mpjpe[torch.float32]:.2f} mm, bfloat16 "
+        f"{mpjpe[torch.bfloat16]:.2f} mm")
+    if (not bool(d.isfinite().all()) or d.mean().item() > FIX_BF16_MEAN_MM
+            or d.max().item() > FIX_BF16_MAX_MM):
+        raise AssertionError("fixture in bfloat16 outside the band of its "
+                             "float32 keypoints")
+    del kps, im_v, pj_v, gt_v
     torch.cuda.empty_cache()
 
     # Phase 7: the training kernels at the flagship training shapes.
@@ -1345,17 +1521,13 @@ def main(argv=None) -> int:
     # Phase 8: the flagship training step (kernel path vs plain path, then
     # timed on the kernel path).
     train_launches = train_flagship(dev)
-    if train_launches["conv3d_fused"] or train_launches["conv3d_mma"]:
+    if any(train_launches[k] for k in ("conv3d_mma", "conv3d_mma_f32",
+                                       "split_bf16")):
         raise AssertionError(f"the training step launched K2: "
                              f"{train_launches}")
-    add_path("train", {k: train_launches[k] for k in TRAIN_KERNELS})
     for name in ("sample_views_t", "sample_views_grad_t"):
-        rows.append({"name": name, "route": "cuda",
-                     "source": f"lt_tpu_torch/ops/kernels/csrc/{name}.cu",
-                     "replaces": REPLACES[name],
-                     "launches": train_launches[name],
-                     "launches_by_path": {"train": train_launches[name]},
-                     **train_rows[name]})
+        rows.append(row(name, train_rows[name]))
+    add_path("train", {k: train_launches[k] for k in TRAIN_KERNELS})
 
     # Phase 9: the CLI's run on the synthetic config, one epoch, then resume.
     train_cli(dev)

@@ -32,7 +32,10 @@ switches, ``lt_tpu/models/v2v.py:52-96``; the port reads no environment):
 BN is folded into the weights in float32 once per weight version, device
 and compute dtype, not on every call; with ``compute_dtype=torch.bfloat16``
 (eval only) the folded weights are cast to bfloat16 once there, biases stay
-float32, and the volume enters and leaves the kernels as bfloat16.  The
+float32, and the volume enters and leaves the kernels as bfloat16.  In
+float32 on the card the folded convolution weights are split once there
+into the bfloat16 parts that K2's float32 body takes
+(``conv3d.split_bf16``), and the packed tree holds those parts.  The
 module graph runs bfloat16 under ``torch.autocast`` (see
 ``models/backbone.py``).
 
@@ -51,7 +54,8 @@ from lt_tpu_torch import compute_context, resolve_device
 from lt_tpu_torch.models.batchnorm import BatchNorm, run_block
 from lt_tpu_torch.models.init import init_weights
 from lt_tpu_torch.ops.kernels.conv3d import (conv3d_fused, conv3d_same,
-                                             fold_bn)
+                                             fold_bn, pointwise, split_bf16,
+                                             split_parts)
 from lt_tpu_torch.ops.kernels.conv_mp import conv3d_mp
 from lt_tpu_torch.ops.kernels.res3d import (res3d_block_fused,
                                             res3d_chain_fused,
@@ -175,6 +179,22 @@ class EncoderDecorder(nn.Module):
         return x
 
 
+def _split_conv_weights(tree):
+    """A packed float32 tree with every K2 weight (ndim >= 2; not the
+    upsample's packed taps) replaced by its bfloat16 parts
+    (``conv3d.split_bf16``, ``conv3d.split_parts`` of its k; the (Cin,
+    Cout) weights are 1x1x1), which K2's float32 body takes whole."""
+    if isinstance(tree, dict):
+        return {k: v if k.startswith("decoder_upsample")
+                else _split_conv_weights(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_split_conv_weights(v) for v in tree)
+    if torch.is_tensor(tree) and tree.dim() >= 2:
+        return split_bf16(tree, split_parts(1 if tree.dim() == 2 else
+                                            tree.shape[0]))
+    return tree
+
+
 class V2VModel(nn.Module):
     """Front layers -> hourglass -> back layers -> 1x1x1 output conv.
 
@@ -211,11 +231,14 @@ class V2VModel(nn.Module):
         """The folded / packed weights of the kernel paths, rebuilt only
         when a weight, the device or the compute dtype changed since the
         last call.  Folded in float32; the weights are then cast to the
-        compute dtype, the biases stay float32."""
+        compute dtype (in float32 on the card: split into their bfloat16
+        parts), the biases stay float32."""
         key = self._pack_key()
         if self._packed is not None and self._packed[0] == key:
             return self._packed[1]
         p = self._cast_weights(self._fold_params())
+        if self.compute_dtype == torch.float32 and key[-2].type == "cuda":
+            p = _split_conv_weights(p)
         self._packed = (key, p)
         return p
 
@@ -306,7 +329,7 @@ class V2VModel(nn.Module):
             skip = x
             if len(prm) == 5:
                 ws, bs = prm[4]
-                skip = conv3d_fused(x, ws.reshape(1, 1, 1, *ws.shape), bs)
+                skip = conv3d_fused(x, pointwise(ws), bs)
             y = conv3d_same(x, w1, b1, relu=True)
             return conv3d_same(y, w2, b2, relu=True, residual=skip)
 
@@ -324,5 +347,5 @@ class V2VModel(nn.Module):
                               skip=skips[i - 1])
         x = res(x, p["back_res"])
         for wt, bt, relu in p["tail"]:
-            x = conv3d_fused(x, wt.reshape(1, 1, 1, *wt.shape), bt, relu=relu)
+            x = conv3d_fused(x, pointwise(wt), bt, relu=relu)
         return x

@@ -24,16 +24,19 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("unproject_agg", "conv3d_fused", "conv3d_mma", "upsample3d_2x",
-           "max_pool3d_2x", "sample_views_t", "sample_views_grad_t",
-           "sample_views", "sample_views_grad")
+SOURCES = ("unproject_agg", "conv3d_mma", "conv3d_mma_f32", "upsample3d_2x",
+           "upsample3d_2x_mma", "max_pool3d_2x", "sample_views_t",
+           "sample_views_grad_t", "sample_views", "sample_views_grad")
+#: Each kernel's C entry point and the source that holds it: one per
+#: source, named after it, and split_bf16 beside conv3d_mma_f32.
+KERNELS = {**{s: s for s in SOURCES}, "split_bf16": "conv3d_mma_f32"}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
               "-lineinfo")
 
 #: Launches per kernel since the last :func:`reset_launches`.  Each wrapper
 #: adds one where it launches its kernel, and nowhere else.
-LAUNCHES = dict.fromkeys(SOURCES, 0)
+LAUNCHES = dict.fromkeys(KERNELS, 0)
 #: nvcc's output (ptxas register / shared-memory report) per built source.
 BUILD_LOG: dict = {}
 _LIBS: dict = {}
@@ -41,6 +44,7 @@ _FNS: dict = {}
 
 ptr = ctypes.c_void_p
 i32 = ctypes.c_int
+i64 = ctypes.c_int64
 f32 = ctypes.c_float
 
 
@@ -103,27 +107,28 @@ def _lib(name: str):
     return _LIBS[name]
 
 
-def launch(name: str, fn: str, device: torch.device, argtypes,
-           *args) -> None:
-    """Call C entry point ``fn`` of kernel library ``name`` on ``device``'s
-    current stream (appended as the last argument) and count the launch.
+def launch(kernel: str, device: torch.device, argtypes, *args) -> None:
+    """Call C entry point ``kernel`` (of the library of its source,
+    :data:`KERNELS`) on ``device``'s current stream (appended as the last
+    argument) and count the launch.
 
     Every pointer and the stream are ``c_void_p``: without ``argtypes``
     ctypes would pass a Python int as a 32-bit C int and cut the pointer.
     The entry point returns ``cudaGetLastError()``; non-zero raises.
     """
-    cfn = _FNS.get((name, fn))
+    cfn = _FNS.get(kernel)
     if cfn is None:     # typed once: ctypes rebuilds its converters per set
-        cfn = getattr(_lib(name), fn)
+        cfn = getattr(_lib(KERNELS[kernel]), kernel)
         cfn.argtypes = list(argtypes) + [ptr]
         cfn.restype = i32
-        _FNS[(name, fn)] = cfn
+        _FNS[kernel] = cfn
     with torch.cuda.device(device):
         err = cfn(*args, torch.cuda.current_stream(device).cuda_stream)
     if err != 0:
-        raise RuntimeError(f"CUDA kernel {fn} failed to launch: error {err} "
-                           f"({_lib(name).ltk_error_string(err).decode()})")
-    LAUNCHES[name] += 1
+        msg = _lib(KERNELS[kernel]).ltk_error_string(err).decode()
+        raise RuntimeError(f"CUDA kernel {kernel} failed to launch: error "
+                           f"{err} ({msg})")
+    LAUNCHES[kernel] += 1
 
 
 #: The element types a kernel may take, and their codes in the C interface

@@ -5,8 +5,9 @@
 //       (+ skip[b, 2x+dx, 2y+dy, 2z+dz, co]),   t = dx*4 + dy*2 + dz.
 //
 // The skip is added AFTER the ReLU (the decoder's `up(x) + skip`).  x, w8,
-// skip and out are float32 or bfloat16 (one type for the four), b8 is
-// float32, and the sum, the ReLU and the skip add are float32, rounded once.
+// skip, out and b8 are float32; the sum, the ReLU and the skip add are
+// float32.  bfloat16 calls go to the tensor-core body, upsample3d_2x_mma.cu;
+// this entry point refuses them.
 //
 // Replaces lt_tpu/ops/pallas/updown.py:upsample3d_2x (pallas_call at :330
 // and :376; kernel bodies _upsample_kernel :205, _upsample_kernel_lanes
@@ -68,17 +69,13 @@ static void upsample3d_2x_launch(const void* x, const void* w8, const float* b8,
       static_cast<const T*>(skip), static_cast<T*>(out), B, X, Y, Z, Cin, Cout);
 }
 
+// dtype: the type of x, w8, skip and out (kLtkF32 only).
 extern "C" int upsample3d_2x(const void* x, const void* w8, const float* b8,
                              const void* skip, void* out, int B, int X, int Y,
                              int Z, int Cin, int Cout, int dtype,
                              void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == kLtkF32)
-    upsample3d_2x_launch<float>(x, w8, b8, skip, out, B, X, Y, Z, Cin, Cout, s);
-  else if (dtype == kLtkBF16)
-    upsample3d_2x_launch<__nv_bfloat16>(x, w8, b8, skip, out, B, X, Y, Z, Cin,
-                                        Cout, s);
-  else
-    return kLtkBadDtype;
+  if (dtype != kLtkF32) return kLtkBadDtype;
+  upsample3d_2x_launch<float>(x, w8, b8, skip, out, B, X, Y, Z, Cin, Cout,
+                              static_cast<cudaStream_t>(stream));
   return static_cast<int>(cudaGetLastError());
 }

@@ -28,7 +28,8 @@ The TPU machinery (``fold``, ``pairs_per_step``, VMEM estimators,
 rules (even X, X % 4 == 0): these compositions take any volume size, and
 a pool only needs even dims.  NDHWC activations; folded DHWIO weights
 (``conv3d.fold_bn``).  Activations and weights are float32 or bfloat16 (one
-type throughout a call), biases float32; every launch accumulates in
+type throughout a call; float32 weights may also come as their bfloat16
+parts, ``conv3d.conv3d_fused``), biases float32; every launch accumulates in
 float32 and rounds its output once, so a block's intermediate is rounded
 where ``lt_tpu`` keeps it in the compute dtype in VMEM.
 """
@@ -39,15 +40,15 @@ from typing import Sequence, Tuple
 
 import torch
 
-from lt_tpu_torch.ops.kernels.conv3d import conv3d_fused
+from lt_tpu_torch.ops.kernels.conv3d import conv3d_fused, pointwise
 from lt_tpu_torch.ops.kernels.updown import max_pool3d_2x, upsample3d_2x
 
 
 def _pointwise(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
                relu: bool = False, out_dtype=None) -> torch.Tensor:
-    """A 1x1x1 conv: w (Cin, Cout)."""
-    return conv3d_fused(x, w.reshape(1, 1, 1, *w.shape), b, relu=relu,
-                        out_dtype=out_dtype)
+    """A 1x1x1 conv: w (Cin, Cout), or its (parts, Cin, Cout) bfloat16
+    parts."""
+    return conv3d_fused(x, pointwise(w), b, relu=relu, out_dtype=out_dtype)
 
 
 def _res_block(x, w1, b1, w2, b2, skip_proj=None,

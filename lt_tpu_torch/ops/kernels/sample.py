@@ -67,7 +67,7 @@ def sample_views_t(features: torch.Tensor, affine: torch.Tensor,
     out = torch.empty((bv, c, grid_size ** 3), dtype=torch.float32,
                       device=features.device)
     p, i, f = _build.ptr, _build.i32, _build.f32
-    _build.launch("sample_views_t", "sample_views_t", features.device,
+    _build.launch("sample_views_t", features.device,
                   [p, p, p, i, i, i, i, i, f, f], features.data_ptr(),
                   affine.data_ptr(), out.data_ptr(), bv, h, w, c, grid_size,
                   (w - 1) / w, (h - 1) / h)
@@ -129,7 +129,7 @@ def sample_views_grad_t(g: torch.Tensor, affine: torch.Tensor, feat_shape,
     _build.check_cuda(affine, "affine", 3)
     df = torch.zeros((bv, h, w, c), dtype=torch.float32, device=g.device)
     p, i, f = _build.ptr, _build.i32, _build.f32
-    _build.launch("sample_views_grad_t", "sample_views_grad_t", g.device,
+    _build.launch("sample_views_grad_t", g.device,
                   [p, p, p, i, i, i, i, i, f, f], g.data_ptr(),
                   affine.data_ptr(), df.data_ptr(), bv, h, w, c, grid_size,
                   (w - 1) / w, (h - 1) / h)
@@ -202,7 +202,7 @@ def sample_views(features: torch.Tensor, affine: torch.Tensor,
     out = torch.empty((bv, grid_size ** 3, c), dtype=out_dtype,
                       device=features.device)
     p, i, f = _build.ptr, _build.i32, _build.f32
-    _build.launch("sample_views", "sample_views", features.device,
+    _build.launch("sample_views", features.device,
                   [p, p, p, i, i, i, i, i, f, f, i, i], features.data_ptr(),
                   affine.data_ptr(), out.data_ptr(), bv, h, w, c, grid_size,
                   (w - 1) / w, (h - 1) / h,
@@ -242,7 +242,7 @@ def sample_views_grad(g: torch.Tensor, affine: torch.Tensor, feat_shape,
     _build.check_cuda(affine, "affine", 3)
     df = torch.zeros((bv, h, w, c), dtype=torch.float32, device=g.device)
     p, i, f = _build.ptr, _build.i32, _build.f32
-    _build.launch("sample_views_grad", "sample_views_grad", g.device,
+    _build.launch("sample_views_grad", g.device,
                   [p, p, p, i, i, i, i, i, f, f, i], g.data_ptr(),
                   affine.data_ptr(), df.data_ptr(), bv, h, w, c, grid_size,
                   (w - 1) / w, (h - 1) / h, _build.DTYPE_CODES[g.dtype])

@@ -94,8 +94,7 @@ def unproject_agg(features: torch.Tensor, m: torch.Tensor,
     out = torch.empty((b, grid_size ** 3, c), dtype=features.dtype,
                       device=features.device)
     p, i, f = _build.ptr, _build.i32, _build.f32
-    _build.launch(
-        "unproject_agg", "unproject_agg", features.device,
+    _build.launch("unproject_agg", features.device,
         [p, p, p, p, p, i, i, i, i, i, i, i, f, f, i],
         features.data_ptr(), m.data_ptr(), view_mask.data_ptr(), conf_ptr,
         out.data_ptr(), b, v, h, w, c, grid_size, METHODS[method],

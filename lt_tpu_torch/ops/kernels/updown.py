@@ -1,20 +1,24 @@
 """MaxPool3d(2) (kernel K4) and the fused 2x transposed conv (kernel K3).
 
 Port of ``lt_tpu/ops/pallas/updown.py:98-416``.  CUDA kernels:
-``csrc/max_pool3d_2x.cu`` and ``csrc/upsample3d_2x.cu``; the ``*_plain``
-functions are their plain versions.  NDHWC layout.  Volumes (and K3's
-packed weights and skip) are float32 or bfloat16, one type per call; K3's
-bias is float32, its sum, ReLU and skip add float32, rounded once.
+``csrc/max_pool3d_2x.cu``; K3 ``csrc/upsample3d_2x.cu`` (float32, CUDA
+cores) and ``csrc/upsample3d_2x_mma.cu`` (bfloat16, tensor cores, launched
+with the plan of :func:`upsample_mma_plan`); the ``*_plain`` functions are
+their plain versions.  NDHWC layout.  Volumes (and K3's packed weights and
+skip) are float32 or bfloat16, one type per call; K3's bias is float32, its
+sum, ReLU and skip add float32, rounded once.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+import functools
+import math
+from typing import NamedTuple, Optional
 
 import torch
 
 from lt_tpu_torch.ops.kernels import _build
-from lt_tpu_torch.ops.kernels.conv3d import BN_EPS
+from lt_tpu_torch.ops.kernels.conv3d import BN_EPS, _odd_pitch
 
 
 def max_pool3d_2x_plain(x: torch.Tensor) -> torch.Tensor:
@@ -35,7 +39,7 @@ def max_pool3d_2x(x: torch.Tensor) -> torch.Tensor:
     out = torch.empty((b, sx // 2, sy // 2, sz // 2, c), dtype=x.dtype,
                       device=x.device)
     p, i = _build.ptr, _build.i32
-    _build.launch("max_pool3d_2x", "max_pool3d_2x", x.device, [p, p] + [i] * 6,
+    _build.launch("max_pool3d_2x", x.device, [p, p] + [i] * 6,
                   x.data_ptr(), out.data_ptr(), b, sx, sy, sz, c,
                   _build.DTYPE_CODES[x.dtype])
     return out
@@ -57,10 +61,69 @@ def upsample3d_2x_plain(x: torch.Tensor, w8: torch.Tensor,
     return out.to(x.dtype)
 
 
+# upsample3d_2x_mma.cu's launch constants: input voxels per block, and the
+# shared memory one block may hold on the H100.
+UP_MMA_VOXELS = 128
+UP_SMEM_MAX = 232448
+# Blocks a launch should reach before its N tiles are split across blocks:
+# two for each of the H100's 132 SMs.
+UP_TARGET_BLOCKS = 264
+
+
+def up_smem_bytes(nt: int, kp: int) -> int:
+    """upsample3d_2x_mma.cu's ``up_smem_bytes``: the A tile, the two-slot
+    B ring, the epilogue's float32 tile and the row offsets."""
+    m = UP_MMA_VOXELS
+    return (m * _odd_pitch(kp) + 2 * kp * _odd_pitch(nt) + m * (nt + 4) * 4
+            + m * 8)
+
+
+class UpPlan(NamedTuple):
+    """One upsample3d_2x_mma launch: N tile, Cin padded to 16, steps (N
+    tiles) per block, blocks per M tile, dynamic shared memory (bytes),
+    blocks (a 1-D grid)."""
+    nt: int
+    kp: int
+    per: int
+    nsplit: int
+    smem: int
+    grid: int
+
+    @property
+    def args(self):
+        return tuple(self)
+
+
+@functools.lru_cache(maxsize=None)
+def upsample_mma_plan(b: int, sx: int, sy: int, sz: int, cin: int,
+                      cout: int) -> UpPlan:
+    """The launch plan of upsample3d_2x_mma.
+
+    N tile: the least of 16 / 32 / 64 that holds a (dx, dy) pair's 2 Cout
+    columns, else 64.  Steps: 4 pairs x N tiles per pair.  M tiles of
+    UP_MMA_VOXELS input voxels; where they number fewer than
+    UP_TARGET_BLOCKS the steps are split across blocks (each block then
+    takes ``per`` consecutive steps).
+    """
+    nt = next((t for t in (16, 32, 64) if 2 * cout <= t), 64)
+    kp = math.ceil(cin / 16) * 16
+    smem = up_smem_bytes(nt, kp)
+    if smem > UP_SMEM_MAX:
+        raise ValueError(f"upsample3d_2x_mma: Cin={cin} does not fit "
+                         f"{UP_SMEM_MAX} bytes of shared memory")
+    steps = 4 * math.ceil(2 * cout / nt)
+    mtiles = math.ceil(b * sx * sy * sz / UP_MMA_VOXELS)
+    want = min(steps, max(1, math.ceil(UP_TARGET_BLOCKS / mtiles)))
+    per = math.ceil(steps / want)
+    nsplit = math.ceil(steps / per)
+    return UpPlan(nt, kp, per, nsplit, smem, mtiles * nsplit)
+
+
 def upsample3d_2x(x: torch.Tensor, w8: torch.Tensor, bias: torch.Tensor,
                   skip: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Fused ConvTranspose3d(2, 2) + folded BN + ReLU [+ skip added after
-    the ReLU]: K3 on CUDA, plain on CPU.
+    the ReLU]: K3 on CUDA (float32: upsample3d_2x; bfloat16:
+    upsample3d_2x_mma), plain on CPU.
 
     Args:
       x: (B, X, Y, Z, Cin), float32 or bfloat16.
@@ -89,11 +152,15 @@ def upsample3d_2x(x: torch.Tensor, w8: torch.Tensor, bias: torch.Tensor,
     _build.check_cuda(bias, "bias")
     out = torch.empty(out_shape, dtype=x.dtype, device=x.device)
     p, i = _build.ptr, _build.i32
-    _build.launch("upsample3d_2x", "upsample3d_2x", x.device,
-                  [p] * 5 + [i] * 7,
-                  x.data_ptr(), w8.data_ptr(), bias.data_ptr(),
-                  None if skip is None else skip.data_ptr(), out.data_ptr(),
-                  b, sx, sy, sz, cin, cout, _build.DTYPE_CODES[x.dtype])
+    args = (x.data_ptr(), w8.data_ptr(), bias.data_ptr(),
+            None if skip is None else skip.data_ptr(), out.data_ptr(),
+            b, sx, sy, sz, cin, cout, _build.DTYPE_CODES[x.dtype])
+    if x.dtype == torch.bfloat16:
+        plan = upsample_mma_plan(b, sx, sy, sz, cin, cout).args
+        _build.launch("upsample3d_2x_mma", x.device,
+                      [p] * 5 + [i] * (7 + len(plan)), *args, *plan)
+    else:
+        _build.launch("upsample3d_2x", x.device, [p] * 5 + [i] * 7, *args)
     return out
 
 

@@ -1,12 +1,14 @@
 """The CUDA kernels against their plain versions on the card, at small and
 awkward shapes (odd sizes, Cout = 17, Cin = 16, k = 1 / 3 / 7, ragged
-tiles), plus K1's, K5's and K6's edge cases, K2's tensor-core body for
-bfloat16 inputs (conv3d_mma.cu) over ragged channels and volumes, the fused
-aggregation's gradient, the wrappers' device / launch rules, and V2V's
-folded weights after an optimizer step; K1-K4 in bfloat16, the voxels-major sampling
-kernels K7 / K8, ``conv3d_same`` and the three ``res3d_block_*`` entry
-points at a small and at the flagship shape, and V2V's per-conv and
-bfloat16 paths.
+tiles), plus K1's, K5's and K6's edge cases, K2's tensor-core bodies over
+ragged channels and volumes (conv3d_mma.cu for bfloat16 inputs;
+conv3d_mma_f32.cu, the split into bfloat16 parts, and its split_bf16 for
+float32 inputs), K3's tensor-core body for bfloat16 (upsample3d_2x_mma.cu),
+the fused aggregation's gradient, the wrappers' device / launch rules, and
+V2V's folded weights after an optimizer step; K1-K4 in bfloat16, the
+voxels-major sampling kernels K7 / K8, ``conv3d_same`` and the three
+``res3d_block_*`` entry points at a small and at the flagship shape, and
+V2V's per-conv and bfloat16 paths.
 
 Marked ``cuda``: without a GPU every test skips.  On a machine with one
 (this file imports torch only, so ``--noconftest`` keeps JAX out):
@@ -62,6 +64,8 @@ def _randn(dev, *shape, scale=1.0, seed=0):
     ((1, 9, 9, 9, 24), 3, 20, False, True),
 ])
 def test_conv3d_fused(dev, shape, k, cout, res, relu):
+    """float32 K2 (conv3d_mma_f32: six products of three bfloat16 parts,
+    three of two for k = 7) vs true float32."""
     from lt_tpu_torch.ops.kernels import conv3d
 
     cin = shape[-1]
@@ -145,7 +149,8 @@ def test_no_wrapper_takes_its_plain_version_on_the_card(dev, monkeypatch):
     def forbidden(*a, **k):
         raise AssertionError("plain version called for a CUDA tensor")
 
-    for mod, names in ((conv3d, ["conv3d_fused_plain"]),
+    for mod, names in ((conv3d, ["conv3d_fused_plain", "split_bf16_plain",
+                                 "conv3d_split_plain"]),
                        (updown, ["max_pool3d_2x_plain",
                                  "upsample3d_2x_plain"]),
                        (unproject, ["unproject_agg_plain"]),
@@ -156,28 +161,36 @@ def test_no_wrapper_takes_its_plain_version_on_the_card(dev, monkeypatch):
         for name in names:
             monkeypatch.setattr(mod, name, forbidden)
     for dt in (torch.float32, BF16):
-        k2 = "conv3d_fused" if dt == torch.float32 else "conv3d_mma"
+        f32 = dt == torch.float32
+        k2 = "conv3d_mma_f32" if f32 else "conv3d_mma"
+        k3 = "upsample3d_2x" if f32 else "upsample3d_2x_mma"
         x = _randn(dev, 1, 4, 4, 4, 8).to(dt)
         w = _randn(dev, 3, 3, 3, 8, 8, scale=0.1, seed=1).to(dt)
         b = _randn(dev, 8, scale=0.1, seed=2)
         ws = (_randn(dev, 8, 8, scale=0.3, seed=3).to(dt), b)
         w8 = _randn(dev, 8, 64, scale=0.3, seed=4).to(dt)
+
+        def k2s(n):
+            """n K2 launches, each (in float32) after the splits of its
+            input and of its whole weights."""
+            return {k2: n, "split_bf16": 2 * n} if f32 else {k2: n}
+
         feats = _randn(dev, 2, 6, 5, 8, seed=5).to(dt)
         m = torch.tensor([[1., 0, 0, .3], [0, 1., 0, .2], [0, 0, 0, 1.]],
                          device=dev).expand(2, 3, 4).contiguous()
         for want, fn in (
-                ({k2: 1}, lambda: conv3d.conv3d_same(x, w, b)),
-                ({k2: 1}, lambda: conv_mp.conv3d_mp(x, w, b)),
-                ({k2: 3}, lambda: conv_mp.res3d_block_mp(
+                (k2s(1), lambda: conv3d.conv3d_same(x, w, b)),
+                (k2s(1), lambda: conv_mp.conv3d_mp(x, w, b)),
+                (k2s(3), lambda: conv_mp.res3d_block_mp(
                     x, w, b, w, b, skip_proj=ws, s=2)),
-                ({k2: 3}, lambda: res3d_q4.res3d_block_q4(
+                (k2s(3), lambda: res3d_q4.res3d_block_q4(
                     x, w, b, w, b, tail=((ws[0], b, True),))),
-                ({k2: 2}, lambda: res3d_folded.res3d_block_folded(
+                (k2s(2), lambda: res3d_folded.res3d_block_folded(
                     x, w, b, w, b)),
-                ({k2: 4, "max_pool3d_2x": 1},
+                ({**k2s(4), "max_pool3d_2x": 1},
                  lambda: res3d.res3d_chain_fused(
                      x, [(w, b, w, b)] * 2, emit_pooled=True)),
-                ({"upsample3d_2x": 1}, lambda: updown.upsample3d_2x(
+                ({k3: 1}, lambda: updown.upsample3d_2x(
                     x, w8, b.repeat(8))),
                 ({"unproject_agg": 1}, lambda: unproject.unproject_agg(
                     feats[None], m[None], torch.ones(1, 2, device=dev), None,
@@ -370,7 +383,7 @@ def test_conv3d_fused_float32_in_bfloat16_out(dev):
            conv3d.conv3d_fused_plain(x, w, b, r, True, BF16), REL_BF16)
 
 
-# K2's tensor-core body (conv3d_mma.cu): every bfloat16 call.
+# K2's tensor-core body for bfloat16 (conv3d_mma.cu): every bfloat16 call.
 MMA_CH = [(32, 16), (16, 32), (32, 32), (32, 64), (64, 128), (128, 128),
           (32, 17), (24, 40)]
 
@@ -426,24 +439,119 @@ def test_conv3d_mma_element_paths_and_large_k(dev, shape, k, cout, misalign):
                REL_BF16 if out_dtype == BF16 else REL)
 
 
-def test_bf16_conv_launches_only_the_tensor_core_body(dev):
-    """A bfloat16 K2 call counts one conv3d_mma launch and none of
-    conv3d_fused, a float32 call the other way round; conv3d_fused's C entry
-    point refuses a bfloat16 input."""
-    from lt_tpu_torch.ops.kernels import _build, conv3d
+@pytest.mark.parametrize("batch", [1, 3])
+@pytest.mark.parametrize("vol", [(2, 2, 2), (5, 6, 7), (1, 3, 5)])
+@pytest.mark.parametrize("cin, cout", MMA_CH)
+@pytest.mark.parametrize("k", [1, 3, 7])
+def test_conv3d_mma_f32(dev, k, cin, cout, vol, batch):
+    """K2's float32 body (conv3d_mma_f32: three bfloat16 parts, two for
+    k = 7) on test_conv3d_mma's shapes, residual and ReLU on and off,
+    output float32 (relative 1e-4 of max |plain|, true float32) and
+    bfloat16 (1.6e-2)."""
+    from lt_tpu_torch.ops.kernels import conv3d
 
-    for dt, want in ((BF16, "conv3d_mma"), (torch.float32, "conv3d_fused")):
+    x, w, b, r = _conv_inputs(dev, (batch, *vol, cin), k, cout, True,
+                              torch.float32)
+    for res, relu, out_dtype in itertools.product((None, r), (False, True),
+                                                  (BF16, torch.float32)):
+        got = conv3d.conv3d_fused(x, w, b, res, relu, out_dtype)
+        _close(got, conv3d.conv3d_fused_plain(x, w, b, res, relu, out_dtype),
+               REL_BF16 if out_dtype == BF16 else REL)
+
+
+@pytest.mark.parametrize("shape, k, cout, misalign", [
+    ((1, 5, 6, 7, 17), 3, 20, False),      # Cin % 8 != 0: element-wise halo
+    ((1, 5, 6, 7, 5), 1, 3, False),
+    ((2, 5, 6, 7, 12), 7, 8, False),
+    ((2, 5, 6, 7, 32), 3, 32, True),       # x, w, residual 4 bytes off 16
+    ((1, 6, 5, 7, 128), 9, 64, False),     # small brick, CK = 16, reloaded
+    ((2, 9, 10, 11, 32), 11, 17, False),   # the largest k that fits
+])
+def test_conv3d_mma_f32_element_paths_and_large_k(dev, shape, k, cout,
+                                                  misalign):
+    """conv3d_mma_f32's element-by-element loads and stores and the plans
+    of a large k, against true float32; a misaligned x and w take
+    split_bf16's element path, a misaligned residual the element-by-element
+    epilogue."""
+    from lt_tpu_torch.ops.kernels import conv3d
+
+    def off(t):
+        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+        view = buf[1:].view(t.shape)
+        view.copy_(t)
+        return view
+
+    x, w, b, r = _conv_inputs(dev, shape, k, cout, True, torch.float32)
+    if misalign:
+        x, w, r = off(x), off(w), off(r)
+        assert x.data_ptr() % 16 and x.is_contiguous()
+    for out_dtype in (BF16, torch.float32):
+        got = conv3d.conv3d_fused(x, w, b, r, True, out_dtype)
+        _close(got, conv3d.conv3d_fused_plain(x, w, b, r, True, out_dtype),
+               REL_BF16 if out_dtype == BF16 else REL)
+
+
+@pytest.mark.parametrize("parts", [2, 3])
+@pytest.mark.parametrize("n, offset", [(8 * 1000, 0), (1, 0), (1003, 0),
+                                       (4096, 1), (2 ** 21 + 5, 0)])
+def test_split_bf16(dev, n, offset, parts):
+    """split_bf16 on the card is its plain version bit for bit: vector
+    (n % 8 == 0, aligned) and element paths, a tiny and a huge value."""
+    from lt_tpu_torch.ops.kernels import conv3d
+
+    buf = _randn(dev, n + offset, scale=3.0)
+    buf[0] = 3.3e38
+    if n > 2:
+        buf[offset + 1] = 1e-30
+    v = buf[offset:]
+    got = conv3d.split_bf16(v, parts)
+    assert got.dtype == BF16 and tuple(got.shape) == (parts, n)
+    assert torch.equal(got, conv3d.split_bf16_plain(v, parts))
+
+
+def test_bf16_conv_launches_only_the_tensor_core_body(dev):
+    """A bfloat16 K2 call counts one conv3d_mma launch, a float32 call one
+    conv3d_mma_f32 launch after one split_bf16 of its input (weights given
+    as their parts, as V2V packs them) or two (whole weights); each C entry
+    point refuses the other's type; a bfloat16 K3 call launches
+    upsample3d_2x_mma, whose CUDA-core sibling upsample3d_2x refuses
+    bfloat16."""
+    from lt_tpu_torch.ops.kernels import _build, conv3d, updown
+
+    for dt, parted, want in (
+            (BF16, False, {"conv3d_mma": 1}),
+            (torch.float32, True, {"split_bf16": 1, "conv3d_mma_f32": 1}),
+            (torch.float32, False, {"split_bf16": 2, "conv3d_mma_f32": 1})):
         x, w, b, r = _conv_inputs(dev, (2, 6, 6, 6, 32), 3, 32, True, dt)
+        if parted:
+            w = conv3d.split_bf16(w, conv3d.split_parts(3))
         _build.reset_launches()
         conv3d.conv3d_fused(x, w, b, r, True)
-        assert {k: v for k, v in _build.LAUNCHES.items() if v} == {want: 1}
+        assert {k: v for k, v in _build.LAUNCHES.items() if v} == want
     x, w, b, _ = _conv_inputs(dev, (1, 4, 4, 4, 8), 3, 8, False, BF16)
     out = torch.empty_like(x)
     p, i = _build.ptr, _build.i32
-    with pytest.raises(RuntimeError, match="conv3d_fused failed"):
-        _build.launch("conv3d_fused", "conv3d_fused", dev, [p] * 5 + [i] * 10,
+    plan = conv3d.conv3d_mma_plan(1, 4, 4, 4, 8, 8, 3, 3).args + (3,)
+    with pytest.raises(RuntimeError, match="conv3d_mma_f32 failed"):
+        _build.launch("conv3d_mma_f32", dev, [p] * 5 + [i] * (10 + len(plan)),
                       x.data_ptr(), w.data_ptr(), b.data_ptr(), None,
-                      out.data_ptr(), 1, 4, 4, 4, 8, 8, 3, 0, 1, 1)
+                      out.data_ptr(), 1, 4, 4, 4, 8, 8, 3, 0, 1, 1, *plan)
+    plan = conv3d.conv3d_mma_plan(1, 4, 4, 4, 8, 8, 3).args
+    with pytest.raises(RuntimeError, match="conv3d_mma failed"):
+        _build.launch("conv3d_mma", dev, [p] * 5 + [i] * (10 + len(plan)),
+                      x.data_ptr(), w.data_ptr(), b.data_ptr(), None,
+                      out.data_ptr(), 1, 4, 4, 4, 8, 8, 3, 0, 0, 0, *plan)
+    w8 = _randn(dev, 8, 64, scale=0.3, seed=4).to(BF16)
+    b8 = _randn(dev, 64, scale=0.1, seed=5)
+    _build.reset_launches()
+    updown.upsample3d_2x(x, w8, b8)
+    assert {k: v for k, v in _build.LAUNCHES.items() if v} == {
+        "upsample3d_2x_mma": 1}
+    up = torch.empty(1, 8, 8, 8, 8, dtype=BF16, device=dev)
+    with pytest.raises(RuntimeError, match="upsample3d_2x failed"):
+        _build.launch("upsample3d_2x", dev, [p] * 5 + [i] * 7, x.data_ptr(),
+                      w8.data_ptr(), b8.data_ptr(), None, up.data_ptr(), 1, 4,
+                      4, 4, 8, 8, 1)
 
 
 def test_kernels_refuse_mixed_types(dev):
@@ -481,8 +589,16 @@ def test_conv3d_same(dev, dt, side, residual):
 @pytest.mark.parametrize("with_skip", [False, True])
 @pytest.mark.parametrize("shape, cout", [((2, 3, 2, 5, 64), 32),
                                          ((1, 2, 2, 2, 128), 17),
-                                         ((2, 32, 32, 32, 64), 32)])
+                                         ((2, 32, 32, 32, 64), 32),
+                                         ((8, 2, 2, 2, 128), 128),
+                                         ((8, 16, 16, 16, 128), 64),
+                                         ((1, 3, 5, 7, 24), 12),
+                                         ((3, 1, 1, 1, 40), 100)])
 def test_upsample3d_2x_bf16(dev, shape, cout, with_skip):
+    """K3's tensor-core body (upsample3d_2x_mma.cu): flagship levels, a
+    ragged M tile, Cin not a multiple of 16 (24, 40), Cout whose runs are
+    not 16-byte vectors (12, 17, 100: the element epilogue), with and
+    without the skip."""
     from lt_tpu_torch.ops.kernels import updown
 
     b, sx, sy, sz, cin = shape
@@ -491,6 +607,26 @@ def test_upsample3d_2x_bf16(dev, shape, cout, with_skip):
     b8 = _randn(dev, 8 * cout, scale=0.1, seed=2)
     skip = (_randn(dev, b, 2 * sx, 2 * sy, 2 * sz, cout, seed=3).to(BF16)
             if with_skip else None)
+    _close(updown.upsample3d_2x(x, w8, b8, skip),
+           updown.upsample3d_2x_plain(x, w8, b8, skip), REL_BF16)
+
+
+def test_upsample3d_2x_bf16_element_paths(dev):
+    """x, w8 and the skip 2 bytes off a 16-byte boundary: the element-by-
+    element copies and epilogue of upsample3d_2x_mma."""
+    from lt_tpu_torch.ops.kernels import updown
+
+    def off(t):
+        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+        view = buf[1:].view(t.shape)
+        view.copy_(t)
+        return view
+
+    x = off(_randn(dev, 2, 3, 4, 5, 64).to(BF16))
+    w8 = off(_randn(dev, 64, 8 * 32, scale=0.125, seed=1).to(BF16))
+    b8 = _randn(dev, 8 * 32, scale=0.1, seed=2)
+    skip = off(_randn(dev, 2, 6, 8, 10, 32, seed=3).to(BF16))
+    assert x.data_ptr() % 16 and x.is_contiguous()
     _close(updown.upsample3d_2x(x, w8, b8, skip),
            updown.upsample3d_2x_plain(x, w8, b8, skip), REL_BF16)
 
@@ -686,9 +822,10 @@ def test_v2v_conv_path_matches_fused_path(dev, dt):
         _build.reset_launches()
         got = conv(x)
     assert got.dtype == dt
-    assert {k for k, v in _build.LAUNCHES.items() if v} == {
-        "conv3d_fused" if dt == torch.float32 else "conv3d_mma",
-        "upsample3d_2x", "max_pool3d_2x"}
+    assert {k for k, v in _build.LAUNCHES.items() if v} == (
+        {"conv3d_mma_f32", "split_bf16", "upsample3d_2x", "max_pool3d_2x"}
+        if dt == torch.float32 else
+        {"conv3d_mma", "upsample3d_2x_mma", "max_pool3d_2x"})
     assert torch.equal(got, ref)
 
 
