@@ -9,7 +9,9 @@ version.  K2 runs on the tensor cores in two instances of one body:
 (k = 7) bfloat16 products; K3 has ``upsample3d_2x`` (CUDA cores) for float32 and
 ``upsample3d_2x_mma`` (tensor cores) for bfloat16.  Every bfloat16 path
 must launch only the bfloat16 bodies, every float32 path only the float32
-ones.  Then it drives
+ones.  K1's replay line also times its other launch plans (feature windows
+staged in shared memory or not; an 8 x 8 x 8 brick), each held to the
+plain version as well.  Then it drives
 the port's paths at the flagship width (ResNet-152, 384^2 images, 4 views,
 64^3 volume, softmax aggregation, 17 joints, seeded random weights): the
 eval forward through K1-K4 (requests at batch 8) in float32 and in the
@@ -34,6 +36,7 @@ are the kernels JSON, the ``nvidia-smi`` name / power-limit line and
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import math
 import re
@@ -129,7 +132,7 @@ def split_products(k: int) -> int:
 # The C argument that carries a launch's activation type (default: the
 # last one); split_bf16 takes float32 only.
 DTYPE_ARG = {"conv3d_mma": 13, "conv3d_mma_f32": 13, "upsample3d_2x": 11,
-             "upsample3d_2x_mma": 11, "split_bf16": None}
+             "upsample3d_2x_mma": 11, "unproject_agg": 14, "split_bf16": None}
 
 # The TPU kernels (pallas_call sites) each CUDA kernel replaces.
 _K2_SITES = ("lt_tpu/ops/pallas/conv_mp.py:237, :442, "
@@ -256,6 +259,9 @@ class Case:
         self.nbytes, self.flops = nbytes, flops
         self.f32_flops = flops if f32_flops is None else f32_flops
         self.emulation = None
+        # Other launch plans of the same kernel, timed beside it: label ->
+        # function computing the same values.
+        self.variants = {}
 
 
 def make_case(name, args, geometry, dev, gen):
@@ -349,7 +355,7 @@ def make_case(name, args, geometry, dev, gen):
             lambda: F.max_pool3d(x.permute(0, 4, 1, 2, 3), 2),
             f * x.numel() * 9 / 8, 7.0 * x.numel() / 8)
     if name == "unproject_agg":
-        _, _, _, conf_ptr, _, b, v, h, w, c, s, method, _, _, _ = args
+        _, _, _, conf_ptr, _, b, v, h, w, c, s, method = args[:12]
         names = {0: "softmax", 1: "sum", 2: "max", 3: "conf"}
         feats = randn(b, v, h, w, c)
         m = geometry(b)
@@ -357,15 +363,37 @@ def make_case(name, args, geometry, dev, gen):
         conf = (randn(b, v, c, dtype=torch.float32).abs() if conf_ptr
                 else None)
         n = b * s ** 3
+
+        def run(plan=None):
+            return unproject.unproject_agg(feats, m, mask, conf,
+                                           names[method], s, plan)
+
         # Ops counted as if every voxel's 4 taps were in the map for every
         # view (the most the data could need); the bytes bound is larger.
-        return Case(
-            lambda: unproject.unproject_agg(feats, m, mask, conf,
-                                            names[method], s),
+        case = Case(
+            run,
             lambda: unproject.unproject_agg_plain(feats, m, mask, conf,
                                                   names[method], s),
             None, f * (feats.numel() + n * c) + 4 * (m.numel() + mask.numel()),
             n * v * (30.0 + 8.0 * c + 4.0 * c))
+        # The same kernel with and without staged windows (the default
+        # plan's choice for this type is the line's own time), and on an
+        # 8 x 8 x 8 brick with windows.
+        budget = unproject.AGG_WINDOW[256]
+        other = 0 if unproject.unproject_plan(c, s, f).window else budget
+        for label, plan in (
+                ("windows" if other else "no windows",
+                 unproject.unproject_plan(c, s, f, window=other)),
+                ("brick 8x8x8, windows",
+                 unproject.unproject_plan(c, s, f, (8, 8, 8),
+                                          unproject.AGG_WINDOW[512]))):
+            case.variants[label] = functools.partial(run, plan)
+        px = unproject.brick_windows(m, s, h, w)[1]
+        log(f"  unproject_agg windows at this geometry (4x8x8 bricks, plain "
+            f"PyTorch): pixels p50 {px.double().median().item():.0f} max "
+            f"{px.max().item()}, {int((px > budget).sum())} of {px.numel()}"
+            f" (brick, view) pairs over the {budget}-pixel budget")
+        return case
     raise KeyError(name)
 
 
@@ -469,9 +497,13 @@ def replay(calls, geometry, dev):
         tol = (0.0 if name == "split_bf16" else      # bit for bit
                REL_TOL if _dtype_of(name, args) == torch.float32
                else REL_TOL_BF16)
-        got = case.run()
-        err, rel = check(f"{name}{_shape_str(name, args)}", got,
-                         case.plain(), tol)
+        got, ref = case.run(), case.plain()
+        err, rel = check(f"{name}{_shape_str(name, args)}", got, ref, tol)
+        variants = ""
+        for label, fn in case.variants.items():
+            rel_v = check(f"{name} {label}", fn(), ref, tol)[1]
+            variants += f"  [{label}: {cuda_ms(fn):.4f} ms, rel {rel_v:.3e}]"
+        del ref
         emu = ""
         if case.emulation is not None:
             emu = (f"  (rel {rel_err(got, case.emulation())[1]:.3e} from its "
@@ -499,7 +531,7 @@ def replay(calls, geometry, dev):
             f"max_abs_err {err:.3e} rel {rel:.3e}  kernel {ms:.4f} ms  plain "
             f"{plain_ms:.4f} ms  library "
             f"{'n/a' if lib_ms is None else f'{lib_ms:.4f} ms'}  bound "
-            f"{b_ms:.4f} ms{tc}{emu}")
+            f"{b_ms:.4f} ms{tc}{emu}{variants}")
         for table, k in ((per_kernel, name), (per_entry, entry)):
             _acc(table, k, mult, err, rel, ms, plain_ms, lib_ms, case,
                  PEAK_OF.get(name, PEAK_F32_FLOPS))
@@ -528,6 +560,16 @@ def _shape_str(name, args):
         return (f"({','.join(map(str, ints[:7]))}) plan nt={nt} kp={kp} "
                 f"steps_per_block={per} n_split={nsplit} smem={smem} B "
                 f"grid={grid}")
+    if name == "upsample3d_2x":
+        kp, per, nsplit, smem, grid = ints[7:]
+        return (f"({','.join(map(str, ints[:7]))}) plan kp={kp} "
+                f"steps_per_block={per} n_split={nsplit} smem={smem} B "
+                f"grid={grid}")
+    if name == "unproject_agg":
+        bx, by, bz, window, smem, grid, chunks = ints[10:]
+        return (f"({','.join(map(str, ints[:7]))}) plan brick={bx}x{by}x{bz}"
+                f" window={window} px smem={smem} B grid={grid}x{ints[0]}x"
+                f"{chunks}")
     return "(" + ",".join(f"{a:g}" if isinstance(a, float) else str(a)
                           for a in ints) + ")"
 

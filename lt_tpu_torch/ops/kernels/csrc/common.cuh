@@ -39,9 +39,10 @@ struct LtkTaps {
   int off[4];
   float wt[4];
   unsigned in;
+  int x, y;  // pixel of tap 0 (x0, y0), where a tap is in the map
 };
 
-// Project voxel n = (gx * S + gy) * S + gz through the composed 3x4 matrix
+// Project voxel (gx, gy, gz) through the composed 3x4 matrix
 // mm (grid index -> homogeneous heatmap pixel) and pick its bilinear taps:
 // x = u/w * sx, y = v/w * sy (sx = (W-1)/W, sy = (H-1)/H), align_corners=True,
 // zero padding, no tap where w <= 0.  K1 (unproject_agg), K5 / K6
@@ -50,17 +51,18 @@ struct LtkTaps {
 // recomputes exactly the taps that its forward took, also at pixel edges.
 // Taps are tested in float coordinates: a far-off projection never reaches
 // an integer conversion that could overflow.
+// K1 computes (gx, gy, gz) from its block and thread indices and calls
+// this overload; the others come through the voxel-index one below.
 __device__ __forceinline__ LtkTaps ltk_voxel_taps(const float* __restrict__ mm,
-                                                  int64_t n, int S, int H,
-                                                  int W, float sx, float sy) {
-  const float gz = static_cast<float>(n % S);
-  const float gy = static_cast<float>((n / S) % S);
-  const float gx = static_cast<float>(n / (static_cast<int64_t>(S) * S));
+                                                  float gx, float gy,
+                                                  float gz, int H, int W,
+                                                  float sx, float sy) {
   const float u = mm[0] * gx + mm[1] * gy + mm[2] * gz + mm[3];
   const float q = mm[4] * gx + mm[5] * gy + mm[6] * gz + mm[7];
   const float w = mm[8] * gx + mm[9] * gy + mm[10] * gz + mm[11];
   LtkTaps t;
   t.in = 0u;
+  t.x = t.y = 0;
   if (!(w > 0.f)) {
     for (int k = 0; k < 4; ++k) {
       t.off[k] = 0;
@@ -88,7 +90,26 @@ __device__ __forceinline__ LtkTaps ltk_voxel_taps(const float* __restrict__ mm,
   t.wt[3] = wx * wy;
   t.in = (yin0 && xin0 ? 1u : 0u) | (yin0 && xin1 ? 2u : 0u) |
          (yin1 && xin0 ? 4u : 0u) | (yin1 && xin1 ? 8u : 0u);
+  t.x = xi;
+  t.y = yi;
   return t;
+}
+
+// The taps of voxel n = (gx * S + gy) * S + gz.
+__device__ __forceinline__ LtkTaps ltk_voxel_taps(const float* __restrict__ mm,
+                                                  int64_t n, int S, int H,
+                                                  int W, float sx, float sy) {
+  const float gz = static_cast<float>(n % S);
+  const float gy = static_cast<float>((n / S) % S);
+  const float gx = static_cast<float>(n / (static_cast<int64_t>(S) * S));
+  return ltk_voxel_taps(mm, gx, gy, gz, H, W, sx, sy);
+}
+
+// One tap's term of a bilinear sample, val + wt * f rounded once (an
+// explicit FMA): K1 sums its staged taps with it in the order ltk_bilinear
+// does, so a view that K1 samples alone gives K5's sample bit for bit.
+__device__ __forceinline__ float ltk_tap(float val, float wt, float f) {
+  return __fmaf_rn(wt, f, val);
 }
 
 // The bilinear sample of one channel: fc points at channel c of pixel 0 of
@@ -100,6 +121,65 @@ __device__ __forceinline__ float ltk_bilinear(const LtkTaps& t,
   float val = 0.f;
   for (int k = 0; k < 4; ++k)
     if (t.in & (1u << k))
-      val += t.wt[k] * ltk_ld(fc + static_cast<int64_t>(t.off[k]) * C);
+      val = ltk_tap(val, t.wt[k],
+                    ltk_ld(fc + static_cast<int64_t>(t.off[k]) * C));
   return val;
 }
+
+// Asynchronous copies into shared memory and the launch helpers of the
+// kernels that stage tiles there (K1, K2 and K3).
+namespace ltk_async {
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared; with valid == false the 16 bytes are zeroed
+// (source size 0), which gives padding and ragged edges for free.
+__device__ __forceinline__ void cp_async16(unsigned dst, const void* src,
+                                           bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+// 4 bytes global -> shared (zeroed where valid == false): a tile stored
+// transposed, element by element.
+__device__ __forceinline__ void cp_async4(unsigned dst, const void* src,
+                                          bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+               "l"(src), "r"(valid ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+inline bool aligned16(const void* q) {
+  return reinterpret_cast<uintptr_t>(q) % 16 == 0;
+}
+
+// Allow a kernel the largest dynamic shared memory a plan may ask for
+// (above 48 KB it must be allowed first), once per device: `allowed` is a
+// static of the caller's launch function, one per kernel instance.
+// Returns a cudaError_t as int.
+template <typename Kernel>
+int allow_smem(Kernel kernel, int bytes, bool (&allowed)[64]) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess && (dev >= 64 || !allowed[dev])) {
+    e = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             bytes);
+    if (e == cudaSuccess && dev < 64) allowed[dev] = true;
+  }
+  return static_cast<int>(e);
+}
+
+}  // namespace ltk_async

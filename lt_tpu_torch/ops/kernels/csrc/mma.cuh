@@ -1,41 +1,22 @@
 // Tensor-core building blocks shared by the kernels that run on Hopper's
 // tensor cores with warp-level mma.sync (conv3d_mma.cuh, the K2 bodies of
 // conv3d_mma.cu and conv3d_mma_f32.cu; upsample3d_2x_mma.cu, K3 in
-// bfloat16): 16-byte cp.async copies into shared memory, ldmatrix fragment
-// loads, the m16n8k16 bfloat16 MMA with float32 accumulators, and the
-// shared-memory row pitch that keeps ldmatrix free of bank conflicts.
+// bfloat16): ldmatrix fragment loads, the m16n8k16 bfloat16 MMA with
+// float32 accumulators, and the shared-memory row pitch that keeps
+// ldmatrix free of bank conflicts.  The cp.async copies and the dynamic
+// shared-memory helpers are common.cuh's (ltk_async).
 #pragma once
 
 #include "common.cuh"
 
 namespace ltk_mma {
 
+using namespace ltk_async;
+
 // Row pitch in bytes of `elems` bfloat16 values padded to an odd number of
 // 16-byte units (conflict-free ldmatrix over 8 consecutive rows).
 __host__ __device__ constexpr int odd_pitch(int elems) {
   return ((elems / 8 + 1) % 2 ? elems / 8 + 1 : elems / 8 + 2) * 16;
-}
-
-__device__ __forceinline__ unsigned smem_u32(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes global -> shared; with valid == false the 16 bytes are zeroed
-// (source size 0), which gives padding and ragged edges for free.
-__device__ __forceinline__ void cp_async16(unsigned dst, const void* src,
-                                           bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(src), "r"(valid ? 16 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // An m16k16 A fragment: lanes 0-15 give rows 0-15 at k 0-7, lanes 16-31
@@ -75,27 +56,6 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4],
       "{%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-inline bool aligned16(const void* q) {
-  return reinterpret_cast<uintptr_t>(q) % 16 == 0;
-}
-
-// Allow a kernel the largest dynamic shared memory a plan may ask for
-// (above 48 KB it must be allowed first), once per device: `allowed` is a
-// static of the caller's launch function, one per kernel instance.
-// Returns a cudaError_t as int.
-template <typename Kernel>
-int allow_smem(Kernel kernel, int bytes, bool (&allowed)[64]) {
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess && (dev >= 64 || !allowed[dev])) {
-    e = cudaFuncSetAttribute(kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             bytes);
-    if (e == cudaSuccess && dev < 64) allowed[dev] = true;
-  }
-  return static_cast<int>(e);
 }
 
 }  // namespace ltk_mma

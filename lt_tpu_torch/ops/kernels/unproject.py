@@ -3,25 +3,142 @@ training backward.
 
 Port of ``lt_tpu/ops/pallas/unproject.py:360-504, 710-829``
 (``_sample_views_agg_impl``, ``sample_views_agg`` and
-``unproject_heatmaps_affine``).  The CUDA kernel is ``csrc/unproject_agg.cu``;
-:func:`unproject_agg_plain` is its plain PyTorch version.  The backward of
+``unproject_heatmaps_affine``).  The CUDA kernel is ``csrc/unproject_agg.cu``,
+launched with the plan of :func:`unproject_plan`;
+:func:`unproject_agg_plain` is its plain PyTorch version and
+:func:`brick_windows` computes the feature windows it stages.  The backward of
 :func:`sample_views_agg` runs kernels K5 and K6 (``sample.py``).
 """
 
 from __future__ import annotations
 
-from typing import Optional
+import functools
+import math
+from typing import NamedTuple, Optional
 
 import torch
 
 from lt_tpu_torch.ops.kernels import _build
-from lt_tpu_torch.ops.kernels.sample import (sample_views_affine_t,
+from lt_tpu_torch.ops.kernels.sample import (_project, sample_views_affine_t,
                                              sample_views_grad_t,
                                              sample_views_t)
 from lt_tpu_torch.ops.volumetric import (aggregate_views, index_grid,
                                         sample_homogeneous)
 
 METHODS = {"softmax": 0, "sum": 1, "max": 2, "conf": 3, "conf_norm": 3}
+
+# csrc/unproject_agg.cu's constants: the channels one block takes (a grid z
+# of ceil(C / AGG_CHUNK)), and the shared memory a block may hold on the
+# H100.
+AGG_CHUNK = 32
+AGG_SMEM_MAX = 232448
+#: The default brick (x, y, z voxels), and the window budget (pixels of one
+#: view's staged feature window) for a brick of 256 or 512 voxels.  At the
+#: flagship geometry a 4 x 8 x 8 brick's taps span at most 288 pixels of a
+#: view (tests/test_torch_unproject_plan.py), so 384 stages every view.
+AGG_BRICK = (4, 8, 8)
+AGG_WINDOW = {256: 384, 512: 512}
+#: Whether the default plan stages the windows, by feature element size.
+#: On an H100 80GB HBM3 at 700 W, at the flagship shapes (PERF.md, kernel
+#: table row 1), staging paid in bfloat16 (0.670-0.676 ms against
+#: 0.705-0.707 from device memory) and not in float32 (0.773-0.777 against
+#: 0.744-0.745), where L1 already catches the taps' reuse.
+AGG_STAGED = {2: True, 4: False}
+
+
+def agg_smem_bytes(voxels: int, window: int, elem: int) -> int:
+    """unproject_agg.cu's ``agg_smem_bytes``: two window buffers of
+    AGG_CHUNK channels a pixel, two tap buffers (32 bytes a voxel) and two
+    slots of the per-warp bounding boxes."""
+    return (2 * window * AGG_CHUNK * elem + 2 * voxels * 32
+            + 2 * (voxels // 32) * 16)
+
+
+class AggPlan(NamedTuple):
+    """One unproject_agg launch: the brick (x, y, z), the window budget
+    (pixels; 0 stages none), dynamic shared memory (bytes), bricks (grid
+    x; grid y is the batch) and channel chunks (grid z)."""
+    bx: int
+    by: int
+    bz: int
+    window: int
+    smem: int
+    grid: int
+    chunks: int
+
+    @property
+    def args(self):
+        return tuple(self)
+
+
+@functools.lru_cache(maxsize=None)
+def unproject_plan(channels: int, grid_size: int, elem: int,
+                   brick=AGG_BRICK, window: Optional[int] = None) -> AggPlan:
+    """The launch plan of unproject_agg for C = ``channels``, an S^3 grid
+    and ``elem``-byte features: one block per brick and chunk of AGG_CHUNK
+    channels; ``window`` pixels of staged window (0: every view's taps
+    from device memory), by default AGG_WINDOW[voxels] where AGG_STAGED
+    says so for ``elem``, else 0."""
+    bx, by, bz = brick
+    voxels = bx * by * bz
+    if voxels not in AGG_WINDOW:
+        raise ValueError(f"unproject_agg: a brick of {voxels} voxels; it "
+                         f"takes {sorted(AGG_WINDOW)}")
+    if window is None:
+        window = AGG_WINDOW[voxels] if AGG_STAGED.get(elem) else 0
+    smem = agg_smem_bytes(voxels, window, elem)
+    if smem > AGG_SMEM_MAX:
+        raise ValueError(f"unproject_agg: a {window}-pixel window does not "
+                         f"fit {AGG_SMEM_MAX} bytes of shared memory")
+    s = grid_size
+    bricks = math.ceil(s / bx) * math.ceil(s / by) * math.ceil(s / bz)
+    return AggPlan(bx, by, bz, window, smem, bricks,
+                   math.ceil(channels / AGG_CHUNK))
+
+
+def brick_windows(m: torch.Tensor, grid_size: int, h: int, w: int,
+                  brick=AGG_BRICK):
+    """K1's staged windows in plain PyTorch: for each sample, view and
+    brick (in the kernel's grid order: z fastest, then y, then x), the
+    pixel bounding box (x0, x1, y0, y1) of the taps of the brick's voxels
+    that lie in the (h, w) map, and its pixel count (0 where no tap does).
+
+    Args:
+      m: (B, V, 3, 4) composed grid-index -> pixel matrices.
+    Returns:
+      boxes (B, V, bricks, 4) and pixels (B, V, bricks), int64.
+    """
+    b, v = m.shape[:2]
+    s = grid_size
+    bx, by, bz = brick
+    nby, nbz = math.ceil(s / by), math.ceil(s / bz)
+    uvw = _project(m.reshape(b * v, 3, 4), s)              # (BV, N, 3)
+    z = uvw[..., 2]
+    z_safe = torch.where(z == 0.0, torch.ones_like(z), z)
+    x0 = torch.floor(uvw[..., 0] / z_safe * ((w - 1) / w))
+    y0 = torch.floor(uvw[..., 1] / z_safe * ((h - 1) / h))
+    g = torch.arange(s, device=m.device)
+    gx, gy, gz = torch.meshgrid(g, g, g, indexing="ij")
+    brick_of = ((gx // bx * nby + gy // by) * nbz + gz // bz).reshape(-1)
+    nb = math.ceil(s / bx) * nby * nbz
+    big = torch.iinfo(torch.int64).max
+    lo = torch.full((b * v, nb, 2), big, dtype=torch.int64, device=m.device)
+    hi = torch.full_like(lo, -big)
+    idx = brick_of[None, :, None].expand(b * v, -1, 2)
+    for dx, dy in ((0, 0), (1, 0), (0, 1), (1, 1)):
+        xk, yk = x0 + dx, y0 + dy
+        inside = (z > 0) & (xk >= 0) & (xk <= w - 1) & (yk >= 0) & (
+            yk <= h - 1)
+        xy = torch.stack([xk.clamp(-1, w), yk.clamp(-1, h)], -1).long()
+        lo.scatter_reduce_(1, idx, torch.where(inside[..., None], xy, big),
+                           "amin")
+        hi.scatter_reduce_(1, idx, torch.where(inside[..., None], xy, -big),
+                           "amax")
+    boxes = torch.stack([lo[..., 0], hi[..., 0], lo[..., 1], hi[..., 1]], -1)
+    empty = boxes[..., 0] > boxes[..., 1]
+    pixels = torch.where(empty, 0, (boxes[..., 1] - boxes[..., 0] + 1)
+                         * (boxes[..., 3] - boxes[..., 2] + 1))
+    return boxes.reshape(b, v, nb, 4), pixels.reshape(b, v, nb)
 
 
 def compose_grid_projection(proj_matrices: torch.Tensor,
@@ -55,7 +172,8 @@ def unproject_agg_plain(features: torch.Tensor, m: torch.Tensor,
 def unproject_agg(features: torch.Tensor, m: torch.Tensor,
                   view_mask: torch.Tensor,
                   vol_confidences: Optional[torch.Tensor],
-                  method: str, grid_size: int) -> torch.Tensor:
+                  method: str, grid_size: int,
+                  plan: Optional[AggPlan] = None) -> torch.Tensor:
     """K1 on a CUDA tensor, its plain version on a CPU tensor.
 
     Args:
@@ -64,6 +182,8 @@ def unproject_agg(features: torch.Tensor, m: torch.Tensor,
       m: (B, V, 3, 4) float32 composed grid-index -> pixel matrices.
       view_mask: (B, V); views with mask <= 0 are left out.
       vol_confidences: (B, V, C) for 'conf' / 'conf_norm', else None.
+      plan: the launch plan; default :func:`unproject_plan`'s for these
+        shapes (another brick or window budget computes the same values).
     Returns:
       (B, S^3, C) with voxel n = (gx * S + gy) * S + gz.
     """
@@ -93,12 +213,14 @@ def unproject_agg(features: torch.Tensor, m: torch.Tensor,
         conf_ptr = vol_confidences.data_ptr()
     out = torch.empty((b, grid_size ** 3, c), dtype=features.dtype,
                       device=features.device)
+    plan = (plan or unproject_plan(c, grid_size,
+                                   features.element_size())).args
     p, i, f = _build.ptr, _build.i32, _build.f32
     _build.launch("unproject_agg", features.device,
-        [p, p, p, p, p, i, i, i, i, i, i, i, f, f, i],
+        [p, p, p, p, p, i, i, i, i, i, i, i, f, f, i] + [i] * len(plan),
         features.data_ptr(), m.data_ptr(), view_mask.data_ptr(), conf_ptr,
         out.data_ptr(), b, v, h, w, c, grid_size, METHODS[method],
-        (w - 1) / w, (h - 1) / h, _build.DTYPE_CODES[features.dtype])
+        (w - 1) / w, (h - 1) / h, _build.DTYPE_CODES[features.dtype], *plan)
     return out
 
 

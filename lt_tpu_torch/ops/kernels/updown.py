@@ -1,12 +1,13 @@
 """MaxPool3d(2) (kernel K4) and the fused 2x transposed conv (kernel K3).
 
 Port of ``lt_tpu/ops/pallas/updown.py:98-416``.  CUDA kernels:
-``csrc/max_pool3d_2x.cu``; K3 ``csrc/upsample3d_2x.cu`` (float32, CUDA
-cores) and ``csrc/upsample3d_2x_mma.cu`` (bfloat16, tensor cores, launched
-with the plan of :func:`upsample_mma_plan`); the ``*_plain`` functions are
-their plain versions.  NDHWC layout.  Volumes (and K3's packed weights and
-skip) are float32 or bfloat16, one type per call; K3's bias is float32, its
-sum, ReLU and skip add float32, rounded once.
+``csrc/max_pool3d_2x.cu``; K3 ``csrc/upsample3d_2x.cu`` (float32, a
+register-tiled GEMM on the CUDA cores, launched with the plan of
+:func:`upsample_f32_plan`) and ``csrc/upsample3d_2x_mma.cu`` (bfloat16,
+tensor cores, the plan of :func:`upsample_mma_plan`); the ``*_plain``
+functions are their plain versions.  NDHWC layout.  Volumes (and K3's
+packed weights and skip) are float32 or bfloat16, one type per call; K3's
+bias is float32, its sum, ReLU and skip add float32, rounded once.
 """
 
 from __future__ import annotations
@@ -111,12 +112,63 @@ def upsample_mma_plan(b: int, sx: int, sy: int, sz: int, cin: int,
     if smem > UP_SMEM_MAX:
         raise ValueError(f"upsample3d_2x_mma: Cin={cin} does not fit "
                          f"{UP_SMEM_MAX} bytes of shared memory")
-    steps = 4 * math.ceil(2 * cout / nt)
     mtiles = math.ceil(b * sx * sy * sz / UP_MMA_VOXELS)
+    per, nsplit = _split_steps(4 * math.ceil(2 * cout / nt), mtiles)
+    return UpPlan(nt, kp, per, nsplit, smem, mtiles * nsplit)
+
+
+def _split_steps(steps: int, mtiles: int):
+    """(steps per block, blocks per M tile): the steps (pairs x N tiles)
+    split across blocks where the M tiles number fewer than
+    UP_TARGET_BLOCKS, each block taking ``per`` consecutive steps."""
     want = min(steps, max(1, math.ceil(UP_TARGET_BLOCKS / mtiles)))
     per = math.ceil(steps / want)
-    nsplit = math.ceil(steps / per)
-    return UpPlan(nt, kp, per, nsplit, smem, mtiles * nsplit)
+    return per, math.ceil(steps / per)
+
+
+# upsample3d_2x.cu's (float32) launch constants: input voxels per block,
+# columns per N tile, and the padded row of the transposed A tile.
+UP_F32_VOXELS = 128
+UP_F32_NT = 64
+UP_F32_APITCH = UP_F32_VOXELS + 4
+
+
+def up_f32_smem_bytes(kp: int) -> int:
+    """upsample3d_2x.cu's ``up_f32_smem_bytes``: the transposed A tile, the
+    two-slot B ring and the row offsets."""
+    return (kp * UP_F32_APITCH * 4 + 2 * kp * UP_F32_NT * 4
+            + UP_F32_VOXELS * 8)
+
+
+class UpF32Plan(NamedTuple):
+    """One float32 upsample3d_2x launch: Cin padded to 8, steps (N tiles)
+    per block, blocks per M tile, dynamic shared memory (bytes), blocks."""
+    kp: int
+    per: int
+    nsplit: int
+    smem: int
+    grid: int
+
+    @property
+    def args(self):
+        return tuple(self)
+
+
+@functools.lru_cache(maxsize=None)
+def upsample_f32_plan(b: int, sx: int, sy: int, sz: int, cin: int,
+                      cout: int) -> UpF32Plan:
+    """The launch plan of the float32 upsample3d_2x: M tiles of
+    UP_F32_VOXELS input voxels, N tiles of UP_F32_NT columns of one (dx,
+    dy) pair, Cin whole in shared memory; steps split across blocks as in
+    :func:`upsample_mma_plan`."""
+    kp = math.ceil(cin / 8) * 8
+    smem = up_f32_smem_bytes(kp)
+    if smem > UP_SMEM_MAX:
+        raise ValueError(f"upsample3d_2x: Cin={cin} does not fit "
+                         f"{UP_SMEM_MAX} bytes of shared memory")
+    mtiles = math.ceil(b * sx * sy * sz / UP_F32_VOXELS)
+    per, nsplit = _split_steps(4 * math.ceil(2 * cout / UP_F32_NT), mtiles)
+    return UpF32Plan(kp, per, nsplit, smem, mtiles * nsplit)
 
 
 def upsample3d_2x(x: torch.Tensor, w8: torch.Tensor, bias: torch.Tensor,
@@ -155,12 +207,11 @@ def upsample3d_2x(x: torch.Tensor, w8: torch.Tensor, bias: torch.Tensor,
     args = (x.data_ptr(), w8.data_ptr(), bias.data_ptr(),
             None if skip is None else skip.data_ptr(), out.data_ptr(),
             b, sx, sy, sz, cin, cout, _build.DTYPE_CODES[x.dtype])
-    if x.dtype == torch.bfloat16:
-        plan = upsample_mma_plan(b, sx, sy, sz, cin, cout).args
-        _build.launch("upsample3d_2x_mma", x.device,
-                      [p] * 5 + [i] * (7 + len(plan)), *args, *plan)
-    else:
-        _build.launch("upsample3d_2x", x.device, [p] * 5 + [i] * 7, *args)
+    bf16 = x.dtype == torch.bfloat16
+    plan = (upsample_mma_plan if bf16 else upsample_f32_plan)(
+        b, sx, sy, sz, cin, cout).args
+    _build.launch("upsample3d_2x_mma" if bf16 else "upsample3d_2x", x.device,
+                  [p] * 5 + [i] * (7 + len(plan)), *args, *plan)
     return out
 
 

@@ -6,8 +6,9 @@
 Times warm requests of the volumetric forward (RN-152, 384^2, 4 views,
 64^3, f32 with TF32 off or, with ``--bf16``, the bfloat16 eval
 configuration; seeded random weights) split by stage with CUDA events on
-module hooks (backbone, coord volumes, process_features, unprojection,
-V2V, soft-argmax; the median of three requests after two warm-up ones),
+module hooks (backbone, coord volumes, process_features, unprojection and
+within it K1's launch, V2V, soft-argmax; the median of three requests after
+two warm-up ones), each beside the host clock's time between the same marks,
 then traces one more request with ``torch.profiler`` and prints the
 device's busy share of the window and the kernels that take the most
 device time.  ``--train`` does the same for training steps of
@@ -27,6 +28,7 @@ import torch
 from lt_tpu_torch import resolve_device
 from lt_tpu_torch.engine import factory, steps
 from lt_tpu_torch.models.triangulation import VolumetricTriangulationNet
+from lt_tpu_torch.ops.kernels import _build
 from lt_tpu_torch.utils import cfg
 from lt_tpu_torch.utils.example import example_batch, example_train_batch
 
@@ -86,41 +88,59 @@ def main(argv=None) -> None:
     stages = [("backbone", model.backbone),
               ("process_features", model.process_features),
               ("v2v", model.volume_net)]
-    events = {}
+    events, host = {}, {}
 
     def mark(key):
         def hook(*_):
             ev = torch.cuda.Event(enable_timing=True)
             ev.record()
             events[key] = ev
+            host[key] = time.perf_counter()
         return hook
 
     def span(a, b):
         return events[a].elapsed_time(events[b])
 
+    # K1's launch, marked inside the unprojection stage (the wrapper's
+    # checks and plan, then the kernel): the rest of the stage is the
+    # features' layout, the matrices and the view mask.
+    launch = _build.launch
+
+    def marked_launch(kernel, *a):
+        if kernel == "unproject_agg":
+            mark("k1:start")()
+        launch(kernel, *a)
+        if kernel == "unproject_agg":
+            mark("k1:end")()
+
     def timed_run():
-        """One run between events; its split by stage, total and wall ms."""
+        """One run between events; its split by stage (device ms, and the
+        host's ms between the same marks), total and wall ms."""
         mark("run:start")()
         t0 = time.perf_counter()
         run()
         mark("run:end")()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
-        split = {
-            "input layout": span("run:start", "backbone:start"),
-            "backbone": span("backbone:start", "backbone:end"),
-            "coord volumes": span("backbone:end", "process_features:start"),
-            "process_features": span("process_features:start",
-                                     "process_features:end"),
-            "unprojection (K1)": span("process_features:end", "v2v:start"),
-            "v2v": span("v2v:start", "v2v:end"),
+        bounds = {
+            "input layout": ("run:start", "backbone:start"),
+            "backbone": ("backbone:start", "backbone:end"),
+            "coord volumes": ("backbone:end", "process_features:start"),
+            "process_features": ("process_features:start",
+                                 "process_features:end"),
+            "unprojection": ("process_features:end", "v2v:start"),
+            "  of it: layout, m, mask": ("process_features:end", "k1:start"),
+            "  of it: K1": ("k1:start", "k1:end"),
+            "v2v": ("v2v:start", "v2v:end"),
         }
-        if args.train:
-            split["soft-argmax + losses"] = span("v2v:end", "loss:end")
-            split["backward (K5, K6 in it)"] = span("loss:end", "backward:end")
-            split["Adam step"] = span("backward:end", "run:end")
-        else:
-            split["soft-argmax"] = span("v2v:end", "run:end")
+        split = {k: (span(a, b), (host[b] - host[a]) * 1e3)
+                 for k, (a, b) in bounds.items()}
+        tail = ([("soft-argmax + losses", "v2v:end", "loss:end"),
+                 ("backward (K5, K6 in it)", "loss:end", "backward:end"),
+                 ("Adam step", "backward:end", "run:end")] if args.train
+                else [("soft-argmax", "v2v:end", "run:end")])
+        for k, a, b in tail:
+            split[k] = (span(a, b), (host[b] - host[a]) * 1e3)
         return split, span("run:start", "run:end"), wall
 
     # Warm-up (cuDNN's plans, V2V's packing, kernels loaded at first
@@ -133,7 +153,12 @@ def main(argv=None) -> None:
         handles.append(mod.register_forward_hook(mark(f"{name}:end")))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    runs = sorted((timed_run() for _ in range(TIMED)), key=lambda r: r[1])
+    _build.launch = marked_launch
+    try:
+        runs = sorted((timed_run() for _ in range(TIMED)),
+                      key=lambda r: r[1])
+    finally:
+        _build.launch = launch
     split, total, wall = runs[len(runs) // 2]
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     for h in handles:
@@ -145,8 +170,10 @@ def main(argv=None) -> None:
           f"device events (median of {TIMED}: "
           f"{[round(r[1], 1) for r in runs]}), {wall:.1f} ms on the host "
           f"clock; peak memory {peak:.2f} GiB")
-    for name, ms in split.items():
-        print(f"  {name:36s} {ms:9.2f} ms  {100 * ms / total:5.1f}%")
+    print(f"  {'stage':36s} {'device':>9s}     {'share':>5s}  {'host':>9s}")
+    for name, (ms, host_ms) in split.items():
+        print(f"  {name:36s} {ms:9.2f} ms  {100 * ms / total:5.1f}%  "
+              f"{host_ms:9.2f} ms")
 
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile

@@ -548,10 +548,11 @@ def test_bf16_conv_launches_only_the_tensor_core_body(dev):
     assert {k: v for k, v in _build.LAUNCHES.items() if v} == {
         "upsample3d_2x_mma": 1}
     up = torch.empty(1, 8, 8, 8, 8, dtype=BF16, device=dev)
+    plan = updown.upsample_f32_plan(1, 4, 4, 4, 8, 8).args
     with pytest.raises(RuntimeError, match="upsample3d_2x failed"):
-        _build.launch("upsample3d_2x", dev, [p] * 5 + [i] * 7, x.data_ptr(),
-                      w8.data_ptr(), b8.data_ptr(), None, up.data_ptr(), 1, 4,
-                      4, 4, 8, 8, 1)
+        _build.launch("upsample3d_2x", dev, [p] * 5 + [i] * (7 + len(plan)),
+                      x.data_ptr(), w8.data_ptr(), b8.data_ptr(), None,
+                      up.data_ptr(), 1, 4, 4, 4, 8, 8, 1, *plan)
 
 
 def test_kernels_refuse_mixed_types(dev):
@@ -841,3 +842,210 @@ def test_v2v_bf16_kernel_path_near_float32(dev):
         ref, got = f32(x), b16(x)
     assert got.dtype == BF16
     _close(got.float(), ref, rel=5e-2)
+
+
+# ---------------------------------------------------------------------------
+# K1's bricks and staged windows; the float32 K3's register-tiled GEMM
+# ---------------------------------------------------------------------------
+
+
+def _flagship_k1_inputs(dev, batch=2):
+    """Features (batch, 4, 96, 96, 32) and the flagship's composed matrices:
+    the example rig, a 2500 mm cuboid around the pelvis, a 64^3 grid."""
+    from lt_tpu_torch.models.triangulation import (rescale_proj_to_heatmap,
+                                                   select_base_points)
+    from lt_tpu_torch.ops import volumetric as vol_ops
+    from lt_tpu_torch.ops.kernels.unproject import compose_grid_projection
+    from lt_tpu_torch.utils.example import example_batch
+
+    _, proj, pelvis = (torch.from_numpy(a).to(dev) for a in
+                       example_batch(batch, 4, 384, 17))
+    aff = vol_ops.coord_volume_affine(
+        select_base_points(pelvis, "mpii"), 2500.0, FLAG)
+    m = compose_grid_projection(
+        rescale_proj_to_heatmap(proj, (384, 384), (96, 96)), aff).contiguous()
+    return _randn(dev, batch, 4, 96, 96, 32, seed=11), m
+
+
+def _edge_k1_inputs(dev):
+    """test_unproject_agg_edge_cases's scene: non-square maps, C = 40,
+    voxels behind the cameras and w == 0 exactly."""
+    b, v, h, w, c = 2, 3, 12, 10, 40
+    feats = _randn(dev, b, v, h, w, c)
+    m = torch.zeros(b, v, 3, 4, device=dev)
+    m[..., 0, :] = torch.tensor([1.2, 0.2, 0.1, 0.3])
+    m[..., 1, :] = torch.tensor([0.1, 1.3, 0.15, 0.2])
+    m[..., 2, :] = torch.tensor([0.02, 0.01, 0.015, 1.0])
+    m += _randn(dev, b, v, 3, 4, scale=0.02, seed=1)
+    m[1, :, 2] = torch.tensor([1.0, 0.0, 0.0, -3.0], device=dev)
+    return feats, m
+
+
+@pytest.mark.parametrize("scene", ["flagship", "edge"])
+def test_unproject_agg_sum_of_one_view_is_k5_bit_for_bit(dev, scene):
+    """K1 'sum' with a one-hot view mask equals K5's sample of that view bit
+    for bit (float32): both take common.cuh's taps and sum them k = 0..3
+    with ltk_tap, so the training backward (K5, K6) recomputes exactly the
+    samples that K1 aggregated."""
+    from lt_tpu_torch.ops.kernels import sample, unproject
+
+    feats, m = (_flagship_k1_inputs(dev) if scene == "flagship"
+                else _edge_k1_inputs(dev))
+    b, v, h, w, c = feats.shape
+    s = FLAG if scene == "flagship" else 8
+    k5 = sample.sample_views_t(feats.reshape(b * v, h, w, c),
+                               m.reshape(b * v, 3, 4), s).reshape(b, v, c, -1)
+    for view in range(v):
+        mask = torch.zeros(b, v, device=dev)
+        mask[:, view] = 1.0
+        got = unproject.unproject_agg(feats, m, mask, None, "sum", s)
+        torch.cuda.synchronize()
+        assert torch.equal(got, k5[:, view].transpose(1, 2)), view
+
+
+def _k1_scene(dev, scene, dt):
+    """(features, m, S) of one of K1's brick and window cases.
+
+    over_budget: 12 pixels a voxel in view 0 (a 4 x 8 x 8 brick spans
+      about 60 x 100 pixels, over the 384-pixel budget: device memory), 1
+      in view 1 (staged), 3 in view 2 (windows at and over the budget);
+      elsewhere 2 (every window staged);
+    straddles_w0: w = gx - 2.5 in sample 1, so that bricks at gx 0..3 hold
+      voxels on both sides of the camera plane;
+    s6, s10: S not a multiple of the brick;
+    c16, c32, c40: channels (c40: a second chunk of 8); c17: the element-
+      by-element path (17 channels are no 16-byte rows);
+    v3: three views."""
+    b, v, s, c, hw = 2, 4, 8, 32, (40, 44)
+    if scene in ("s6", "s10"):
+        s = int(scene[1:])
+    if scene.startswith("c"):
+        c = int(scene[1:])
+    if scene == "v3":
+        v = 3
+    if scene == "over_budget":
+        hw = (200, 180)
+    scale = torch.full((b, v), 2.0, device=dev)
+    if scene == "over_budget":
+        scale[:, 0], scale[:, 1], scale[:, 2] = 12.0, 1.0, 3.0
+    m = torch.zeros(b, v, 3, 4, device=dev)
+    m[..., 0, 0] = scale
+    m[..., 0, 2] = 0.3 * scale
+    m[..., 1, 1] = scale
+    m[..., 1, 2] = 0.2 * scale
+    m[..., 0, 3] = 2.0
+    m[..., 1, 3] = 1.5
+    m[..., 2, :] = torch.tensor([0.002, 0.001, 0.01, 1.0], device=dev)
+    m += _randn(dev, b, v, 3, 4, scale=0.01, seed=7)
+    if scene == "straddles_w0":
+        m[1, :, 2] = torch.tensor([1.0, 0.0, 0.0, -2.5], device=dev)
+    feats = _randn(dev, b, v, *hw, c, seed=8).to(dt)
+    return feats, m, s
+
+
+K1_SCENES = ["over_budget", "straddles_w0", "s6", "s10", "c16", "c32",
+             "c40", "c17", "v3"]
+
+
+@pytest.mark.parametrize("method", ["softmax", "sum", "max", "conf"])
+@pytest.mark.parametrize("dt", [torch.float32, BF16])
+@pytest.mark.parametrize("scene", K1_SCENES)
+def test_unproject_agg_bricks_and_windows(dev, scene, dt, method):
+    """K1 against its plain version where its bricks and windows have edges:
+    views over the window budget, bricks across w = 0, ragged bricks, one
+    or two channel chunks, the element path, three views; one view masked
+    in sample 0."""
+    from lt_tpu_torch.ops.kernels import unproject
+
+    feats, m, s = _k1_scene(dev, scene, dt)
+    b, v, c = feats.shape[0], feats.shape[1], feats.shape[-1]
+    mask = torch.ones(b, v, device=dev)
+    mask[0, 1] = 0.0
+    conf = _randn(dev, b, v, c, seed=9).abs() if method == "conf" else None
+    ref = unproject.unproject_agg_plain(feats, m, mask, conf, method, s)
+    # The default plan, and windows staged (float32 stages none by default).
+    for plan in (None, unproject.unproject_plan(c, s, feats.element_size(),
+                                                window=384)):
+        got = unproject.unproject_agg(feats, m, mask, conf, method, s, plan)
+        assert got.dtype == dt
+        _close(got, ref, REL if dt == torch.float32 else REL_BF16)
+
+
+@pytest.mark.parametrize("dt", [torch.float32, BF16])
+@pytest.mark.parametrize("scene", ["flagship", "over_budget", "s10", "c40"])
+def test_unproject_agg_plans_agree_bit_for_bit(dev, scene, dt):
+    """Every launch plan computes each voxel the same way: the default 4 x 8
+    x 8 brick, an 8 x 8 x 8 brick, windows of 384 pixels or none, and a
+    24-pixel budget (some views staged, some not) give the same bits."""
+    from lt_tpu_torch.ops.kernels import unproject
+
+    if scene == "flagship":
+        feats, m = _flagship_k1_inputs(dev)
+        feats, s = feats.to(dt), FLAG
+    else:
+        feats, m, s = _k1_scene(dev, scene, dt)
+    mask = torch.ones(feats.shape[:2], device=dev)
+    c, f = feats.shape[-1], feats.element_size()
+    ref = unproject.unproject_agg(feats, m, mask, None, "softmax", s)
+    for plan in (unproject.unproject_plan(c, s, f, (8, 8, 8), 512),
+                 unproject.unproject_plan(c, s, f, window=0),
+                 unproject.unproject_plan(c, s, f, window=384),
+                 unproject.unproject_plan(c, s, f, window=24)):
+        got = unproject.unproject_agg(feats, m, mask, None, "softmax", s,
+                                      plan)
+        torch.cuda.synchronize()
+        assert torch.equal(got, ref), plan
+
+
+def _offset(t):
+    """A contiguous copy of ``t`` one element off a 16-byte boundary."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    view = buf[1:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+@pytest.mark.parametrize("with_skip", [False, True])
+@pytest.mark.parametrize("shape, cout", [((8, 2, 2, 2, 128), 128),
+                                         ((8, 4, 4, 4, 128), 128),
+                                         ((8, 8, 8, 8, 128), 128),
+                                         ((8, 16, 16, 16, 128), 64),
+                                         ((8, FLAG // 2, FLAG // 2,
+                                           FLAG // 2, 64), 32),
+                                         ((3, 5, 3, 7, 24), 12),
+                                         ((2, 3, 3, 3, 40), 17),
+                                         ((1, 2, 3, 2, 8), 6)])
+def test_upsample3d_2x_f32(dev, shape, cout, with_skip):
+    """The float32 K3 (upsample3d_2x.cu): the five flagship levels at batch
+    8, a ragged M tile (Cin 24, 315 voxels), Cout 17 (no 16-byte runs or
+    weight rows) and 6 (16-byte weight rows, element epilogue)."""
+    from lt_tpu_torch.ops.kernels import updown
+
+    b, sx, sy, sz, cin = shape
+    x = _randn(dev, *shape)
+    w8 = _randn(dev, cin, 8 * cout, scale=cin ** -0.5, seed=1)
+    b8 = _randn(dev, 8 * cout, scale=0.1, seed=2)
+    skip = (_randn(dev, b, 2 * sx, 2 * sy, 2 * sz, cout, seed=3)
+            if with_skip else None)
+    _close(updown.upsample3d_2x(x, w8, b8, skip),
+           updown.upsample3d_2x_plain(x, w8, b8, skip))
+
+
+@pytest.mark.parametrize("which", ["skip", "x", "w8", "all"])
+def test_upsample3d_2x_f32_misaligned(dev, which):
+    """The float32 K3 with x, w8 and / or the skip 4 bytes off a 16-byte
+    boundary: the 4-byte weight copies and the element epilogue."""
+    from lt_tpu_torch.ops.kernels import updown
+
+    x = _randn(dev, 2, 3, 4, 5, 64)
+    w8 = _randn(dev, 64, 8 * 32, scale=0.125, seed=1)
+    b8 = _randn(dev, 8 * 32, scale=0.1, seed=2)
+    skip = _randn(dev, 2, 6, 8, 10, 32, seed=3)
+    if which in ("x", "all"):
+        x = _offset(x)
+    if which in ("w8", "all"):
+        w8 = _offset(w8)
+    if which in ("skip", "all"):
+        skip = _offset(skip)
+    _close(updown.upsample3d_2x(x, w8, b8, skip),
+           updown.upsample3d_2x_plain(x, w8, b8, skip))
