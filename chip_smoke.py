@@ -9,9 +9,9 @@ version.  K2 runs on the tensor cores in two instances of one body:
 (k = 7) bfloat16 products; K3 has ``upsample3d_2x`` (CUDA cores) for float32 and
 ``upsample3d_2x_mma`` (tensor cores) for bfloat16.  Every bfloat16 path
 must launch only the bfloat16 bodies, every float32 path only the float32
-ones.  K1's replay line also times its other launch plans (feature windows
-staged in shared memory or not; an 8 x 8 x 8 brick), each held to the
-plain version as well.  Then it drives
+ones.  K1's replay line also times its other launch plan (feature windows
+staged in shared memory or not), held to the plain version as well.  Then
+it drives
 the port's paths at the flagship width (ResNet-152, 384^2 images, 4 views,
 64^3 volume, softmax aggregation, 17 joints, seeded random weights): the
 eval forward through K1-K4 (requests at batch 8) in float32 and in the
@@ -377,17 +377,11 @@ def make_case(name, args, geometry, dev, gen):
             None, f * (feats.numel() + n * c) + 4 * (m.numel() + mask.numel()),
             n * v * (30.0 + 8.0 * c + 4.0 * c))
         # The same kernel with and without staged windows (the default
-        # plan's choice for this type is the line's own time), and on an
-        # 8 x 8 x 8 brick with windows.
-        budget = unproject.AGG_WINDOW[256]
+        # plan's choice for this type is the line's own time).
+        budget = unproject.AGG_WINDOW
         other = 0 if unproject.unproject_plan(c, s, f).window else budget
-        for label, plan in (
-                ("windows" if other else "no windows",
-                 unproject.unproject_plan(c, s, f, window=other)),
-                ("brick 8x8x8, windows",
-                 unproject.unproject_plan(c, s, f, (8, 8, 8),
-                                          unproject.AGG_WINDOW[512]))):
-            case.variants[label] = functools.partial(run, plan)
+        case.variants["windows" if other else "no windows"] = (
+            functools.partial(run, unproject.unproject_plan(c, s, f, other)))
         px = unproject.brick_windows(m, s, h, w)[1]
         log(f"  unproject_agg windows at this geometry (4x8x8 bricks, plain "
             f"PyTorch): pixels p50 {px.double().median().item():.0f} max "
@@ -566,10 +560,9 @@ def _shape_str(name, args):
                 f"steps_per_block={per} n_split={nsplit} smem={smem} B "
                 f"grid={grid}")
     if name == "unproject_agg":
-        bx, by, bz, window, smem, grid, chunks = ints[10:]
-        return (f"({','.join(map(str, ints[:7]))}) plan brick={bx}x{by}x{bz}"
-                f" window={window} px smem={smem} B grid={grid}x{ints[0]}x"
-                f"{chunks}")
+        window, smem, grid, chunks = ints[10:]
+        return (f"({','.join(map(str, ints[:7]))}) plan window={window} px "
+                f"smem={smem} B grid={grid}x{ints[0]}x{chunks}")
     return "(" + ",".join(f"{a:g}" if isinstance(a, float) else str(a)
                           for a in ints) + ")"
 

@@ -64,6 +64,16 @@ def rescale_proj_to_heatmap(proj_matrices: torch.Tensor, image_shape,
     return proj_matrices * scale[:, None]
 
 
+class KernelUnprojection(nn.Module):
+    """The kernel path's unprojection step, :func:`unproject_heatmaps_affine`
+    (K1, or in training K5 per view where K1 has no backward), as a module
+    without state so that forward hooks can mark it
+    (``lt_tpu_torch.profile_stages``)."""
+
+    def forward(self, *args, **kwargs):
+        return unproject_heatmaps_affine(*args, **kwargs)
+
+
 class VolumetricTriangulationNet(nn.Module):
     """Backbone features -> unprojection -> V2V -> volumetric soft-argmax.
 
@@ -108,6 +118,7 @@ class VolumetricTriangulationNet(nn.Module):
             compute_dtype=compute_dtype)
         self.process_features = nn.Sequential(nn.Conv2d(256, 32, 1))
         init_weights(self.process_features, seed + 1)
+        self.unproject = KernelUnprojection()
         self.volume_net = V2VModel(32, num_joints, use_kernels=use_kernels,
                                    remat=remat, device=dev, seed=seed + 2,
                                    compute_dtype=compute_dtype)
@@ -184,7 +195,7 @@ class VolumetricTriangulationNet(nn.Module):
             fuse = not self.training or (
                 self.volume_aggregation_method in ("softmax", "sum")
                 and vol_conf is None)
-            volumes = unproject_heatmaps_affine(
+            volumes = self.unproject(
                 features, proj_hm, vol_ops.coord_volume_affine(*cv_args),
                 self.volume_size,
                 volume_aggregation_method=self.volume_aggregation_method,

@@ -23,10 +23,9 @@
 // GB a float32 forward if every tap row comes from L2, and each voxel's
 // projection (12 FMAs, two divisions, floors and tests) for each view.
 //
-// Design: one block per brick of voxels of one sample (4 x 8 x 8 by
-// default; the plan may pick 8 x 8 x 8) and one chunk of 32 channels (the
-// grid is (bricks, B, chunks); voxel coordinates come from the block and
-// thread indices in 32-bit arithmetic).  Per view:
+// Design: one block per 4 x 8 x 8 brick of voxels of one sample and one
+// chunk of 32 channels (the grid is (bricks, B, chunks); voxel coordinates
+// come from the block and thread indices in 32-bit arithmetic).  Per view:
 //   - each thread projects one voxel once (common.cuh's ltk_voxel_taps,
 //     the function K5-K8 use, on float coordinates) and keeps its taps'
 //     offsets and weights in shared memory;
@@ -40,14 +39,15 @@
 //     memory at the same offsets' global counterparts.
 // Threads then take (voxel, group of 4 float32 / 8 bfloat16 channels)
 // items: 16-byte reads of each tap, summed k = 0..3 with common.cuh's
-// ltk_tap as ltk_bilinear sums them (a tap off the map, which ltk_bilinear
-// skips, adds 0 * f here: for finite features a view that K1 samples alone
-// equals K5's sample bit for bit), and the aggregation state (online
+// ltk_tap as ltk_bilinear sums them (a tap off the map reads pixel 0 of the
+// window or map and its term is dropped by a select, not a branch: a view
+// that K1 samples alone equals K5's sample bit for bit, whatever the
+// features hold), and the aggregation state (online
 // softmax without a branch: running max and rescaled sums) in registers
 // across the views.  Output rows are 16-byte stores.  C * element size not
 // a multiple of 16 bytes, or misaligned pointers, take element-by-element
-// reads from device memory and element stores.  The launch plan (brick,
-// window budget, dynamic shared memory, grid) is computed in Python
+// reads from device memory and element stores.  The launch plan (window
+// budget, dynamic shared memory, grid) is computed in Python
 // (unproject.unproject_plan, tested on the CPU) and checked here.
 
 #include <limits.h>
@@ -62,6 +62,8 @@ enum Method { kSoftmax = 0, kSum = 1, kMax = 2, kConf = 3 };
 
 constexpr int kChunk = 32;        // channels of one block (grid z)
 constexpr int kSmemMax = 232448;  // a block's shared memory on the H100
+// The brick: 4 (x) x 8 (y) x 8 (z) voxels, one a thread.
+constexpr int kBx = 4, kBy = 8, kBz = 8, kNT = kBx * kBy * kBz;
 
 struct AggArgs {
   const void* feats;
@@ -71,8 +73,8 @@ struct AggArgs {
   void* out;
   int V, H, W, C, S;
   float sx, sy;
-  int bx, by, bz, nby, nbz;  // brick, bricks along y and z
-  int window;                // pixels of one staged view window
+  int nby, nbz;  // bricks along y and z
+  int window;    // pixels of one staged view window
   int vec;
 };
 
@@ -111,10 +113,11 @@ __device__ __forceinline__ void st_vec(__nv_bfloat16* p, const float (&f)[8]) {
   *reinterpret_cast<uint4*>(p) = make_uint4(u[0], u[1], u[2], u[3]);
 }
 
-template <typename T, int NT, int METHOD>
-__global__ void __launch_bounds__(NT, 512 / NT)
+template <typename T, int METHOD>
+__global__ void __launch_bounds__(kNT, 2)
 unproject_agg_kernel(const AggArgs p) {
   extern __shared__ __align__(16) unsigned char smem[];
+  constexpr int NT = kNT;
   constexpr int G = 16 / sizeof(T);   // channels of one item (16 bytes)
   constexpr int IPT = kChunk / G;     // items of one thread: 32 channels
   constexpr int NW = NT / 32;
@@ -142,9 +145,9 @@ unproject_agg_kernel(const AggArgs p) {
   const int byi = (blockIdx.x / p.nbz) % p.nby;
   const int bxi = blockIdx.x / (p.nbz * p.nby);
   auto voxel = [&](int j, int& gx, int& gy, int& gz) {
-    gz = bzi * p.bz + j % p.bz;
-    gy = byi * p.by + (j / p.bz) % p.by;
-    gx = bxi * p.bx + j / (p.bz * p.by);
+    gz = bzi * kBz + j % kBz;
+    gy = byi * kBy + (j / kBz) % kBy;
+    gx = bxi * kBx + j / (kBz * kBy);
     return gx < p.S && gy < p.S && gz < p.S;
   };
   int gx, gy, gz;
@@ -180,16 +183,21 @@ unproject_agg_kernel(const AggArgs p) {
         const float wk[4] = {w4.x, w4.y, w4.z, w4.w};
 #pragma unroll
         for (int k = 0; k < 4; ++k) {
+          // A tap off the map (offset -1) reads pixel 0, and a select
+          // keeps val as it was: ltk_bilinear skips that tap.
+          const bool in = o[k] >= 0;
+          const T* q = base + (in ? o[k] : 0) + cc;
           if (p.vec) {
             float f[G];
-            ld_vec(base + o[k] + cc, f);
+            ld_vec(q, f);
 #pragma unroll
-            for (int g = 0; g < G; ++g) val[g] = ltk_tap(val[g], wk[k], f[g]);
+            for (int g = 0; g < G; ++g)
+              val[g] = in ? ltk_tap(val[g], wk[k], f[g]) : val[g];
           } else {
 #pragma unroll
             for (int g = 0; g < G; ++g)
               if (cc + g < CH)
-                val[g] = ltk_tap(val[g], wk[k], ltk_ld(base + o[k] + cc + g));
+                val[g] = in ? ltk_tap(val[g], wk[k], ltk_ld(q + g)) : val[g];
           }
         }
       }
@@ -257,21 +265,17 @@ unproject_agg_kernel(const AggArgs p) {
       const int ww = any ? x1 - x0 + 1 : 0, wh = any ? y1 - y0 + 1 : 0;
       const bool fits = p.vec && any && ww * wh <= p.window;
       staged = fits ? staged | 1u << s : staged & ~(1u << s);
-      // A tap off the map reads pixel 0 of the window (or map) with weight
-      // 0, which adds exactly 0 to a finite sum: no branch per tap.
+      // A tap off the map gets offset -1 (sample_view drops its term).
       int off[4];
-      float wt[4];
 #pragma unroll
       for (int k = 0; k < 4; ++k) {
         const int x = tp.x + (k & 1), y = tp.y + (k >> 1);
-        const bool in = tp.in >> k & 1u;
-        off[k] = !in  ? 0
-                 : fits ? ((y - y0) * ww + (x - x0)) * kChunk
-                        : (y * p.W + x) * p.C;
-        wt[k] = in ? tp.wt[k] : 0.f;
+        off[k] = !(tp.in >> k & 1u) ? -1
+                 : fits             ? ((y - y0) * ww + (x - x0)) * kChunk
+                                    : (y * p.W + x) * p.C;
       }
       toff[s * NT + tid] = make_int4(off[0], off[1], off[2], off[3]);
-      twt[s * NT + tid] = make_float4(wt[0], wt[1], wt[2], wt[3]);
+      twt[s * NT + tid] = make_float4(tp.wt[0], tp.wt[1], tp.wt[2], tp.wt[3]);
       if (fits) {
         const T* src = static_cast<const T*>(p.feats) + bv * map + c0;
         const unsigned dst = smem_u32(win + s * winelems);
@@ -328,75 +332,62 @@ unproject_agg_kernel(const AggArgs p) {
   }
 }
 
-template <typename T, int NT, int METHOD>
+template <typename T, int METHOD>
 int launch(const AggArgs& a, dim3 grid, int smem, cudaStream_t s) {
   static bool allowed[64] = {};
-  const int e =
-      allow_smem(unproject_agg_kernel<T, NT, METHOD>, kSmemMax, allowed);
+  const int e = allow_smem(unproject_agg_kernel<T, METHOD>, kSmemMax, allowed);
   if (e != 0) return e;
-  unproject_agg_kernel<T, NT, METHOD><<<grid, NT, smem, s>>>(a);
+  unproject_agg_kernel<T, METHOD><<<grid, kNT, smem, s>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, int NT>
+template <typename T>
 int launch_method(int method, const AggArgs& a, dim3 grid, int smem,
                   cudaStream_t s) {
   switch (method) {
-    case kSoftmax: return launch<T, NT, kSoftmax>(a, grid, smem, s);
-    case kSum: return launch<T, NT, kSum>(a, grid, smem, s);
-    case kMax: return launch<T, NT, kMax>(a, grid, smem, s);
-    default: return launch<T, NT, kConf>(a, grid, smem, s);
+    case kSoftmax: return launch<T, kSoftmax>(a, grid, smem, s);
+    case kSum: return launch<T, kSum>(a, grid, smem, s);
+    case kMax: return launch<T, kMax>(a, grid, smem, s);
+    default: return launch<T, kConf>(a, grid, smem, s);
   }
-}
-
-template <typename T>
-int launch_type(int nt, int method, const AggArgs& a, dim3 grid, int smem,
-                cudaStream_t s) {
-  return nt == 256 ? launch_method<T, 256>(method, a, grid, smem, s)
-                   : launch_method<T, 512>(method, a, grid, smem, s);
 }
 
 }  // namespace
 
 // features (B, V, H, W, C) and out (B, S^3, C) of type dtype (kLtkF32 or
 // kLtkBF16); m (B, V, 3, 4), mask (B, V) and conf (B, V, C, 'conf' only)
-// float32.  bx, by, bz (a brick of 256 or 512 voxels), window (pixels of
-// a staged view, 0 for none), smem, grid (bricks) and chunks (of 32
-// channels: grid z) are the launch plan (unproject.unproject_plan); a plan
-// that does not fit the shapes is refused with cudaErrorInvalidValue
-// before anything runs.
+// float32.  window (pixels of a staged view, 0 for none), smem, grid
+// (4 x 8 x 8 bricks) and chunks (of 32 channels: grid z) are the launch
+// plan (unproject.unproject_plan); a plan that does not fit the shapes is
+// refused with cudaErrorInvalidValue before anything runs.
 extern "C" int unproject_agg(const void* feats, const float* m,
                              const float* mask, const float* conf, void* out,
                              int B, int V, int H, int W, int C, int S,
                              int method, float sx, float sy, int dtype,
-                             int bx, int by, int bz, int window, int smem,
-                             int grid, int chunks, void* stream) {
+                             int window, int smem, int grid, int chunks,
+                             void* stream) {
   if (dtype != kLtkF32 && dtype != kLtkBF16) return kLtkBadDtype;
   const int bad = static_cast<int>(cudaErrorInvalidValue);
   const int elem = dtype == kLtkF32 ? 4 : 2;
   if (B < 1 || B > 65535 || V < 1 || H < 1 || W < 1 || C < 1 || S < 1 ||
-      method < kSoftmax || method > kConf || bx < 1 || by < 1 || bz < 1 ||
-      window < 0 || window > kSmemMax || (method == kConf && !conf))
+      method < kSoftmax || method > kConf || window < 0 ||
+      window > kSmemMax || (method == kConf && !conf))
     return bad;
-  const int nt = bx * by * bz;
-  const int64_t nb = static_cast<int64_t>((S + bx - 1) / bx) *
-                     ((S + by - 1) / by) * ((S + bz - 1) / bz);
-  if ((nt != 256 && nt != 512) ||
-      static_cast<int64_t>(H) * W * C >= INT_MAX ||
+  const int64_t nb = static_cast<int64_t>((S + kBx - 1) / kBx) *
+                     ((S + kBy - 1) / kBy) * ((S + kBz - 1) / kBz);
+  if (static_cast<int64_t>(H) * W * C >= INT_MAX ||
       static_cast<int64_t>(S) * S * S >= INT_MAX || nb != grid ||
       chunks != (C + kChunk - 1) / kChunk || chunks > 65535 ||
-      smem < agg_smem_bytes(nt, window, elem) || smem > kSmemMax)
+      smem < agg_smem_bytes(kNT, window, elem) || smem > kSmemMax)
     return bad;
   AggArgs a;
   a.feats = feats, a.m = m, a.mask = mask, a.conf = conf, a.out = out;
   a.V = V, a.H = H, a.W = W, a.C = C, a.S = S, a.sx = sx, a.sy = sy;
-  a.bx = bx, a.by = by, a.bz = bz;
-  a.nby = (S + by - 1) / by, a.nbz = (S + bz - 1) / bz;
+  a.nby = (S + kBy - 1) / kBy, a.nbz = (S + kBz - 1) / kBz;
   a.window = window;
   a.vec = (C * elem) % 16 == 0 && aligned16(feats) && aligned16(out);
   const dim3 g(grid, B, chunks);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == kLtkF32)
-    return launch_type<float>(nt, method, a, g, smem, s);
-  return launch_type<__nv_bfloat16>(nt, method, a, g, smem, s);
+  if (dtype == kLtkF32) return launch_method<float>(method, a, g, smem, s);
+  return launch_method<__nv_bfloat16>(method, a, g, smem, s);
 }

@@ -28,16 +28,15 @@ from lt_tpu_torch.ops.volumetric import (aggregate_views, index_grid,
 METHODS = {"softmax": 0, "sum": 1, "max": 2, "conf": 3, "conf_norm": 3}
 
 # csrc/unproject_agg.cu's constants: the channels one block takes (a grid z
-# of ceil(C / AGG_CHUNK)), and the shared memory a block may hold on the
-# H100.
+# of ceil(C / AGG_CHUNK)), the shared memory a block may hold on the H100,
+# and the brick of voxels (x, y, z) one block takes, a voxel a thread.
 AGG_CHUNK = 32
 AGG_SMEM_MAX = 232448
-#: The default brick (x, y, z voxels), and the window budget (pixels of one
-#: view's staged feature window) for a brick of 256 or 512 voxels.  At the
-#: flagship geometry a 4 x 8 x 8 brick's taps span at most 288 pixels of a
-#: view (tests/test_torch_unproject_plan.py), so 384 stages every view.
 AGG_BRICK = (4, 8, 8)
-AGG_WINDOW = {256: 384, 512: 512}
+#: The window budget: pixels of one view's staged feature window.  At the
+#: flagship geometry a brick's taps span at most 288 pixels of a view
+#: (tests/test_torch_unproject_plan.py), so 384 stages every view.
+AGG_WINDOW = 384
 #: Whether the default plan stages the windows, by feature element size.
 #: On an H100 80GB HBM3 at 700 W, at the flagship shapes (PERF.md, kernel
 #: table row 1), staging paid in bfloat16 (0.670-0.676 ms against
@@ -55,12 +54,9 @@ def agg_smem_bytes(voxels: int, window: int, elem: int) -> int:
 
 
 class AggPlan(NamedTuple):
-    """One unproject_agg launch: the brick (x, y, z), the window budget
-    (pixels; 0 stages none), dynamic shared memory (bytes), bricks (grid
-    x; grid y is the batch) and channel chunks (grid z)."""
-    bx: int
-    by: int
-    bz: int
+    """One unproject_agg launch: the window budget (pixels; 0 stages
+    none), dynamic shared memory (bytes), bricks (grid x; grid y is the
+    batch) and channel chunks (grid z)."""
     window: int
     smem: int
     grid: int
@@ -73,33 +69,25 @@ class AggPlan(NamedTuple):
 
 @functools.lru_cache(maxsize=None)
 def unproject_plan(channels: int, grid_size: int, elem: int,
-                   brick=AGG_BRICK, window: Optional[int] = None) -> AggPlan:
+                   window: Optional[int] = None) -> AggPlan:
     """The launch plan of unproject_agg for C = ``channels``, an S^3 grid
-    and ``elem``-byte features: one block per brick and chunk of AGG_CHUNK
-    channels; ``window`` pixels of staged window (0: every view's taps
-    from device memory), by default AGG_WINDOW[voxels] where AGG_STAGED
-    says so for ``elem``, else 0."""
-    bx, by, bz = brick
-    voxels = bx * by * bz
-    if voxels not in AGG_WINDOW:
-        raise ValueError(f"unproject_agg: a brick of {voxels} voxels; it "
-                         f"takes {sorted(AGG_WINDOW)}")
+    and ``elem``-byte features: one block per AGG_BRICK and chunk of
+    AGG_CHUNK channels; ``window`` pixels of staged window (0: every
+    view's taps from device memory), by default AGG_WINDOW where
+    AGG_STAGED says so for ``elem``, else 0."""
     if window is None:
-        window = AGG_WINDOW[voxels] if AGG_STAGED.get(elem) else 0
-    smem = agg_smem_bytes(voxels, window, elem)
+        window = AGG_WINDOW if AGG_STAGED.get(elem) else 0
+    smem = agg_smem_bytes(math.prod(AGG_BRICK), window, elem)
     if smem > AGG_SMEM_MAX:
         raise ValueError(f"unproject_agg: a {window}-pixel window does not "
                          f"fit {AGG_SMEM_MAX} bytes of shared memory")
-    s = grid_size
-    bricks = math.ceil(s / bx) * math.ceil(s / by) * math.ceil(s / bz)
-    return AggPlan(bx, by, bz, window, smem, bricks,
-                   math.ceil(channels / AGG_CHUNK))
+    bricks = math.prod(math.ceil(grid_size / n) for n in AGG_BRICK)
+    return AggPlan(window, smem, bricks, math.ceil(channels / AGG_CHUNK))
 
 
-def brick_windows(m: torch.Tensor, grid_size: int, h: int, w: int,
-                  brick=AGG_BRICK):
+def brick_windows(m: torch.Tensor, grid_size: int, h: int, w: int):
     """K1's staged windows in plain PyTorch: for each sample, view and
-    brick (in the kernel's grid order: z fastest, then y, then x), the
+    AGG_BRICK (in the kernel's grid order: z fastest, then y, then x), the
     pixel bounding box (x0, x1, y0, y1) of the taps of the brick's voxels
     that lie in the (h, w) map, and its pixel count (0 where no tap does).
 
@@ -110,7 +98,7 @@ def brick_windows(m: torch.Tensor, grid_size: int, h: int, w: int,
     """
     b, v = m.shape[:2]
     s = grid_size
-    bx, by, bz = brick
+    bx, by, bz = AGG_BRICK
     nby, nbz = math.ceil(s / by), math.ceil(s / bz)
     uvw = _project(m.reshape(b * v, 3, 4), s)              # (BV, N, 3)
     z = uvw[..., 2]
@@ -183,7 +171,7 @@ def unproject_agg(features: torch.Tensor, m: torch.Tensor,
       view_mask: (B, V); views with mask <= 0 are left out.
       vol_confidences: (B, V, C) for 'conf' / 'conf_norm', else None.
       plan: the launch plan; default :func:`unproject_plan`'s for these
-        shapes (another brick or window budget computes the same values).
+        shapes (another window budget computes the same values).
     Returns:
       (B, S^3, C) with voxel n = (gx * S + gy) * S + gz.
     """

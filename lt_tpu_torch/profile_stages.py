@@ -7,8 +7,9 @@ Times warm requests of the volumetric forward (RN-152, 384^2, 4 views,
 64^3, f32 with TF32 off or, with ``--bf16``, the bfloat16 eval
 configuration; seeded random weights) split by stage with CUDA events on
 module hooks (backbone, coord volumes, process_features, unprojection and
-within it K1's launch, V2V, soft-argmax; the median of three requests after
-two warm-up ones), each beside the host clock's time between the same marks,
+within it the kernel step, K1 with its matrices and view mask, V2V,
+soft-argmax; the median of three requests after two warm-up ones), each
+beside the host clock's time between the same marks,
 then traces one more request with ``torch.profiler`` and prints the
 device's busy share of the window and the kernels that take the most
 device time.  ``--train`` does the same for training steps of
@@ -28,7 +29,6 @@ import torch
 from lt_tpu_torch import resolve_device
 from lt_tpu_torch.engine import factory, steps
 from lt_tpu_torch.models.triangulation import VolumetricTriangulationNet
-from lt_tpu_torch.ops.kernels import _build
 from lt_tpu_torch.utils import cfg
 from lt_tpu_torch.utils.example import example_batch, example_train_batch
 
@@ -87,6 +87,7 @@ def main(argv=None) -> None:
 
     stages = [("backbone", model.backbone),
               ("process_features", model.process_features),
+              ("unproject", model.unproject),
               ("v2v", model.volume_net)]
     events, host = {}, {}
 
@@ -100,18 +101,6 @@ def main(argv=None) -> None:
 
     def span(a, b):
         return events[a].elapsed_time(events[b])
-
-    # K1's launch, marked inside the unprojection stage (the wrapper's
-    # checks and plan, then the kernel): the rest of the stage is the
-    # features' layout, the matrices and the view mask.
-    launch = _build.launch
-
-    def marked_launch(kernel, *a):
-        if kernel == "unproject_agg":
-            mark("k1:start")()
-        launch(kernel, *a)
-        if kernel == "unproject_agg":
-            mark("k1:end")()
 
     def timed_run():
         """One run between events; its split by stage (device ms, and the
@@ -129,8 +118,9 @@ def main(argv=None) -> None:
             "process_features": ("process_features:start",
                                  "process_features:end"),
             "unprojection": ("process_features:end", "v2v:start"),
-            "  of it: layout, m, mask": ("process_features:end", "k1:start"),
-            "  of it: K1": ("k1:start", "k1:end"),
+            "  of it: layout, grid affine": ("process_features:end",
+                                             "unproject:start"),
+            "  of it: m, mask, K1": ("unproject:start", "unproject:end"),
             "v2v": ("v2v:start", "v2v:end"),
         }
         split = {k: (span(a, b), (host[b] - host[a]) * 1e3)
@@ -153,12 +143,7 @@ def main(argv=None) -> None:
         handles.append(mod.register_forward_hook(mark(f"{name}:end")))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    _build.launch = marked_launch
-    try:
-        runs = sorted((timed_run() for _ in range(TIMED)),
-                      key=lambda r: r[1])
-    finally:
-        _build.launch = launch
+    runs = sorted((timed_run() for _ in range(TIMED)), key=lambda r: r[1])
     split, total, wall = runs[len(runs) // 2]
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     for h in handles:

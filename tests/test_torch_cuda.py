@@ -881,26 +881,37 @@ def _edge_k1_inputs(dev):
     return feats, m
 
 
-@pytest.mark.parametrize("scene", ["flagship", "edge"])
+@pytest.mark.parametrize("scene", ["flagship", "edge", "edge_inf"])
 def test_unproject_agg_sum_of_one_view_is_k5_bit_for_bit(dev, scene):
     """K1 'sum' with a one-hot view mask equals K5's sample of that view bit
-    for bit (float32): both take common.cuh's taps and sum them k = 0..3
-    with ltk_tap, so the training backward (K5, K6) recomputes exactly the
-    samples that K1 aggregated."""
+    for bit (float32), with windows staged or not: both take common.cuh's
+    taps and sum them k = 0..3 with ltk_tap, so the training backward (K5,
+    K6) recomputes exactly the samples that K1 aggregated.  edge_inf puts
+    inf in the maps' first row and column (pixel 0 of the map and of the
+    windows that touch them), where K1's taps off the map read: they must
+    not reach the sum."""
     from lt_tpu_torch.ops.kernels import sample, unproject
 
     feats, m = (_flagship_k1_inputs(dev) if scene == "flagship"
                 else _edge_k1_inputs(dev))
+    if scene == "edge_inf":
+        feats[:, :, 0] = float("inf")
+        feats[:, :, :, 0] = float("inf")
     b, v, h, w, c = feats.shape
     s = FLAG if scene == "flagship" else 8
     k5 = sample.sample_views_t(feats.reshape(b * v, h, w, c),
                                m.reshape(b * v, 3, 4), s).reshape(b, v, c, -1)
-    for view in range(v):
-        mask = torch.zeros(b, v, device=dev)
-        mask[:, view] = 1.0
-        got = unproject.unproject_agg(feats, m, mask, None, "sum", s)
-        torch.cuda.synchronize()
-        assert torch.equal(got, k5[:, view].transpose(1, 2)), view
+    for plan in (unproject.unproject_plan(c, s, 4, window=0),
+                 unproject.unproject_plan(c, s, 4, window=384)):
+        for view in range(v):
+            mask = torch.zeros(b, v, device=dev)
+            mask[:, view] = 1.0
+            got = unproject.unproject_agg(feats, m, mask, None, "sum", s,
+                                          plan)
+            torch.cuda.synchronize()
+            torch.testing.assert_close(got, k5[:, view].transpose(1, 2),
+                                       rtol=0, atol=0, equal_nan=True,
+                                       msg=f"view {view}, {plan}")
 
 
 def _k1_scene(dev, scene, dt):
@@ -974,9 +985,9 @@ def test_unproject_agg_bricks_and_windows(dev, scene, dt, method):
 @pytest.mark.parametrize("dt", [torch.float32, BF16])
 @pytest.mark.parametrize("scene", ["flagship", "over_budget", "s10", "c40"])
 def test_unproject_agg_plans_agree_bit_for_bit(dev, scene, dt):
-    """Every launch plan computes each voxel the same way: the default 4 x 8
-    x 8 brick, an 8 x 8 x 8 brick, windows of 384 pixels or none, and a
-    24-pixel budget (some views staged, some not) give the same bits."""
+    """Every launch plan computes each voxel the same way: the default plan,
+    windows of 384 pixels or none, and a 24-pixel budget (some views
+    staged, some not) give the same bits."""
     from lt_tpu_torch.ops.kernels import unproject
 
     if scene == "flagship":
@@ -987,8 +998,7 @@ def test_unproject_agg_plans_agree_bit_for_bit(dev, scene, dt):
     mask = torch.ones(feats.shape[:2], device=dev)
     c, f = feats.shape[-1], feats.element_size()
     ref = unproject.unproject_agg(feats, m, mask, None, "softmax", s)
-    for plan in (unproject.unproject_plan(c, s, f, (8, 8, 8), 512),
-                 unproject.unproject_plan(c, s, f, window=0),
+    for plan in (unproject.unproject_plan(c, s, f, window=0),
                  unproject.unproject_plan(c, s, f, window=384),
                  unproject.unproject_plan(c, s, f, window=24)):
         got = unproject.unproject_agg(feats, m, mask, None, "softmax", s,

@@ -1,9 +1,10 @@
 """The launch plans of K1 (``csrc/unproject_agg.cu``) and of the float32 K3
 (``csrc/upsample3d_2x.cu``), and K1's staged windows, on the CPU.
 
-``ops/kernels/unproject.unproject_plan`` picks K1's brick, window budget,
-channel chunk, dynamic shared memory and grid; ``brick_windows`` computes,
-in plain PyTorch, the pixel box of each (brick, view) that the kernel
+``ops/kernels/unproject.unproject_plan`` picks K1's window budget,
+channel chunk, dynamic shared memory and grid of 4 x 8 x 8 bricks;
+``brick_windows`` computes, in plain PyTorch, the pixel box of each
+(brick, view) that the kernel
 stages.  ``ops/kernels/updown.upsample_f32_plan`` picks the float32 K3's
 padded Cin, N split, shared memory and grid.  A launch refused for too
 much shared memory never runs, so the guard is here, where no card is
@@ -73,22 +74,22 @@ def _flagship_m(batch=8):
         rescale_proj_to_heatmap(proj, (384, 384), (FLAG_HM, FLAG_HM)), aff)
 
 
-@pytest.mark.parametrize("brick", [(4, 8, 8), (8, 8, 8)])
 @pytest.mark.parametrize("elem", [4, 2])
 @pytest.mark.parametrize("c, s", [(FLAG_C, FLAG_S), (40, 10), (16, 6),
                                   (17, 7), (32, 1), (100, 9), (1, 3),
-                                  (64, 33), (48, 5), (8, 2)])
-def test_unproject_plan_fits(c, s, elem, brick):
+                                  (64, 33), (48, 5), (8, 2), (24, 4),
+                                  (33, 12), (64, 16), (128, 8), (96, 17),
+                                  (2, 64), (40, 31), (FLAG_C, 32),
+                                  (65, 20), (256, 11)])
+def test_unproject_plan_fits(c, s, elem):
     for window in (None, 0, 24):
-        plan = unproject_plan(c, s, elem, brick, window)
-        voxels = math.prod(brick)
-        assert plan[:3] == brick
+        plan = unproject_plan(c, s, elem, window)
         if window is None:      # windows staged by default in bfloat16
-            window = AGG_WINDOW[voxels] if elem == 2 else 0
+            window = AGG_WINDOW if elem == 2 else 0
         assert plan.window == window
-        assert plan.smem == agg_smem_bytes(voxels, plan.window,
+        assert plan.smem == agg_smem_bytes(math.prod(AGG_BRICK), plan.window,
                                            elem) <= AGG_SMEM_MAX
-        assert plan.grid == math.prod(math.ceil(s / n) for n in brick)
+        assert plan.grid == math.prod(math.ceil(s / n) for n in AGG_BRICK)
         assert plan.chunks == math.ceil(c / AGG_CHUNK) <= 65535
 
 
@@ -99,7 +100,7 @@ def test_unproject_plan_default_holds_two_blocks_an_sm():
     device-memory reads measured faster on the H100)."""
     for elem, blocks in ((4, 2), (2, 3)):
         plan = unproject_plan(FLAG_C, FLAG_S, elem, window=384)
-        assert plan[:3] == AGG_BRICK and plan.chunks == 1
+        assert plan.chunks == 1
         assert blocks * (plan.smem + BLOCK_RESERVED) <= SM_SMEM
         assert unproject_plan(FLAG_C, FLAG_S, elem).window == (
             384 if unproject.AGG_STAGED[elem] else 0)
@@ -109,8 +110,6 @@ def test_unproject_plan_default_holds_two_blocks_an_sm():
 def test_unproject_plan_refuses_what_cannot_fit():
     with pytest.raises(ValueError, match="does not fit"):
         unproject_plan(32, 64, 4, window=1000)
-    with pytest.raises(ValueError, match="takes"):
-        unproject_plan(32, 64, 4, (4, 4, 4))
 
 
 def test_unproject_kernel_constants_are_the_plans():
@@ -124,8 +123,8 @@ def test_unproject_kernel_constants_are_the_plans():
 
     assert const("kSmemMax") == AGG_SMEM_MAX
     assert const("kChunk") == AGG_CHUNK
-    assert "(nt != 256 && nt != 512)" in src
-    assert sorted(AGG_WINDOW) == [256, 512]
+    assert ("constexpr int kBx = {}, kBy = {}, kBz = {}, kNT = kBx * kBy * "
+            "kBz;".format(*AGG_BRICK)) in src
 
 
 def test_flagship_windows_fit_the_budget():
@@ -134,7 +133,7 @@ def test_flagship_windows_fit_the_budget():
     90, at most 288 pixels), so no brick takes the device-memory path;
     every voxel projects in front of every camera."""
     m = _flagship_m()
-    budget = AGG_WINDOW[math.prod(AGG_BRICK)]
+    budget = AGG_WINDOW
     pixels = []
     for i in range(m.shape[0]):           # one sample at a time: less memory
         uvw = _project(m[i], FLAG_S)
@@ -161,16 +160,15 @@ def _scene(s, seed):
     return torch.from_numpy(m), 26, 30
 
 
-@pytest.mark.parametrize("brick", [(4, 8, 8), (8, 8, 8)])
-@pytest.mark.parametrize("s", [6, 10, 13])
-def test_brick_windows_hold_every_tap(s, brick):
+@pytest.mark.parametrize("s", [5, 6, 9, 10, 13, 16])
+def test_brick_windows_hold_every_tap(s):
     """Brute force over every voxel: its taps that lie in the map are
     inside the box of its brick (decoded as the kernel decodes blockIdx.x:
     z fastest, then y, then x), and each side of every box is one of
     them; a brick without such a tap has no pixels."""
     m, h, w = _scene(s, seed=s)
-    boxes, pixels = brick_windows(m, s, h, w, brick)
-    bx, by, bz = brick
+    boxes, pixels = brick_windows(m, s, h, w)
+    bx, by, bz = AGG_BRICK
     nby, nbz = math.ceil(s / by), math.ceil(s / bz)
     uvw = _project(m.reshape(-1, 3, 4), s).reshape(2, 3, s, s, s, 3)
     for b in range(2):
