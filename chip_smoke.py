@@ -20,8 +20,11 @@ configuration; the entry points that have no caller on those paths
 (``conv3d_same``, ``res3d_block_mp`` / ``_q4`` / ``_folded``,
 ``sample_views_affine`` through K7 and K8) at the flagship shapes; and the
 training step of experiments/human36m/train/human36m_vol_softmax.yaml
-(batch 5, float32) through K1 and, in its backward, K5 and K6.  It also
-runs the committed trained RN-18 fixture in float32 and bfloat16, and
+(batch 5, float32) through K1 and, in its backward, K5 and K6; before it,
+K5 and K6 at its shapes, each also on its other launch plan (K5 with and
+without staged windows, K6 with its shared-memory pre-reduction and with
+direct atomics only), K5 held to K7 and to K1's 'sum' of each view bit
+for bit.  It also runs the committed trained RN-18 fixture in float32 and bfloat16, and
 trains the synthetic config for one epoch through the CLI's ``run``, then
 resumes it.
 
@@ -751,7 +754,10 @@ def _sampling_inputs(geometry, dev, seed):
 
 def train_entry_points(geometry, dev):
     """K5 and K6 vs plain (rel REL_TOL) at the flagship training shapes, with
-    kernel, plain and library times and the bound; returns their rows."""
+    kernel, plain and library times and the bound, each beside its other
+    launch plan (K5 with and without staged windows, K6 with its shared-
+    memory pre-reduction and with direct atomics only); K5 against K7 and
+    K1 'sum' of one view bit for bit; returns their rows."""
     import torch
 
     from lt_tpu_torch.ops.kernels import sample, unproject
@@ -761,19 +767,27 @@ def train_entry_points(geometry, dev):
     feats, m, gen, lib_fwd, lib_grad = _sampling_inputs(geometry, dev, 3)
     g = torch.randn((bv, c, n), generator=gen, device=dev)
     g_lib = g[:, :, None, :]
+    shape = tuple(feats.shape)
 
-    k5 = (lambda: sample.sample_views_t(feats, m, s),
-          lambda: sample.sample_views_t_plain(feats, m, s),
-          lib_fwd, 4.0 * (feats.numel() + m.numel() + bv * c * n))
-    k6 = (lambda: sample.sample_views_grad_t(g, m, tuple(feats.shape), s),
-          lambda: sample.sample_views_grad_t_plain(g, m, tuple(feats.shape),
-                                                   s),
-          lambda: lib_grad(g_lib),
-          4.0 * (g.numel() + m.numel() + feats.numel()))
+    # K5's sample equals K7's (float32) transposed and each view's K1 'sum'
+    # bit for bit: one function of taps, one ltk_tap order.
+    k5 = sample.sample_views_t(feats, m, s)
+    if not torch.equal(sample.sample_views(feats, m, s).transpose(1, 2), k5):
+        raise AssertionError("sample_views_t != sample_views transposed")
+    x5, m5 = feats.reshape(b, 4, hm, hm, c), m.reshape(b, 4, 3, 4)
+    for view in range(4):
+        mask = torch.zeros(b, 4, device=dev)
+        mask[:, view] = 1.0
+        one = unproject.unproject_agg(x5, m5, mask, None, "sum", s)
+        if not torch.equal(one, k5.reshape(b, 4, c, n)[:, view]
+                           .transpose(1, 2)):
+            raise AssertionError(f"unproject_agg 'sum' of view {view} != "
+                                 f"sample_views_t")
+    log("  sample_views_t == sample_views transposed and == unproject_agg "
+        "'sum' of each view: bit for bit")
+    del k5, one
     # The fused aggregation's backward (K5, the softmax VJP, K6) against
     # autograd of the plain aggregation, at the same shapes.
-    x5 = feats.reshape(b, 4, hm, hm, c)
-    m5 = m.reshape(b, 4, 3, 4)
     mask = torch.ones(b, 4, device=dev)
     cot = torch.randn((b, n, c), generator=gen, device=dev)
     agg_grads = []
@@ -790,23 +804,52 @@ def train_entry_points(geometry, dev):
     del x5, x, out, cot, agg_grads
     torch.cuda.empty_cache()
 
+    def plans(grad, labels):
+        """label -> plan: the default budget, then the other of none and
+        the flagship budget (labels: without, with a window)."""
+        default = sample.K6_WINDOW if grad else sample.K5_WINDOW
+        tag = {default: ", default"}
+        return {f"{labels[w > 0]} ({w} px{tag.get(w, '')})":
+                sample.sample_plan(c, s, w, grad)
+                for w in (default, 0 if default else sample.K6_WINDOW)}
+
+    cases = (
+        ("sample_views_t", plans(False, ("taps from device memory",
+                                         "staged windows")),
+         lambda plan: sample.sample_views_t(feats, m, s, plan),
+         lambda: sample.sample_views_t_plain(feats, m, s), lib_fwd,
+         4.0 * (feats.numel() + m.numel() + bv * c * n)),
+        ("sample_views_grad_t", plans(True, ("direct atomics",
+                                             "pre-reduced in shared memory")),
+         lambda plan: sample.sample_views_grad_t(g, m, shape, s, plan),
+         lambda: sample.sample_views_grad_t_plain(g, m, shape, s),
+         lambda: lib_grad(g_lib),
+         4.0 * (g.numel() + m.numel() + feats.numel())))
     rows = {}
-    for name, (run, plain, library, nbytes) in (("sample_views_t", k5),
-                                               ("sample_views_grad_t", k6)):
-        err, rel = check(name, run(), plain())
-        torch.cuda.synchronize()
-        ms, plain_ms = cuda_ms(run), cuda_ms(plain)
-        lib_ms = cuda_ms(library)
+    for name, variants, run, plain, library, nbytes in cases:
+        ref = plain()
         # Operations counted as if all four taps of every voxel were in the
         # map (projection ~30, then 2 per tap and channel); the bytes bound
         # is ten times larger and decides either way.
         b_ms, b_by = bound(nbytes, bv * n * (30.0 + 8.0 * c))
-        log(f"  {name}({bv},{hm},{hm},{c},S={s}): max_abs_err {err:.3e} rel "
-            f"{rel:.3e}  kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  "
+        times = {}
+        for label, plan in variants.items():
+            err_v, rel_v = check(f"{name} {label}", run(plan), ref)
+            times[label] = (cuda_ms(functools.partial(run, plan)), err_v,
+                            rel_v)
+        del ref
+        torch.cuda.synchronize()
+        plain_ms, lib_ms = cuda_ms(plain), cuda_ms(library)
+        (ms, err, rel), *_ = times.values()
+        log(f"  {name}({bv},{hm},{hm},{c},S={s}): plain {plain_ms:.4f} ms  "
             f"library {lib_ms:.4f} ms  bound {b_ms:.4f} ms ({b_by})")
+        for label, (t, e, r) in times.items():
+            log(f"    {label} (plan {variants[label]}): kernel {t:.4f} ms, "
+                f"{100 * b_ms / t:.1f} % of the bound, {lib_ms / t:.2f}x "
+                f"the library; max_abs_err {e:.3e} rel {r:.3e}")
         rows[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                       "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms}
-    del feats, g, g_lib, lib_fwd, lib_grad, k5, k6
+    del feats, g, g_lib, lib_fwd, lib_grad, cases
     torch.cuda.empty_cache()
     return rows
 

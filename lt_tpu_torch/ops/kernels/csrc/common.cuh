@@ -51,8 +51,8 @@ struct LtkTaps {
 // recomputes exactly the taps that its forward took, also at pixel edges.
 // Taps are tested in float coordinates: a far-off projection never reaches
 // an integer conversion that could overflow.
-// K1 computes (gx, gy, gz) from its block and thread indices and calls
-// this overload; the others come through the voxel-index one below.
+// K1, K5 and K6 compute (gx, gy, gz) from their block and thread indices
+// and call this overload; K7 and K8 come through the voxel-index one below.
 __device__ __forceinline__ LtkTaps ltk_voxel_taps(const float* __restrict__ mm,
                                                   float gx, float gy,
                                                   float gz, int H, int W,
@@ -106,8 +106,9 @@ __device__ __forceinline__ LtkTaps ltk_voxel_taps(const float* __restrict__ mm,
 }
 
 // One tap's term of a bilinear sample, val + wt * f rounded once (an
-// explicit FMA): K1 sums its staged taps with it in the order ltk_bilinear
-// does, so a view that K1 samples alone gives K5's sample bit for bit.
+// explicit FMA): K1 and K5 sum their taps with it in the order ltk_bilinear
+// (K7) does, so a view that K1 samples alone gives K5's and K7's sample bit
+// for bit.
 __device__ __forceinline__ float ltk_tap(float val, float wt, float f) {
   return __fmaf_rn(wt, f, val);
 }

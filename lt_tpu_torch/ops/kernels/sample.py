@@ -5,7 +5,9 @@ Channels-major, (BV, C, S^3): kernels K5 and K6, the training path.  Port
 of ``lt_tpu/ops/pallas/unproject.py:612-658`` (``_sample_views_fwd_impl_t``),
 ``:993-1037`` (``_sample_views_grad_features_t``) and ``:1040-1070``
 (``sample_views_affine_t``); CUDA kernels ``csrc/sample_views_t.cu`` and
-``csrc/sample_views_grad_t.cu``.
+``csrc/sample_views_grad_t.cu`` on voxel bricks (``csrc/sample_brick.cuh``:
+K6 on K1's, K5 on one elongated in z), launched with the plan of
+:func:`sample_plan`.
 
 Voxels-major, (BV, S^3, C): kernels K7 and K8.  Port of ``:507-586``
 (``_sample_views_fwd_impl``), ``:896-918`` (``_sample_views_grad_features``)
@@ -21,10 +23,66 @@ that they check K6 and K8 independently of K5 and K7.
 
 from __future__ import annotations
 
+import functools
+import math
+from typing import NamedTuple, Optional
+
 import torch
 
 from lt_tpu_torch.ops.kernels import _build
+from lt_tpu_torch.ops.kernels.bricks import AGG_BRICK, AGG_CHUNK, AGG_SMEM_MAX
 from lt_tpu_torch.ops.volumetric import index_grid, sample_homogeneous
+
+#: K5's brick of voxels (x, y, z), a voxel a thread: its z-runs of 32 voxels
+#: are whole 128-byte rows of its output.  K6 takes K1's AGG_BRICK.  Each
+#: measured slower on the other's brick on an H100 80GB HBM3 at 700 W
+#: (PERF.md, PR 8).
+K5_BRICK = (2, 4, 32)
+#: K5's and K6's default window budgets: pixels of a brick's window of one
+#: view.  K6 pre-reduces every (brick, view) of the flagship training
+#: geometry in shared memory (its windows span at most 288 pixels,
+#: tests/test_torch_sample_plan.py); K5 reads its taps from device memory,
+#: which measured faster than staged windows on an H100 80GB HBM3 at 700 W
+#: (PERF.md, kernel table row 8).
+K5_WINDOW = 0
+K6_WINDOW = 384
+
+
+def sample_smem_bytes(window: int, grad: bool) -> int:
+    """sample_brick.cuh's ``smem_bytes``: the window region (K5: AGG_CHUNK
+    floats a pixel; K6, ``grad``: window + 1 int counts rounded up to 4 and 4
+    sorted taps a voxel, 16-bit), the [channel][voxel] float tile (pitch
+    voxels + 1), the taps (32 bytes a voxel) and the per-warp boxes."""
+    nt = math.prod(AGG_BRICK)
+    region = ((window + 4) // 4 * 4 * 4 + 4 * nt * 2 if grad
+              else window * AGG_CHUNK * 4)
+    return region + AGG_CHUNK * (nt + 1) * 4 + nt * 32 + (nt // 32) * 16
+
+
+class SamplePlan(NamedTuple):
+    """One K5 or K6 launch: the window budget (pixels; 0 stages none),
+    dynamic shared memory (bytes), bricks (grid x; grid y is the view)
+    and channel chunks (grid z)."""
+    window: int
+    smem: int
+    grid: int
+    chunks: int
+
+
+@functools.lru_cache(maxsize=None)
+def sample_plan(channels: int, grid_size: int, window: int,
+                grad: bool) -> SamplePlan:
+    """The launch plan of K5 (``grad`` False) or K6 for C = ``channels``
+    and an S^3 grid: one block per brick (K5_BRICK; K6: AGG_BRICK) and
+    chunk of AGG_CHUNK channels, ``window`` pixels of window budget (K5:
+    staged features, K6: the pre-reduction; 0: none)."""
+    smem = sample_smem_bytes(window, grad)
+    if smem > AGG_SMEM_MAX:
+        raise ValueError(f"sample_views: a {window}-pixel window does not "
+                         f"fit {AGG_SMEM_MAX} bytes of shared memory")
+    brick = AGG_BRICK if grad else K5_BRICK
+    bricks = math.prod(math.ceil(grid_size / n) for n in brick)
+    return SamplePlan(window, smem, bricks, math.ceil(channels / AGG_CHUNK))
 
 
 def _check_affine(affine: torch.Tensor, bv: int) -> None:
@@ -47,12 +105,15 @@ def sample_views_t_plain(features: torch.Tensor, affine: torch.Tensor,
 
 
 def sample_views_t(features: torch.Tensor, affine: torch.Tensor,
-                   grid_size: int) -> torch.Tensor:
+                   grid_size: int, plan: Optional[SamplePlan] = None
+                   ) -> torch.Tensor:
     """K5 on a CUDA tensor, its plain version on a CPU tensor.
 
     Args:
       features: (BV, H, W, C) float32 feature maps.
       affine: (BV, 3, 4) composed grid-index -> heatmap-pixel matrices.
+      plan: the launch plan (``grad`` False); default :func:`sample_plan`'s
+        with K5_WINDOW (another window budget computes the same bits).
     Returns:
       (BV, C, S^3) samples, voxel n = (gx * S + gy) * S + gz; 0 where
       w <= 0 or a tap falls outside the map.
@@ -66,11 +127,12 @@ def sample_views_t(features: torch.Tensor, affine: torch.Tensor,
     _build.check_cuda(affine, "affine", 3)
     out = torch.empty((bv, c, grid_size ** 3), dtype=torch.float32,
                       device=features.device)
+    plan = plan or sample_plan(c, grid_size, K5_WINDOW, False)
     p, i, f = _build.ptr, _build.i32, _build.f32
     _build.launch("sample_views_t", features.device,
-                  [p, p, p, i, i, i, i, i, f, f], features.data_ptr(),
-                  affine.data_ptr(), out.data_ptr(), bv, h, w, c, grid_size,
-                  (w - 1) / w, (h - 1) / h)
+                  [p, p, p, i, i, i, i, i, f, f] + [i] * len(plan),
+                  features.data_ptr(), affine.data_ptr(), out.data_ptr(), bv,
+                  h, w, c, grid_size, (w - 1) / w, (h - 1) / h, *plan)
     return out
 
 
@@ -108,13 +170,17 @@ def _scatter_taps(gt: torch.Tensor, affine: torch.Tensor, feat_shape,
 
 
 def sample_views_grad_t(g: torch.Tensor, affine: torch.Tensor, feat_shape,
-                        grid_size: int) -> torch.Tensor:
+                        grid_size: int, plan: Optional[SamplePlan] = None
+                        ) -> torch.Tensor:
     """K6 on a CUDA tensor, its plain version on a CPU tensor.
 
     Args:
       g: (BV, C, S^3) float32 cotangent of :func:`sample_views_t`.
       affine: (BV, 3, 4) as there.
       feat_shape: (BV, H, W, C) of the sampled features.
+      plan: the launch plan (``grad`` True); default :func:`sample_plan`'s
+        with K6_WINDOW (window 0: every brick adds its taps to dF
+        directly).
     Returns:
       dF (BV, H, W, C) float32.
     """
@@ -128,11 +194,12 @@ def sample_views_grad_t(g: torch.Tensor, affine: torch.Tensor, feat_shape,
     affine = affine.contiguous()
     _build.check_cuda(affine, "affine", 3)
     df = torch.zeros((bv, h, w, c), dtype=torch.float32, device=g.device)
+    plan = plan or sample_plan(c, grid_size, K6_WINDOW, True)
     p, i, f = _build.ptr, _build.i32, _build.f32
     _build.launch("sample_views_grad_t", g.device,
-                  [p, p, p, i, i, i, i, i, f, f], g.data_ptr(),
-                  affine.data_ptr(), df.data_ptr(), bv, h, w, c, grid_size,
-                  (w - 1) / w, (h - 1) / h)
+                  [p, p, p, i, i, i, i, i, f, f] + [i] * len(plan),
+                  g.data_ptr(), affine.data_ptr(), df.data_ptr(), bv, h, w, c,
+                  grid_size, (w - 1) / w, (h - 1) / h, *plan)
     return df
 
 

@@ -19,6 +19,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from lt_tpu_torch.ops.kernels import _build
+from lt_tpu_torch.ops.kernels.bricks import AGG_BRICK, AGG_CHUNK, AGG_SMEM_MAX
 from lt_tpu_torch.ops.kernels.sample import (_project, sample_views_affine_t,
                                              sample_views_grad_t,
                                              sample_views_t)
@@ -27,12 +28,6 @@ from lt_tpu_torch.ops.volumetric import (aggregate_views, index_grid,
 
 METHODS = {"softmax": 0, "sum": 1, "max": 2, "conf": 3, "conf_norm": 3}
 
-# csrc/unproject_agg.cu's constants: the channels one block takes (a grid z
-# of ceil(C / AGG_CHUNK)), the shared memory a block may hold on the H100,
-# and the brick of voxels (x, y, z) one block takes, a voxel a thread.
-AGG_CHUNK = 32
-AGG_SMEM_MAX = 232448
-AGG_BRICK = (4, 8, 8)
 #: The window budget: pixels of one view's staged feature window.  At the
 #: flagship geometry a brick's taps span at most 288 pixels of a view
 #: (tests/test_torch_unproject_plan.py), so 384 stages every view.
@@ -85,20 +80,23 @@ def unproject_plan(channels: int, grid_size: int, elem: int,
     return AggPlan(window, smem, bricks, math.ceil(channels / AGG_CHUNK))
 
 
-def brick_windows(m: torch.Tensor, grid_size: int, h: int, w: int):
-    """K1's staged windows in plain PyTorch: for each sample, view and
-    AGG_BRICK (in the kernel's grid order: z fastest, then y, then x), the
-    pixel bounding box (x0, x1, y0, y1) of the taps of the brick's voxels
-    that lie in the (h, w) map, and its pixel count (0 where no tap does).
+def brick_windows(m: torch.Tensor, grid_size: int, h: int, w: int,
+                  brick=AGG_BRICK):
+    """K1's staged windows in plain PyTorch (K5's and K6's with their
+    ``brick``): for each sample, view and brick (in the kernel's grid
+    order: z fastest, then y, then x), the pixel bounding box (x0, x1, y0,
+    y1) of the taps of the brick's voxels that lie in the (h, w) map, and
+    its pixel count (0 where no tap does).
 
     Args:
       m: (B, V, 3, 4) composed grid-index -> pixel matrices.
+      brick: (x, y, z) voxels of a brick.
     Returns:
       boxes (B, V, bricks, 4) and pixels (B, V, bricks), int64.
     """
     b, v = m.shape[:2]
     s = grid_size
-    bx, by, bz = AGG_BRICK
+    bx, by, bz = brick
     nby, nbz = math.ceil(s / by), math.ceil(s / bz)
     uvw = _project(m.reshape(b * v, 3, 4), s)              # (BV, N, 3)
     z = uvw[..., 2]

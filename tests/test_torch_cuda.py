@@ -1059,3 +1059,96 @@ def test_upsample3d_2x_f32_misaligned(dev, which):
         skip = _offset(skip)
     _close(updown.upsample3d_2x(x, w8, b8, skip),
            updown.upsample3d_2x_plain(x, w8, b8, skip))
+
+
+# ---------------------------------------------------------------------------
+# K5's and K6's bricks: staged windows, the pre-reduction, the direct path
+# ---------------------------------------------------------------------------
+
+
+def _k56_scene(dev, scene):
+    """(features (BV, H, W, C), m (BV, 3, 4), S) of one of K5's and K6's
+    brick cases; features hold inf where the scene says so.
+
+    edge: _sampling_scene (C = 40, S = 7: behind the camera, w == 0, off
+      the map, exact taps on the last row and column);
+    s10: S not a multiple of the brick; c17: a ragged chunk and the
+      element path; c48: a second chunk of 16 channels; misaligned: C = 48
+      with features 4 bytes off a 16-byte boundary;
+    over_budget: _k1_scene's views whose windows exceed 384 pixels;
+    inf: inf in the maps' first row and column, where no tap in the map
+      lands (x = 5 gx - 12.5, y = 5 gy - 12.5 pixels; view 1 behind its
+      camera): only taps off the map, dropped by a select, read them."""
+    if scene == "over_budget":
+        feats, m, s = _k1_scene(dev, scene, torch.float32)
+        b, v = feats.shape[:2]
+        return (feats.reshape(b * v, *feats.shape[2:]),
+                m.reshape(b * v, 3, 4).contiguous(), s)
+    if scene == "inf":
+        s, hw = 8, 40
+        px = (hw - 1) / hw
+        m = torch.zeros(3, 3, 4, device=dev)
+        m[:, 0, 0] = m[:, 1, 1] = 5.0 / px
+        m[:, 0, 3] = m[:, 1, 3] = -12.5 / px
+        m[2, 0, 3] = -13.5 / px
+        m[:, 2, 3] = 1.0
+        m[1, 2, 3] = -1.0
+        feats = _randn(dev, 3, hw, hw, 32, seed=12)
+        feats[:, 0] = float("inf")
+        feats[:, :, 0] = float("inf")
+        return feats, m, s
+    c, s = {"edge": (40, 7), "s10": (40, 10), "c17": (17, 13),
+            "c48": (48, 9), "misaligned": (48, 7)}[scene]
+    feats, m, s = _sampling_scene(dev, c=c, s=s)
+    return (_offset(feats) if scene == "misaligned" else feats), m, s
+
+
+K56_SCENES = ["edge", "s10", "c17", "c48", "misaligned", "over_budget"]
+
+
+@pytest.mark.parametrize("scene", K56_SCENES + ["inf"])
+def test_sample_views_t_bricks_and_windows(dev, scene):
+    """K5 against its plain version where its bricks and windows have
+    edges; every plan (no window, a 24-pixel budget: some windows staged,
+    some not; 384 pixels) gives the same bits.  With inf in the maps'
+    first row and column K5 gives what it gives without (the plain version
+    on the maps without inf), where K1 does too."""
+    from lt_tpu_torch.ops.kernels import sample
+
+    feats, m, s = _k56_scene(dev, scene)
+    c = feats.shape[-1]
+    outs = [sample.sample_views_t(feats, m, s,
+                                  sample.sample_plan(c, s, w, False))
+            for w in (0, 24, 384)]
+    finite = feats.nan_to_num(posinf=0.0)
+    _close(outs[0], sample.sample_views_t_plain(finite, m, s))
+    for out in outs[1:]:
+        assert torch.equal(out, outs[0])
+    if scene == "inf":
+        assert torch.equal(outs[0], sample.sample_views_t(finite, m, s))
+        assert bool((outs[0][1] == 0).all())
+
+
+@pytest.mark.parametrize("scene", K56_SCENES)
+def test_sample_views_grad_t_bricks_and_paths(dev, scene):
+    """K6 against its plain version where its bricks have edges, with one
+    view masked (a gradient of 0: no gradient reaches its maps): the
+    default plan (every brick within 384 pixels pre-reduced), a 24-pixel
+    budget (some pre-reduced, some direct) and no window (every brick
+    direct); the direct path within 1e-4 of the pre-reduction."""
+    from lt_tpu_torch.ops.kernels import sample
+
+    feats, m, s = _k56_scene(dev, scene)
+    shape = tuple(feats.shape)
+    g = _randn(dev, shape[0], shape[-1], s ** 3, seed=4)
+    g[1] = 0.0
+    if scene == "misaligned":
+        g = _offset(g)
+    ref = sample.sample_views_grad_t_plain(g, m, shape, s)
+    got = {w: sample.sample_views_grad_t(
+        g, m, shape, s, sample.sample_plan(shape[-1], s, w, True))
+           for w in (sample.K6_WINDOW, 24, 0)}
+    for df in got.values():
+        _close(df, ref)
+        assert bool((df[1] == 0).all())
+    _close(got[0], got[sample.K6_WINDOW])
