@@ -18,15 +18,16 @@ eval forward through K1-K4 (requests at batch 8) in float32 and in the
 bfloat16 configuration, in the fused and in the per-conv V2V
 configuration; the entry points that have no caller on those paths
 (``conv3d_same``, ``res3d_block_mp`` / ``_q4`` / ``_folded``,
-``sample_views_affine`` through K7 and K8) at the flagship shapes; and the
-training step of experiments/human36m/train/human36m_vol_softmax.yaml
-(batch 5, float32) through K1 and, in its backward, K5 and K6; before it,
-K5 and K6 at its shapes, each also on its other launch plan (K5 with and
-without staged windows, K6 with its shared-memory pre-reduction and with
-direct atomics only), K5 held to K7 and to K1's 'sum' of each view bit
-for bit.  It also runs the committed trained RN-18 fixture in float32 and bfloat16, and
-trains the synthetic config for one epoch through the CLI's ``run``, then
-resumes it.
+``sample_views_affine`` through K7 and K8) at the flagship shapes (K7 in
+three type pairs, K8 for float32 and bfloat16 g, each K8 also with direct
+atomics only, K7 held bit for bit to K5 and to its own float32 output
+rounded); and the training step of
+experiments/human36m/train/human36m_vol_softmax.yaml (batch 5, float32)
+through K1 and, in its backward, K5 and K6; before it, K5 and K6 at its
+shapes (K6 also with direct atomics only), K5 held to K7 and to K1's 'sum'
+of each view bit for bit.  It also runs the committed trained RN-18
+fixture in float32 and bfloat16, and trains the synthetic config for one
+epoch through the CLI's ``run``, then resumes it.
 
     python3 chip_smoke.py [--batch N]
 
@@ -717,6 +718,22 @@ def entry_point_checks(batch, geometry, dev, dt=None, tol=REL_TOL):
 # ---------------------------------------------------------------------------
 
 
+def _library_grid(m, s, hm):
+    """``F.grid_sample``'s (BV, 1, N, 2) grid of the projected voxels, those
+    at w <= 0 moved off the map."""
+    import torch
+
+    from lt_tpu_torch.ops.kernels import sample
+
+    uvw = sample._project(m, s)
+    w = uvw[..., 2]
+    gx = 2.0 * uvw[..., 0] / (w * hm) - 1.0
+    gy = 2.0 * uvw[..., 1] / (w * hm) - 1.0
+    off_map = torch.full_like(gx, -3.0)[..., None]
+    grid = torch.stack([gx, gy], -1).where((w > 0)[..., None], off_map)
+    return grid[:, None].contiguous()
+
+
 def _sampling_inputs(geometry, dev, seed):
     """Features, matrices and the ``F.grid_sample`` yardstick at the
     flagship training shapes (20 views of 96^2 x 32 into 64^3).
@@ -727,19 +744,11 @@ def _sampling_inputs(geometry, dev, seed):
     import torch
     import torch.nn.functional as F
 
-    from lt_tpu_torch.ops.kernels import sample
-
     b, s, hm, c = TRAIN_BATCH, FLAGSHIP["volume"], FLAGSHIP["heatmap"], 32
     gen = torch.Generator(device=dev).manual_seed(seed)
     feats = torch.randn((b * 4, hm, hm, c), generator=gen, device=dev)
     m = geometry(b).reshape(b * 4, 3, 4).contiguous()
-    uvw = sample._project(m, s)
-    w = uvw[..., 2]
-    gx = 2.0 * uvw[..., 0] / (w * hm) - 1.0
-    gy = 2.0 * uvw[..., 1] / (w * hm) - 1.0
-    off_map = torch.full_like(gx, -3.0)[..., None]
-    grid = torch.stack([gx, gy], -1).where((w > 0)[..., None], off_map)
-    grid = grid[:, None].contiguous()                 # (BV, 1, N, 2)
+    grid = _library_grid(m, s, hm)
     f_nchw = feats.permute(0, 3, 1, 2).contiguous().requires_grad_()
     lib_out = F.grid_sample(f_nchw, grid, align_corners=True)
 
@@ -752,12 +761,22 @@ def _sampling_inputs(geometry, dev, seed):
     return feats, m, gen, lib_fwd, lib_grad
 
 
+def scatter_plans(kernel, c, s):
+    """label -> launch plan of a scatter (K6 or K8): the default budget,
+    then direct atomics only."""
+    from lt_tpu_torch.ops.kernels import sample
+
+    w = sample.K6_WINDOW
+    return {f"pre-reduced in shared memory ({w} px, default)":
+            sample.sample_plan(kernel, c, s, w),
+            "direct atomics (0 px)": sample.sample_plan(kernel, c, s, 0)}
+
+
 def train_entry_points(geometry, dev):
     """K5 and K6 vs plain (rel REL_TOL) at the flagship training shapes, with
-    kernel, plain and library times and the bound, each beside its other
-    launch plan (K5 with and without staged windows, K6 with its shared-
-    memory pre-reduction and with direct atomics only); K5 against K7 and
-    K1 'sum' of one view bit for bit; returns their rows."""
+    kernel, plain and library times and the bound, K6 beside its other
+    launch plan (direct atomics only); K5 against K7 and K1 'sum' of one
+    view bit for bit; returns their rows."""
     import torch
 
     from lt_tpu_torch.ops.kernels import sample, unproject
@@ -804,23 +823,13 @@ def train_entry_points(geometry, dev):
     del x5, x, out, cot, agg_grads
     torch.cuda.empty_cache()
 
-    def plans(grad, labels):
-        """label -> plan: the default budget, then the other of none and
-        the flagship budget (labels: without, with a window)."""
-        default = sample.K6_WINDOW if grad else sample.K5_WINDOW
-        tag = {default: ", default"}
-        return {f"{labels[w > 0]} ({w} px{tag.get(w, '')})":
-                sample.sample_plan(c, s, w, grad)
-                for w in (default, 0 if default else sample.K6_WINDOW)}
-
     cases = (
-        ("sample_views_t", plans(False, ("taps from device memory",
-                                         "staged windows")),
+        ("sample_views_t", {"taps from device memory (default)":
+                            sample.sample_plan("sample_views_t", c, s)},
          lambda plan: sample.sample_views_t(feats, m, s, plan),
          lambda: sample.sample_views_t_plain(feats, m, s), lib_fwd,
          4.0 * (feats.numel() + m.numel() + bv * c * n)),
-        ("sample_views_grad_t", plans(True, ("direct atomics",
-                                             "pre-reduced in shared memory")),
+        ("sample_views_grad_t", scatter_plans("sample_views_grad_t", c, s),
          lambda plan: sample.sample_views_grad_t(g, m, shape, s, plan),
          lambda: sample.sample_views_grad_t_plain(g, m, shape, s),
          lambda: lib_grad(g_lib),
@@ -1010,44 +1019,113 @@ def alt_entry_points(batch, geometry, dev):
         del x32, x16, w, w_lib, proj, same, tail
         torch.cuda.empty_cache()
 
-    # sample_views_affine: forward K7, backward K8, at the training shapes.
+    # sample_views_affine: forward K7 in three type pairs, backward K8 for
+    # float32 and bfloat16 g, at the training shapes.
     hm, c, n = FLAGSHIP["heatmap"], 32, s ** 3
     feats, m, gen5, lib_fwd, lib_grad = _sampling_inputs(geometry, dev, 5)
     bv = feats.shape[0]
-    g = torch.randn((bv, n, c), generator=gen5, device=dev)
-    g_lib = g.transpose(1, 2)[:, :, None, :]
     shape = tuple(feats.shape)
+    f16 = feats.to(torch.bfloat16)
+    f16_nchw = f16.permute(0, 3, 1, 2).contiguous()
+    grid16 = _library_grid(m, s, hm).to(torch.bfloat16)
     ops = bv * n * (30.0 + 8.0 * c)
-    rows = {}
-    rows["sample_views"] = run(
-        f"sample_views_affine forward ({bv},{hm},{hm},{c},S={s}) float32",
-        "sample_views", lambda: sample.sample_views_affine(feats, m, s),
-        lambda: sample.sample_views_plain(feats, m, s), lib_fwd,
-        4.0 * (feats.numel() + m.numel() + bv * n * c), ops, REL_TOL)
-    run(f"sample_views_affine forward ({bv},{hm},{hm},{c},S={s}) bfloat16 "
-        f"out", "sample_views",
-        lambda: sample.sample_views_affine(feats, m, s, torch.bfloat16),
-        lambda: sample.sample_views_plain(feats, m, s, torch.bfloat16),
-        lib_fwd, 4.0 * (feats.numel() + m.numel()) + 2.0 * bv * n * c, ops,
-        REL_TOL_BF16)
+    f32, bf16 = torch.float32, torch.bfloat16
 
-    def backward():
-        x = feats.detach().requires_grad_()
-        sample.sample_views_affine(x, m, s).backward(g)
-        return x.grad
+    def tname(dt):
+        return str(dt).replace("torch.", "")
 
-    rows["sample_views_grad"] = run(
-        f"sample_views_affine backward ({bv},{n},{c}) -> ({bv},{hm},{hm},{c})"
-        f" float32", ("sample_views", "sample_views_grad"), backward,
-        lambda: sample.sample_views_grad_plain(g, m, shape, s),
-        lambda: lib_grad(g_lib),
-        4.0 * (g.numel() + m.numel() + feats.numel()), ops, REL_TOL)
-    # The kernel alone, without the forward that the autograd call runs.
-    k8_ms = cuda_ms(lambda: sample.sample_views_grad(g, m, shape, s))
-    log(f"  sample_views_grad alone: {k8_ms:.4f} ms (the backward line "
-        f"above times forward + backward)")
-    rows["sample_views_grad"]["ms"] = k8_ms
-    del feats, g, g_lib, lib_fwd, lib_grad
+    # K7's bits: float32 features, and bfloat16 ones widened, give K5's
+    # sample transposed; a bfloat16 output is the float32 one rounded once.
+    k7 = sample.sample_views(feats, m, s)
+    if not torch.equal(k7, sample.sample_views_t(feats, m, s)
+                       .transpose(1, 2)):
+        raise AssertionError("sample_views != sample_views_t transposed")
+    if not torch.equal(sample.sample_views(f16, m, s), sample.sample_views_t(
+            f16.float(), m, s).transpose(1, 2)):
+        raise AssertionError("sample_views of bfloat16 features != "
+                             "sample_views_t of the widened ones transposed")
+    if not torch.equal(sample.sample_views(feats, m, s, bf16), k7.to(bf16)):
+        raise AssertionError("sample_views' bfloat16 output != its float32 "
+                             "output rounded")
+    log("  sample_views == sample_views_t transposed (float32 features, and "
+        "bfloat16 ones widened), its bfloat16 output == its float32 output "
+        "rounded: bit for bit")
+    del k7
+    torch.cuda.empty_cache()
+    k7_rows = {}
+    # The library: F.grid_sample on the same features (float32 -> float32;
+    # bfloat16 in, bfloat16 out, for bfloat16 features).
+    for x, tout, library in (
+            (feats, f32, lib_fwd), (feats, bf16, lib_fwd),
+            (f16, f32, lambda: F.grid_sample(f16_nchw, grid16,
+                                             align_corners=True))):
+        label = f"{tname(x.dtype)} -> {tname(tout)}"
+        k7_rows[label] = run(
+            f"sample_views_affine forward ({bv},{hm},{hm},{c},S={s}) {label}",
+            "sample_views",
+            lambda x=x, tout=tout: sample.sample_views_affine(x, m, s, tout),
+            lambda x=x, tout=tout: sample.sample_views_plain(x, m, s, tout),
+            library, x.element_size() * x.numel() + 4.0 * m.numel()
+            + tout.itemsize * bv * n * c, ops,
+            REL_TOL if x.dtype == tout == f32 else REL_TOL_BF16)
+    rows = {"sample_views": k7_rows.pop("float32 -> float32")}
+    rows["sample_views"]["types"] = k7_rows
+
+    # K8 for float32 and bfloat16 g: the backward through autograd, then the
+    # kernel alone on each plan, against the plain scatter and K6 on the
+    # transposed (widened) cotangent.
+    g32 = torch.randn((bv, n, c), generator=gen5, device=dev)
+    k6 = sample.sample_views_grad_t(g32.transpose(1, 2).contiguous(), m,
+                                    shape, s)
+    k8_rows = {}
+    for tg in (f32, bf16):
+        g = g32.to(tg)
+        if tg == bf16:
+            k6 = sample.sample_views_grad_t(
+                g.float().transpose(1, 2).contiguous(), m, shape, s)
+
+        def backward(g=g, tg=tg):
+            x = feats.detach().requires_grad_()
+            sample.sample_views_affine(x, m, s, tg).backward(g)
+            return x.grad
+
+        def plain(g=g):
+            return sample.sample_views_grad_plain(g, m, shape, s)
+
+        # The library: grid_sample's input gradient of the float32 graph on
+        # the (widened) cotangent, dF in float32 as K8's.
+        r = run(f"sample_views_affine backward ({bv},{n},{c}) -> "
+                f"({bv},{hm},{hm},{c}) g {tname(tg)}",
+                ("sample_views", "sample_views_grad"), backward, plain,
+                lambda g=g: lib_grad(g.float().transpose(1, 2)[:, :, None]),
+                g.element_size() * g.numel() + 4.0 * (m.numel()
+                                                      + feats.numel()),
+                ops, REL_TOL)
+        ref = plain()
+        r["plans"] = {}
+        for label, plan in scatter_plans("sample_views_grad", c, s).items():
+            got = sample.sample_views_grad(g, m, shape, s, plan)
+            err, rel = check(f"sample_views_grad g {tname(tg)} {label}", got,
+                             ref)
+            _, rel6 = check(f"sample_views_grad g {tname(tg)} {label} vs "
+                            f"sample_views_grad_t", got, k6, 1e-5)
+            del got
+            t = cuda_ms(lambda plan=plan: sample.sample_views_grad(
+                g, m, shape, s, plan))
+            log(f"    sample_views_grad alone, g {tname(tg)}, {label} (plan "
+                f"{plan}): kernel {t:.4f} ms, {100 * r['bound_ms'] / t:.1f} "
+                f"% of the bound, {r['library_ms'] / t:.2f}x the library; "
+                f"max_abs_err {err:.3e} rel {rel:.3e}, rel {rel6:.3e} from "
+                f"sample_views_grad_t")
+            if not r["plans"]:      # the default: the kernel's own row
+                r.update(ms=t, max_abs_err=err)
+            r["plans"][label] = t
+        k8_rows[f"g {tname(tg)}"] = r
+        del g, ref
+        torch.cuda.empty_cache()
+    rows["sample_views_grad"] = k8_rows.pop("g float32")
+    rows["sample_views_grad"]["types"] = k8_rows
+    del feats, f16, f16_nchw, grid16, g32, k6, lib_fwd, lib_grad
     torch.cuda.empty_cache()
     return totals, rows
 

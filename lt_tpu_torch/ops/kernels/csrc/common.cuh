@@ -33,10 +33,10 @@ static inline int ltk_blocks(int64_t total, int threads, int64_t cap = 1 << 20) 
   return static_cast<int>(b < cap ? b : cap);
 }
 
-// The bilinear taps of one voxel in one view: pixel offsets y * W + x, their
-// weights, and a bit per tap that is set where the tap lies in the map.
+// The bilinear taps of one voxel in one view: tap k at pixel (x + (k & 1),
+// y + (k >> 1)), its weight, and a bit per tap that is set where the tap
+// lies in the map.
 struct LtkTaps {
-  int off[4];
   float wt[4];
   unsigned in;
   int x, y;  // pixel of tap 0 (x0, y0), where a tap is in the map
@@ -50,9 +50,9 @@ struct LtkTaps {
 // sample_views_grad) all sample through this one function, so a backward
 // recomputes exactly the taps that its forward took, also at pixel edges.
 // Taps are tested in float coordinates: a far-off projection never reaches
-// an integer conversion that could overflow.
-// K1, K5 and K6 compute (gx, gy, gz) from their block and thread indices
-// and call this overload; K7 and K8 come through the voxel-index one below.
+// an integer conversion that could overflow.  Each kernel computes (gx,
+// gy, gz) of its thread's voxel from its block and thread indices
+// (sample_brick.cuh's brick_voxel; K1 likewise) and projects it once.
 __device__ __forceinline__ LtkTaps ltk_voxel_taps(const float* __restrict__ mm,
                                                   float gx, float gy,
                                                   float gz, int H, int W,
@@ -64,10 +64,7 @@ __device__ __forceinline__ LtkTaps ltk_voxel_taps(const float* __restrict__ mm,
   t.in = 0u;
   t.x = t.y = 0;
   if (!(w > 0.f)) {
-    for (int k = 0; k < 4; ++k) {
-      t.off[k] = 0;
-      t.wt[k] = 0.f;
-    }
+    for (int k = 0; k < 4; ++k) t.wt[k] = 0.f;
     return t;
   }
   const float xf = u / w * sx;
@@ -80,10 +77,6 @@ __device__ __forceinline__ LtkTaps ltk_voxel_taps(const float* __restrict__ mm,
   const bool yin1 = y0 + 1.f >= 0.f && y0 + 1.f <= H - 1.f;
   const int xi = xin0 || xin1 ? static_cast<int>(x0) : 0;
   const int yi = yin0 || yin1 ? static_cast<int>(y0) : 0;
-  t.off[0] = yi * W + xi;
-  t.off[1] = yi * W + xi + 1;
-  t.off[2] = (yi + 1) * W + xi;
-  t.off[3] = (yi + 1) * W + xi + 1;
   t.wt[0] = (1.f - wx) * (1.f - wy);
   t.wt[1] = wx * (1.f - wy);
   t.wt[2] = (1.f - wx) * wy;
@@ -95,36 +88,12 @@ __device__ __forceinline__ LtkTaps ltk_voxel_taps(const float* __restrict__ mm,
   return t;
 }
 
-// The taps of voxel n = (gx * S + gy) * S + gz.
-__device__ __forceinline__ LtkTaps ltk_voxel_taps(const float* __restrict__ mm,
-                                                  int64_t n, int S, int H,
-                                                  int W, float sx, float sy) {
-  const float gz = static_cast<float>(n % S);
-  const float gy = static_cast<float>((n / S) % S);
-  const float gx = static_cast<float>(n / (static_cast<int64_t>(S) * S));
-  return ltk_voxel_taps(mm, gx, gy, gz, H, W, sx, sy);
-}
-
 // One tap's term of a bilinear sample, val + wt * f rounded once (an
-// explicit FMA): K1 and K5 sum their taps with it in the order ltk_bilinear
-// (K7) does, so a view that K1 samples alone gives K5's and K7's sample bit
-// for bit.
+// explicit FMA): K1 and sample_brick.cuh's gather4 (K5, K7) add the taps of
+// a sample with it in the order k = 0..3, so a view that K1 samples alone
+// gives K5's and K7's sample bit for bit.
 __device__ __forceinline__ float ltk_tap(float val, float wt, float f) {
   return __fmaf_rn(wt, f, val);
-}
-
-// The bilinear sample of one channel: fc points at channel c of pixel 0 of
-// an (H, W, C) map.
-template <typename T>
-__device__ __forceinline__ float ltk_bilinear(const LtkTaps& t,
-                                              const T* __restrict__ fc,
-                                              int C) {
-  float val = 0.f;
-  for (int k = 0; k < 4; ++k)
-    if (t.in & (1u << k))
-      val = ltk_tap(val, t.wt[k],
-                    ltk_ld(fc + static_cast<int64_t>(t.off[k]) * C));
-  return val;
 }
 
 // Asynchronous copies into shared memory and the launch helpers of the

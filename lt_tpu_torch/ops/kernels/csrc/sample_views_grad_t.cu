@@ -23,21 +23,11 @@
 // projected once, by one thread.  The block loads its gradient tile with
 // lanes over voxels (4 z-runs of 8 voxels, 4 whole sectors a warp
 // instruction, streaming loads: g is read once) into a [channel][voxel]
-// tile.  Where the brick's
-// box of taps in the map fits the plan's budget, the block pre-reduces the
-// brick's taps in shared memory before any global atomic: a counting sort
-// puts the brick's (voxel, tap) pairs in order of their pixel in the box
-// (a count a pixel with integer shared-memory atomics, whose returns rank
-// the taps; a block-wide scan; each tap written to its place), then each
-// warp takes whole pixels, its lanes over channels, sums the pixel's taps'
-// weighted gradients in a register and adds the sum to dF with one global
-// atomicAdd per (pixel, channel) where it is not 0: a median of 90 pixels
-// of a view (PERF.md) take the 1 024 taps of a brick.  (A float atomicAdd
-// in shared memory is a compare-and-swap loop on sm_90, ATOMS.CAST.SPIN:
-// a window of float sums built with it measured slower than this sort.)
-// A brick whose box exceeds the budget adds its taps to dF directly, 32
-// neighbouring floats an instruction.  Voxels whose gradient is exactly 0
-// (masked views) issue no atomics.
+// tile; then sample_brick.cuh's brick_scatter, shared with K8, pre-reduces
+// the brick's taps in shared memory where its box of taps fits the plan's
+// budget (a counting sort by pixel, per-pixel sums, one global atomicAdd
+// per (pixel, channel)) and adds them to dF directly where it does not: a
+// median of 90 pixels of a view (PERF.md) take the 1 024 taps of a brick.
 //
 // Nondeterminism: many voxels land on one pixel; the taps of a pixel are
 // summed in the order the counting sort placed them and the bricks' sums
@@ -50,107 +40,24 @@ namespace {
 
 using namespace ltk_brick;
 
-// Exclusive prefix sums of a[0..n) in place and the total in a[n], by all
-// threads of the block; wsum holds kNW ints.
-__device__ __forceinline__ void block_scan(int* a, int n, int* wsum) {
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int per = (n + kNT - 1) / kNT;
-  const int b0 = min(n, tid * per), b1 = min(n, b0 + per);
-  int own = 0;
-  for (int i = b0; i < b1; ++i) own += a[i];
-  int incl = own;
-#pragma unroll
-  for (int o = 1; o < 32; o <<= 1) {
-    const int up = __shfl_up_sync(~0u, incl, o);
-    if (lane >= o) incl += up;
-  }
-  if (lane == 31) wsum[warp] = incl;
-  __syncthreads();
-  int run = incl - own;
-  for (int w = 0; w < warp; ++w) run += wsum[w];
-  for (int i = b0; i < b1; ++i) {
-    const int c = a[i];
-    a[i] = run;
-    run += c;
-  }
-  if (tid == kNT - 1) a[n] = run;
-}
-
 __global__ void __launch_bounds__(kNT)
 sample_views_grad_t_kernel(const Args p) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const Smem sm = smem_layout(smem, p.window, true);
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const Smem sm = smem_layout(smem, p.window, kScatter);
+  const int tid = threadIdx.x;
   const int bv = blockIdx.y, c0 = blockIdx.z * kChunk;
   const int CH = min(kChunk, p.C - c0);
   const int64_t N = static_cast<int64_t>(p.S) * p.S * p.S;
   int gx, gy, gz;
   const bool mine = brick_voxel<K6Brick>(p, tid, gx, gy, gz);
-  const float* gs = p.src + (static_cast<int64_t>(bv) * p.C + c0) * N +
+  const float* gs = static_cast<const float*>(p.src) +
+                    (static_cast<int64_t>(bv) * p.C + c0) * N +
                     (gx * p.S + gy) * p.S + gz;
   for (int c = 0; c < CH; ++c)
     sm.tile[c * kPitch + tid] = mine ? __ldcs(gs + c * N) : 0.f;
-  const Box box = brick_taps(p, sm, p.m + bv * 12, mine, gx, gy, gz, true);
-  float* map = p.dst + static_cast<int64_t>(bv) * p.H * p.W * p.C + c0;
-  const int npix = box.ww * box.wh;
-  int* cnt = reinterpret_cast<int*>(sm.win);  // [npix + 1]
-  // [4 * kNT]: voxel * 4 + tap, in order of pixel
-  unsigned short* sorted =
-      reinterpret_cast<unsigned short*>(cnt + count_slots(p.window));
-  if (box.fits)
-    for (int e = tid; e <= npix; e += kNT) cnt[e] = 0;
-  __syncthreads();
-
-  if (!box.fits) {
-    // Direct: warp w takes voxels w, w + 8, ..., lane = channel.
-    if (lane >= CH) return;
-    for (int j = warp; j < kNT; j += kNW) {
-      const float gv = sm.tile[lane * kPitch + j];
-      if (gv == 0.f) continue;
-      const int4 o4 = sm.toff[j];
-      const float4 w4 = sm.twt[j];
-      const int o[4] = {o4.x, o4.y, o4.z, o4.w};
-      const float wk[4] = {w4.x, w4.y, w4.z, w4.w};
-#pragma unroll
-      for (int k = 0; k < 4; ++k)
-        if (o[k] >= 0) atomicAdd(map + o[k] + lane, wk[k] * gv);
-    }
-    return;
-  }
-
-  // The counting sort of the brick's taps by pixel (offset / kChunk).
-  const int4 o4 = sm.toff[tid];
-  const int pix[4] = {o4.x >> 5, o4.y >> 5, o4.z >> 5, o4.w >> 5};
-  static_assert(kChunk == 32, "pixel = window offset >> 5");
-  int rank[4];
-#pragma unroll
-  for (int k = 0; k < 4; ++k)
-    rank[k] = pix[k] >= 0 ? atomicAdd(cnt + pix[k], 1) : 0;
-  __syncthreads();
-  block_scan(cnt, npix, reinterpret_cast<int*>(sm.red));
-  __syncthreads();
-#pragma unroll
-  for (int k = 0; k < 4; ++k)
-    if (pix[k] >= 0)
-      sorted[cnt[pix[k]] + rank[k]] = static_cast<unsigned short>(tid * 4 + k);
-  __syncthreads();
-
-  // Each warp sums whole pixels, lanes over channels.
-  if (lane >= CH) return;
-  const float* wt = reinterpret_cast<const float*>(sm.twt);  // [voxel * 4 + k]
-  const float* row = sm.tile + lane * kPitch;
-  for (int q = warp; q < npix; q += kNW) {
-    float sum = 0.f;
-    const int e1 = cnt[q + 1];
-    for (int e = cnt[q]; e < e1; ++e) {
-      const int t = sorted[e];
-      sum = __fmaf_rn(wt[t], row[t >> 2], sum);
-    }
-    if (sum != 0.f) {
-      const int py = q / box.ww, px = q - py * box.ww;
-      atomicAdd(map + ((box.y0 + py) * p.W + box.x0 + px) * p.C + lane, sum);
-    }
-  }
+  const Box box =
+      brick_taps(p, sm, p.m + bv * 12, mine, gx, gy, gz);
+  brick_scatter(p, sm, box, bv, c0, CH);
 }
 
 }  // namespace
@@ -165,7 +72,7 @@ extern "C" int sample_views_grad_t(const float* g, const float* m, float* df,
                                    float sx, float sy, int window, int smem,
                                    int grid, int chunks, void* stream) {
   const int bad = plan_error<K6Brick>(BV, H, W, C, S, window, smem, grid,
-                                      chunks, true);
+                                      chunks, kScatter);
   if (bad) return bad;
   const Args a = make_args<K6Brick>(g, m, df, H, W, C, S, sx, sy, window);
   static bool allowed[64] = {};

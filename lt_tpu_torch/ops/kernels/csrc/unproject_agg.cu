@@ -39,10 +39,10 @@
 //     memory at the same offsets' global counterparts.
 // Threads then take (voxel, group of 4 float32 / 8 bfloat16 channels)
 // items: 16-byte reads of each tap, summed k = 0..3 with common.cuh's
-// ltk_tap as ltk_bilinear sums them (a tap off the map reads pixel 0 of the
+// ltk_tap as K5 and K7 sum them (a tap off the map reads pixel 0 of the
 // window or map and its term is dropped by a select, not a branch: a view
-// that K1 samples alone equals K5's sample bit for bit, whatever the
-// features hold), and the aggregation state (online
+// that K1 samples alone equals K5's and K7's sample bit for bit, whatever
+// the features hold), and the aggregation state (online
 // softmax without a branch: running max and rescaled sums) in registers
 // across the views.  Output rows are 16-byte stores.  C * element size not
 // a multiple of 16 bytes, or misaligned pointers, take element-by-element
@@ -184,7 +184,7 @@ unproject_agg_kernel(const AggArgs p) {
 #pragma unroll
         for (int k = 0; k < 4; ++k) {
           // A tap off the map (offset -1) reads pixel 0, and a select
-          // keeps val as it was: ltk_bilinear skips that tap.
+          // keeps val as it was: the sample has no term for that tap.
           const bool in = o[k] >= 0;
           const T* q = base + (in ? o[k] : 0) + cc;
           if (p.vec) {

@@ -5,9 +5,7 @@ Channels-major, (BV, C, S^3): kernels K5 and K6, the training path.  Port
 of ``lt_tpu/ops/pallas/unproject.py:612-658`` (``_sample_views_fwd_impl_t``),
 ``:993-1037`` (``_sample_views_grad_features_t``) and ``:1040-1070``
 (``sample_views_affine_t``); CUDA kernels ``csrc/sample_views_t.cu`` and
-``csrc/sample_views_grad_t.cu`` on voxel bricks (``csrc/sample_brick.cuh``:
-K6 on K1's, K5 on one elongated in z), launched with the plan of
-:func:`sample_plan`.
+``csrc/sample_views_grad_t.cu``.
 
 Voxels-major, (BV, S^3, C): kernels K7 and K8.  Port of ``:507-586``
 (``_sample_views_fwd_impl``), ``:896-918`` (``_sample_views_grad_features``)
@@ -15,6 +13,10 @@ and ``:1073-1108`` (``sample_views_affine``); CUDA kernels
 ``csrc/sample_views.cu`` and ``csrc/sample_views_grad.cu``.  The forward
 takes float32 or bfloat16 features and writes ``out_dtype``; the gradient
 is float32, computed in float32.
+
+All four work on voxel bricks (``csrc/sample_brick.cuh``: K5 on one
+elongated in z, K6-K8 on K1's), each voxel projected once, K8 sharing K6's
+pre-reduction; they are launched with the plan of :func:`sample_plan`.
 
 The ``*_plain`` functions are the plain versions.  The plain gradients are
 explicit ``index_add_`` scatters, not autograd of the plain sampling, so
@@ -34,35 +36,38 @@ from lt_tpu_torch.ops.kernels.bricks import AGG_BRICK, AGG_CHUNK, AGG_SMEM_MAX
 from lt_tpu_torch.ops.volumetric import index_grid, sample_homogeneous
 
 #: K5's brick of voxels (x, y, z), a voxel a thread: its z-runs of 32 voxels
-#: are whole 128-byte rows of its output.  K6 takes K1's AGG_BRICK.  Each
-#: measured slower on the other's brick on an H100 80GB HBM3 at 700 W
-#: (PERF.md, PR 8).
+#: are whole 128-byte rows of its output.  K6, K7 and K8 take K1's
+#: AGG_BRICK, whose boxes of taps span the fewest pixels.  Each measured
+#: slower on the other brick on an H100 80GB HBM3 at 700 W (PERF.md).
 K5_BRICK = (2, 4, 32)
-#: K5's and K6's default window budgets: pixels of a brick's window of one
-#: view.  K6 pre-reduces every (brick, view) of the flagship training
-#: geometry in shared memory (its windows span at most 288 pixels,
-#: tests/test_torch_sample_plan.py); K5 reads its taps from device memory,
-#: which measured faster than staged windows on an H100 80GB HBM3 at 700 W
-#: (PERF.md, kernel table row 8).
-K5_WINDOW = 0
+SAMPLE_BRICKS = {"sample_views_t": K5_BRICK, "sample_views_grad_t": AGG_BRICK,
+                 "sample_views": AGG_BRICK, "sample_views_grad": AGG_BRICK}
+#: The scatters (K6, K8), which pre-reduce a brick's taps in shared memory
+#: where its box of taps fits a window budget.
+SCATTERS = ("sample_views_grad_t", "sample_views_grad")
+#: K6's and K8's default window budget: pixels of a brick's window of one
+#: view.  Every (brick, view) of the flagship training geometry fits it
+#: (at most 288 pixels, tests/test_torch_sample_plan.py).
 K6_WINDOW = 384
 
 
-def sample_smem_bytes(window: int, grad: bool) -> int:
-    """sample_brick.cuh's ``smem_bytes``: the window region (K5: AGG_CHUNK
-    floats a pixel; K6, ``grad``: window + 1 int counts rounded up to 4 and 4
-    sorted taps a voxel, 16-bit), the [channel][voxel] float tile (pitch
-    voxels + 1), the taps (32 bytes a voxel) and the per-warp boxes."""
+def sample_smem_bytes(kernel: str, window: int = 0) -> int:
+    """sample_brick.cuh's ``smem_bytes`` of ``kernel`` (a C entry point of
+    K5-K8): the scatters' region (window + 1 int counts rounded up to 4 and
+    4 sorted taps a voxel, 16-bit), the [channel][voxel] float tile (pitch
+    voxels + 1; all but K7), the taps (32 bytes a voxel) and the scatters'
+    per-warp boxes."""
     nt = math.prod(AGG_BRICK)
-    region = ((window + 4) // 4 * 4 * 4 + 4 * nt * 2 if grad
-              else window * AGG_CHUNK * 4)
-    return region + AGG_CHUNK * (nt + 1) * 4 + nt * 32 + (nt // 32) * 16
+    scatter = kernel in SCATTERS
+    region = (window + 4) // 4 * 4 * 4 + 4 * nt * 2 if scatter else 0
+    tile = 0 if kernel == "sample_views" else AGG_CHUNK * (nt + 1) * 4
+    return region + tile + nt * 32 + ((nt // 32) * 16 if scatter else 0)
 
 
 class SamplePlan(NamedTuple):
-    """One K5 or K6 launch: the window budget (pixels; 0 stages none),
-    dynamic shared memory (bytes), bricks (grid x; grid y is the view)
-    and channel chunks (grid z)."""
+    """One launch of K5-K8: the window budget (pixels; K6 and K8 only, 0:
+    direct atomics), dynamic shared memory (bytes), bricks (grid x; grid y
+    is the view) and channel chunks (grid z)."""
     window: int
     smem: int
     grid: int
@@ -70,19 +75,37 @@ class SamplePlan(NamedTuple):
 
 
 @functools.lru_cache(maxsize=None)
-def sample_plan(channels: int, grid_size: int, window: int,
-                grad: bool) -> SamplePlan:
-    """The launch plan of K5 (``grad`` False) or K6 for C = ``channels``
-    and an S^3 grid: one block per brick (K5_BRICK; K6: AGG_BRICK) and
-    chunk of AGG_CHUNK channels, ``window`` pixels of window budget (K5:
-    staged features, K6: the pre-reduction; 0: none)."""
-    smem = sample_smem_bytes(window, grad)
+def sample_plan(kernel: str, channels: int, grid_size: int,
+                window: int = 0) -> SamplePlan:
+    """The launch plan of ``kernel`` (``sample_views_t``, K5;
+    ``sample_views_grad_t``, K6; ``sample_views``, K7;
+    ``sample_views_grad``, K8) for C = ``channels`` and an S^3 grid: one
+    block per brick (SAMPLE_BRICKS) and chunk of AGG_CHUNK channels;
+    ``window`` pixels of the scatters' pre-reduction budget (0: none; the
+    samplers stage no window)."""
+    if kernel not in SAMPLE_BRICKS:
+        raise ValueError(f"sample_plan: no kernel {kernel!r}")
+    if window and kernel not in SCATTERS:
+        raise ValueError(f"sample_plan: {kernel} takes no window budget")
+    smem = sample_smem_bytes(kernel, window)
     if smem > AGG_SMEM_MAX:
         raise ValueError(f"sample_views: a {window}-pixel window does not "
                          f"fit {AGG_SMEM_MAX} bytes of shared memory")
-    brick = AGG_BRICK if grad else K5_BRICK
-    bricks = math.prod(math.ceil(grid_size / n) for n in brick)
+    bricks = math.prod(math.ceil(grid_size / n)
+                       for n in SAMPLE_BRICKS[kernel])
     return SamplePlan(window, smem, bricks, math.ceil(channels / AGG_CHUNK))
+
+
+def _sampler_plan(plan: Optional[SamplePlan], kernel: str, channels: int,
+                  grid_size: int) -> SamplePlan:
+    """``plan``, or :func:`sample_plan`'s for a sampler (K5, K7); a window
+    budget, which a sampler does not take, raises."""
+    if plan is None:
+        return sample_plan(kernel, channels, grid_size)
+    if plan.window:
+        raise ValueError(f"{kernel}: a sampler takes no window budget, got "
+                         f"{plan}")
+    return plan
 
 
 def _check_affine(affine: torch.Tensor, bv: int) -> None:
@@ -112,8 +135,7 @@ def sample_views_t(features: torch.Tensor, affine: torch.Tensor,
     Args:
       features: (BV, H, W, C) float32 feature maps.
       affine: (BV, 3, 4) composed grid-index -> heatmap-pixel matrices.
-      plan: the launch plan (``grad`` False); default :func:`sample_plan`'s
-        with K5_WINDOW (another window budget computes the same bits).
+      plan: the launch plan (window 0); default :func:`sample_plan`'s.
     Returns:
       (BV, C, S^3) samples, voxel n = (gx * S + gy) * S + gz; 0 where
       w <= 0 or a tap falls outside the map.
@@ -127,12 +149,12 @@ def sample_views_t(features: torch.Tensor, affine: torch.Tensor,
     _build.check_cuda(affine, "affine", 3)
     out = torch.empty((bv, c, grid_size ** 3), dtype=torch.float32,
                       device=features.device)
-    plan = plan or sample_plan(c, grid_size, K5_WINDOW, False)
+    plan = _sampler_plan(plan, "sample_views_t", c, grid_size)
     p, i, f = _build.ptr, _build.i32, _build.f32
     _build.launch("sample_views_t", features.device,
-                  [p, p, p, i, i, i, i, i, f, f] + [i] * len(plan),
+                  [p, p, p, i, i, i, i, i, f, f, i, i, i],
                   features.data_ptr(), affine.data_ptr(), out.data_ptr(), bv,
-                  h, w, c, grid_size, (w - 1) / w, (h - 1) / h, *plan)
+                  h, w, c, grid_size, (w - 1) / w, (h - 1) / h, *plan[1:])
     return out
 
 
@@ -178,9 +200,8 @@ def sample_views_grad_t(g: torch.Tensor, affine: torch.Tensor, feat_shape,
       g: (BV, C, S^3) float32 cotangent of :func:`sample_views_t`.
       affine: (BV, 3, 4) as there.
       feat_shape: (BV, H, W, C) of the sampled features.
-      plan: the launch plan (``grad`` True); default :func:`sample_plan`'s
-        with K6_WINDOW (window 0: every brick adds its taps to dF
-        directly).
+      plan: the launch plan; default :func:`sample_plan`'s with K6_WINDOW
+        (window 0: every brick adds its taps to dF directly).
     Returns:
       dF (BV, H, W, C) float32.
     """
@@ -194,7 +215,8 @@ def sample_views_grad_t(g: torch.Tensor, affine: torch.Tensor, feat_shape,
     affine = affine.contiguous()
     _build.check_cuda(affine, "affine", 3)
     df = torch.zeros((bv, h, w, c), dtype=torch.float32, device=g.device)
-    plan = plan or sample_plan(c, grid_size, K6_WINDOW, True)
+    plan = plan or sample_plan("sample_views_grad_t", c, grid_size,
+                               K6_WINDOW)
     p, i, f = _build.ptr, _build.i32, _build.f32
     _build.launch("sample_views_grad_t", g.device,
                   [p, p, p, i, i, i, i, i, f, f] + [i] * len(plan),
@@ -244,7 +266,8 @@ def sample_views_plain(features: torch.Tensor, affine: torch.Tensor,
 
 
 def sample_views(features: torch.Tensor, affine: torch.Tensor,
-                 grid_size: int, out_dtype=torch.float32) -> torch.Tensor:
+                 grid_size: int, out_dtype=torch.float32,
+                 plan: Optional[SamplePlan] = None) -> torch.Tensor:
     """K7 on a CUDA tensor, its plain version on a CPU tensor.
 
     Args:
@@ -252,6 +275,7 @@ def sample_views(features: torch.Tensor, affine: torch.Tensor,
       affine: (BV, 3, 4) float32 composed grid-index -> heatmap-pixel
         matrices.
       out_dtype: float32 or bfloat16.
+      plan: the launch plan (window 0); default :func:`sample_plan`'s.
     Returns:
       (BV, S^3, C) samples, voxel n = (gx * S + gy) * S + gz; 0 where
       w <= 0 or a tap falls outside the map.
@@ -268,13 +292,14 @@ def sample_views(features: torch.Tensor, affine: torch.Tensor,
     _build.check_cuda(affine, "affine", 3)
     out = torch.empty((bv, grid_size ** 3, c), dtype=out_dtype,
                       device=features.device)
+    plan = _sampler_plan(plan, "sample_views", c, grid_size)
     p, i, f = _build.ptr, _build.i32, _build.f32
     _build.launch("sample_views", features.device,
-                  [p, p, p, i, i, i, i, i, f, f, i, i], features.data_ptr(),
-                  affine.data_ptr(), out.data_ptr(), bv, h, w, c, grid_size,
-                  (w - 1) / w, (h - 1) / h,
+                  [p, p, p, i, i, i, i, i, f, f, i, i, i, i, i],
+                  features.data_ptr(), affine.data_ptr(), out.data_ptr(), bv,
+                  h, w, c, grid_size, (w - 1) / w, (h - 1) / h,
                   _build.DTYPE_CODES[features.dtype],
-                  _build.DTYPE_CODES[out_dtype])
+                  _build.DTYPE_CODES[out_dtype], *plan[1:])
     return out
 
 
@@ -287,7 +312,8 @@ def sample_views_grad_plain(g: torch.Tensor, affine: torch.Tensor,
 
 
 def sample_views_grad(g: torch.Tensor, affine: torch.Tensor, feat_shape,
-                      grid_size: int) -> torch.Tensor:
+                      grid_size: int, plan: Optional[SamplePlan] = None
+                      ) -> torch.Tensor:
     """K8 on a CUDA tensor, its plain version on a CPU tensor.
 
     Args:
@@ -295,6 +321,8 @@ def sample_views_grad(g: torch.Tensor, affine: torch.Tensor, feat_shape,
         bfloat16.
       affine: (BV, 3, 4) as there.
       feat_shape: (BV, H, W, C) of the sampled features.
+      plan: the launch plan, K6's; default :func:`sample_plan`'s with
+        K6_WINDOW (window 0: every brick adds its taps to dF directly).
     Returns:
       dF (BV, H, W, C) float32.
     """
@@ -308,11 +336,13 @@ def sample_views_grad(g: torch.Tensor, affine: torch.Tensor, feat_shape,
     affine = affine.contiguous()
     _build.check_cuda(affine, "affine", 3)
     df = torch.zeros((bv, h, w, c), dtype=torch.float32, device=g.device)
+    plan = plan or sample_plan("sample_views_grad", c, grid_size, K6_WINDOW)
     p, i, f = _build.ptr, _build.i32, _build.f32
     _build.launch("sample_views_grad", g.device,
-                  [p, p, p, i, i, i, i, i, f, f, i], g.data_ptr(),
-                  affine.data_ptr(), df.data_ptr(), bv, h, w, c, grid_size,
-                  (w - 1) / w, (h - 1) / h, _build.DTYPE_CODES[g.dtype])
+                  [p, p, p, i, i, i, i, i, f, f, i] + [i] * len(plan),
+                  g.data_ptr(), affine.data_ptr(), df.data_ptr(), bv, h, w, c,
+                  grid_size, (w - 1) / w, (h - 1) / h,
+                  _build.DTYPE_CODES[g.dtype], *plan)
     return df
 
 

@@ -80,23 +80,21 @@ def unproject_plan(channels: int, grid_size: int, elem: int,
     return AggPlan(window, smem, bricks, math.ceil(channels / AGG_CHUNK))
 
 
-def brick_windows(m: torch.Tensor, grid_size: int, h: int, w: int,
-                  brick=AGG_BRICK):
-    """K1's staged windows in plain PyTorch (K5's and K6's with their
-    ``brick``): for each sample, view and brick (in the kernel's grid
-    order: z fastest, then y, then x), the pixel bounding box (x0, x1, y0,
-    y1) of the taps of the brick's voxels that lie in the (h, w) map, and
-    its pixel count (0 where no tap does).
+def brick_windows(m: torch.Tensor, grid_size: int, h: int, w: int):
+    """K1's staged windows in plain PyTorch (and the boxes of K6's and K8's
+    pre-reduction, on the same brick): for each sample, view and brick (in
+    the kernel's grid order: z fastest, then y, then x), the pixel bounding
+    box (x0, x1, y0, y1) of the taps of the brick's voxels that lie in the
+    (h, w) map, and its pixel count (0 where no tap does).
 
     Args:
       m: (B, V, 3, 4) composed grid-index -> pixel matrices.
-      brick: (x, y, z) voxels of a brick.
     Returns:
       boxes (B, V, bricks, 4) and pixels (B, V, bricks), int64.
     """
     b, v = m.shape[:2]
     s = grid_size
-    bx, by, bz = brick
+    bx, by, bz = AGG_BRICK
     nby, nbz = math.ceil(s / by), math.ceil(s / bz)
     uvw = _project(m.reshape(b * v, 3, 4), s)              # (BV, N, 3)
     z = uvw[..., 2]

@@ -6,7 +6,9 @@ conv3d_mma_f32.cu, the split into bfloat16 parts, and its split_bf16 for
 float32 inputs), K3's tensor-core body for bfloat16 (upsample3d_2x_mma.cu),
 the fused aggregation's gradient, the wrappers' device / launch rules, and
 V2V's folded weights after an optimizer step; K1-K4 in bfloat16, the
-voxels-major sampling kernels K7 / K8, ``conv3d_same`` and the three
+voxels-major sampling kernels K7 / K8 on their bricks (four type pairs,
+both of K8's paths, bit for bit against K5 and within 1e-5 of K6),
+``conv3d_same`` and the three
 ``res3d_block_*`` entry points at a small and at the flagship shape, and
 V2V's per-conv and bfloat16 paths.
 
@@ -751,11 +753,26 @@ def test_res3d_entry_points_keep_their_shape_rules(dev):
         res3d_folded.res3d_block_folded(_randn(dev, 1, 4, 4, 4, 16), *prm)
 
 
-@pytest.mark.parametrize("out_dtype", [torch.float32, BF16])
-@pytest.mark.parametrize("in_dtype", [torch.float32, BF16])
+TYPE_PAIRS = [(torch.float32, torch.float32), (torch.float32, BF16),
+              (BF16, torch.float32), (BF16, BF16)]
+
+
+def _k7_bits(feats, m, s, out_dtype, got):
+    """K7's three bit-for-bit relations: float32 (or bfloat16 widened)
+    features give K5's sample transposed; a bfloat16 output is that sample
+    rounded to nearest even once."""
+    from lt_tpu_torch.ops.kernels import sample
+
+    k5 = sample.sample_views_t(feats.float(), m, s).transpose(1, 2)
+    assert torch.equal(got, k5.to(out_dtype))
+
+
+@pytest.mark.parametrize("in_dtype, out_dtype", TYPE_PAIRS)
 def test_sample_views(dev, in_dtype, out_dtype):
-    """K7 on the edge-case scene, and its float32 result as K5's,
-    transposed, bit for bit (same taps, same sum)."""
+    """K7 on the edge-case scene in all four type pairs, against its plain
+    version and, bit for bit, K5's sample transposed (of the widened
+    features; rounded once for a bfloat16 output): same taps, same sum.
+    The views behind the camera and off the map are exactly 0."""
     from lt_tpu_torch.ops.kernels import sample
 
     feats, m, s = _sampling_scene(dev)
@@ -766,22 +783,37 @@ def test_sample_views(dev, in_dtype, out_dtype):
     _close(got, sample.sample_views_plain(feats, m, s, out_dtype),
            REL if exact else REL_BF16)
     assert bool((got[3] == 0).all()) and bool((got[5] == 0).all())
-    if exact:
-        assert torch.equal(got, sample.sample_views_t(feats, m, s)
-                           .transpose(1, 2))
+    _k7_bits(feats, m, s, out_dtype, got)
+    if out_dtype == BF16:
+        f32 = sample.sample_views(feats, m, s)
+        assert torch.equal(got, f32.to(BF16))
 
 
 @pytest.mark.parametrize("g_dtype", [torch.float32, BF16])
 def test_sample_views_grad(dev, g_dtype):
+    """K8 on the edge-case scene for both g types and both plans (the
+    pre-reduction and direct atomics only): against the plain scatter, and
+    against K6 on the transposed cotangent (1e-5); the views behind the
+    camera and off the map, and a view whose gradient is 0, get exactly
+    0."""
     from lt_tpu_torch.ops.kernels import sample
 
     feats, m, s = _sampling_scene(dev)
     shape = tuple(feats.shape)
     g = _randn(dev, shape[0], s ** 3, shape[-1], seed=4).to(g_dtype)
-    got = sample.sample_views_grad(g, m, shape, s)
-    assert got.dtype == torch.float32
-    _close(got, sample.sample_views_grad_plain(g, m, shape, s))
-    assert bool((got[3] == 0).all()) and bool((got[5] == 0).all())
+    g[1] = 0.0
+    ref = sample.sample_views_grad_plain(g, m, shape, s)
+    k6 = sample.sample_views_grad_t(g.float().transpose(1, 2).contiguous(), m,
+                                    shape, s)
+    for window in (sample.K6_WINDOW, 0):
+        got = sample.sample_views_grad(
+            g, m, shape, s,
+            sample.sample_plan("sample_views_grad", shape[-1], s, window))
+        assert got.dtype == torch.float32
+        _close(got, ref)
+        _close(got, k6, rel=1e-5)
+        for view in (1, 3, 5):
+            assert bool((got[view] == 0).all())
 
 
 def test_sample_views_affine_at_training_shapes(dev):
@@ -1062,7 +1094,7 @@ def test_upsample3d_2x_f32_misaligned(dev, which):
 
 
 # ---------------------------------------------------------------------------
-# K5's and K6's bricks: staged windows, the pre-reduction, the direct path
+# K5's and K6's bricks: the pre-reduction, the direct path
 # ---------------------------------------------------------------------------
 
 
@@ -1108,25 +1140,38 @@ K56_SCENES = ["edge", "s10", "c17", "c48", "misaligned", "over_budget"]
 
 @pytest.mark.parametrize("scene", K56_SCENES + ["inf"])
 def test_sample_views_t_bricks_and_windows(dev, scene):
-    """K5 against its plain version where its bricks and windows have
-    edges; every plan (no window, a 24-pixel budget: some windows staged,
-    some not; 384 pixels) gives the same bits.  With inf in the maps'
+    """K5 against its plain version where its bricks have edges, with its
+    one plan; a plan that does not fit is refused.  With inf in the maps'
     first row and column K5 gives what it gives without (the plain version
     on the maps without inf), where K1 does too."""
     from lt_tpu_torch.ops.kernels import sample
 
     feats, m, s = _k56_scene(dev, scene)
-    c = feats.shape[-1]
-    outs = [sample.sample_views_t(feats, m, s,
-                                  sample.sample_plan(c, s, w, False))
-            for w in (0, 24, 384)]
+    out = sample.sample_views_t(feats, m, s)
     finite = feats.nan_to_num(posinf=0.0)
-    _close(outs[0], sample.sample_views_t_plain(finite, m, s))
-    for out in outs[1:]:
-        assert torch.equal(out, outs[0])
+    _close(out, sample.sample_views_t_plain(finite, m, s))
+    _refuses_wrong_plans(sample.sample_views_t, "sample_views_t",
+                         feats.shape[-1], s, feats, m, s)
     if scene == "inf":
-        assert torch.equal(outs[0], sample.sample_views_t(finite, m, s))
-        assert bool((outs[0][1] == 0).all())
+        assert torch.equal(out, sample.sample_views_t(finite, m, s))
+        assert bool((out[1] == 0).all())
+
+
+def _refuses_wrong_plans(fn, kernel, c, s, *args):
+    """``fn(*args, plan=...)`` raises, before anything runs, for a window
+    budget on a sampler and for sample_plan's plan with another grid or
+    shared-memory size (the C entry's plan_error)."""
+    from lt_tpu_torch.ops.kernels import _build, sample
+
+    plan = sample.sample_plan(kernel, c, s)
+    before = _build.LAUNCHES[kernel]
+    with pytest.raises(ValueError, match="window"):
+        fn(*args, plan=plan._replace(window=24))
+    for wrong in (plan._replace(grid=plan.grid + 1),
+                  plan._replace(smem=plan.smem + 16)):
+        with pytest.raises(RuntimeError, match="failed to launch"):
+            fn(*args, plan=wrong)
+    assert _build.LAUNCHES[kernel] == before
 
 
 @pytest.mark.parametrize("scene", K56_SCENES)
@@ -1146,9 +1191,84 @@ def test_sample_views_grad_t_bricks_and_paths(dev, scene):
         g = _offset(g)
     ref = sample.sample_views_grad_t_plain(g, m, shape, s)
     got = {w: sample.sample_views_grad_t(
-        g, m, shape, s, sample.sample_plan(shape[-1], s, w, True))
+        g, m, shape, s,
+        sample.sample_plan("sample_views_grad_t", shape[-1], s, w))
            for w in (sample.K6_WINDOW, 24, 0)}
     for df in got.values():
         _close(df, ref)
         assert bool((df[1] == 0).all())
     _close(got[0], got[sample.K6_WINDOW])
+
+
+# ---------------------------------------------------------------------------
+# K7's and K8's bricks: the voxels-major sampling and its scatter
+# ---------------------------------------------------------------------------
+
+
+K78_SCENES = K56_SCENES + ["c17_s7", "c17_s10"]
+
+
+def _k78_scene(dev, scene):
+    """_k56_scene's cases and C = 17 at S = 7 and 10 (the element path on
+    bricks past the grid's sides)."""
+    if scene.startswith("c17_s"):
+        return _sampling_scene(dev, c=17, s=int(scene[5:]))
+    return _k56_scene(dev, scene)
+
+
+@pytest.mark.parametrize("in_dtype, out_dtype", TYPE_PAIRS)
+@pytest.mark.parametrize("scene", K78_SCENES + ["inf"])
+def test_sample_views_bricks_and_types(dev, scene, in_dtype, out_dtype):
+    """K7 against its plain version (1e-4 in float32, 1.6e-2 with bfloat16
+    anywhere) where its bricks have edges, in all four type pairs, with its
+    one plan (a plan that does not fit is refused); bit for bit K5's
+    sample transposed (of the widened features, rounded once for a
+    bfloat16 output).  misaligned: features one element off their 16-byte
+    (float32) or 8-byte (bfloat16) boundary.  With inf in the maps' first
+    row and column K7 gives what it gives without."""
+    from lt_tpu_torch.ops.kernels import sample
+
+    feats, m, s = _k78_scene(dev, scene)
+    feats = feats.to(in_dtype)
+    if scene == "misaligned":
+        feats = _offset(feats)
+    out = sample.sample_views(feats, m, s, out_dtype)
+    exact = in_dtype == out_dtype == torch.float32
+    finite = feats.nan_to_num(posinf=0.0)
+    _close(out, sample.sample_views_plain(finite, m, s, out_dtype),
+           REL if exact else REL_BF16)
+    _refuses_wrong_plans(sample.sample_views, "sample_views",
+                         feats.shape[-1], s, feats, m, s, out_dtype)
+    _k7_bits(feats, m, s, out_dtype, out)
+    if scene == "inf":
+        assert torch.equal(out, sample.sample_views(finite, m, s, out_dtype))
+        assert bool((out[1] == 0).all())
+
+
+@pytest.mark.parametrize("g_dtype", [torch.float32, BF16])
+@pytest.mark.parametrize("scene", K78_SCENES)
+def test_sample_views_grad_bricks_and_paths(dev, scene, g_dtype):
+    """K8 against its plain version where its bricks have edges, with one
+    view masked (exactly 0 reaches its maps), for float32 and bfloat16 g:
+    the default plan, a 24-pixel budget (some bricks pre-reduced, some
+    direct) and direct atomics only, each within 1e-5 of K6 on the
+    transposed (widened) cotangent.  misaligned: g one element off its
+    16-byte (float32) or 8-byte (bfloat16) boundary."""
+    from lt_tpu_torch.ops.kernels import sample
+
+    feats, m, s = _k78_scene(dev, scene)
+    shape = tuple(feats.shape)
+    g = _randn(dev, shape[0], s ** 3, shape[-1], seed=4).to(g_dtype)
+    g[1] = 0.0
+    if scene == "misaligned":
+        g = _offset(g)
+    ref = sample.sample_views_grad_plain(g, m, shape, s)
+    k6 = sample.sample_views_grad_t(g.float().transpose(1, 2).contiguous(), m,
+                                    shape, s)
+    for w in (sample.K6_WINDOW, 24, 0):
+        df = sample.sample_views_grad(
+            g, m, shape, s,
+            sample.sample_plan("sample_views_grad", shape[-1], s, w))
+        _close(df, ref)
+        _close(df, k6, rel=1e-5)
+        assert bool((df[1] == 0).all())

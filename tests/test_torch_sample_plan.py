@@ -1,26 +1,31 @@
-"""The launch plans of K5 and K6 (``csrc/sample_views_t.cu``,
-``csrc/sample_views_grad_t.cu`` on ``csrc/sample_brick.cuh``), and plain
-PyTorch models of their two paths, on the CPU.
+"""The launch plans of K5-K8 (``csrc/sample_views_t.cu``,
+``csrc/sample_views_grad_t.cu``, ``csrc/sample_views.cu``,
+``csrc/sample_views_grad.cu`` on ``csrc/sample_brick.cuh``), and plain
+PyTorch models of the kernels, brick by brick, on the CPU.
 
-``ops/kernels/sample.sample_plan`` picks the window budget, dynamic shared
-memory and grid of bricks for both kernels: K6 takes K1's 4 x 8 x 8 brick
-(``AGG_BRICK``), K5 a brick elongated in z, 2 x 4 x 32 (``K5_BRICK``: its
-z-runs are whole 128-byte rows of its output, and it measured faster).  A launch refused for too much shared memory never runs, so the
-guard is here, where no card is needed:
+``ops/kernels/sample.sample_plan`` picks the window budget (the scatters K6
+and K8 only), dynamic shared memory and grid of bricks of each kernel: K6,
+K7 and K8 take K1's 4 x 8 x 8 brick (``AGG_BRICK``), K5 a brick elongated
+in z, 2 x 4 x 32 (``K5_BRICK``: its z-runs are whole 128-byte rows of its
+output, and it measured faster there).  A launch refused for too much shared
+memory never runs, so the guard is here, where no card is needed:
 
 - every plan fits the H100 (shared memory <= 232,448 bytes; the default
-  plans leave room for five blocks on an SM),
-  its grid (bricks, views, chunks) fits CUDA's limits, and the kernels'
+  plans leave room for the blocks on an SM that each design assumes), its
+  grid (bricks, views, chunks) fits CUDA's limits, and the kernels'
   constants and shared-memory formula are the plan's;
 - at the flagship training geometry (``chip_smoke.py``'s: the example rig's
   first 5 samples, a 2500 mm cuboid, 96^2 maps, 64^3) every (brick, view)
-  window fits K6's budget, so every brick pre-reduces in shared memory;
-- K6 modelled brick by brick (window path: the brick's taps added into a
-  window of its box, then the window added to dF; direct path: the taps
-  added to dF) and K5 modelled brick by brick (taps read from the staged
-  window or from the map, a tap off the map reading pixel 0 and dropped
-  by a select) equal the plain versions for budgets that take every brick
-  down either path or some down each.
+  window fits the scatters' budget, so every brick pre-reduces in shared
+  memory;
+- K6 and K8 modelled brick by brick (window path: the brick's taps added
+  into a window of its box, then the window added to dF; direct path: the
+  taps added to dF; K8's tile loaded from whole voxels-major rows, bfloat16
+  widened) equal the plain versions for budgets that take every brick down
+  either path or some down each; K5 and K7 modelled brick by brick (taps
+  read from the map, a tap off the map reading pixel 0 and dropped by a
+  select; K7 reading bfloat16 features widened and writing rows, a
+  bfloat16 output rounded once) equal the plain versions and each other.
 """
 
 import math
@@ -36,9 +41,9 @@ from lt_tpu_torch.models.triangulation import (rescale_proj_to_heatmap,
 from lt_tpu_torch.ops import volumetric as vol_ops
 from lt_tpu_torch.ops.kernels import sample
 from lt_tpu_torch.ops.kernels.bricks import AGG_BRICK, AGG_CHUNK, AGG_SMEM_MAX
-from lt_tpu_torch.ops.kernels.sample import (K5_BRICK, K5_WINDOW, K6_WINDOW,
-                                             _project, sample_plan,
-                                             sample_smem_bytes)
+from lt_tpu_torch.ops.kernels.sample import (K5_BRICK, K6_WINDOW,
+                                             SAMPLE_BRICKS, _project,
+                                             sample_plan, sample_smem_bytes)
 from lt_tpu_torch.ops.kernels.unproject import (brick_windows,
                                                 compose_grid_projection)
 from lt_tpu_torch.utils.example import example_batch
@@ -50,53 +55,69 @@ SM_SMEM, BLOCK_RESERVED = 233472, 1024
 FLAG_S, FLAG_HM, FLAG_C, TRAIN_BATCH = 64, 96, 32, 5
 
 
+KERNELS = ("sample_views_t", "sample_views_grad_t", "sample_views",
+           "sample_views_grad")
+
+
 @pytest.mark.parametrize("c, s", [(FLAG_C, FLAG_S), (17, 7), (48, 10),
                                   (40, 13), (1, 3), (32, 1), (100, 9),
                                   (64, 33), (8, 2), (256, 16)])
-@pytest.mark.parametrize("window", [0, 24, K6_WINDOW, 1400])
-@pytest.mark.parametrize("grad", [False, True])
-def test_sample_plan_fits(c, s, window, grad):
-    plan = sample_plan(c, s, window, grad)
+@pytest.mark.parametrize("kernel, window", [
+    ("sample_views_t", 0), ("sample_views", 0),
+    ("sample_views_grad_t", 0), ("sample_views_grad_t", 24),
+    ("sample_views_grad_t", K6_WINDOW), ("sample_views_grad_t", 1400),
+    ("sample_views_grad", 0), ("sample_views_grad", K6_WINDOW)])
+def test_sample_plan_fits(c, s, kernel, window):
+    plan = sample_plan(kernel, c, s, window)
     assert plan.window == window
-    assert plan.smem == sample_smem_bytes(window, grad) <= AGG_SMEM_MAX
-    brick = AGG_BRICK if grad else K5_BRICK
+    assert plan.smem == sample_smem_bytes(kernel, window) <= AGG_SMEM_MAX
+    brick = K5_BRICK if kernel == "sample_views_t" else AGG_BRICK
+    assert SAMPLE_BRICKS[kernel] == brick
     assert plan.grid == math.prod(math.ceil(s / n) for n in brick)
     assert plan.chunks == math.ceil(c / AGG_CHUNK)
     # The launch grid (bricks, views, chunks) at the training batch's 20
     # views: CUDA's grid limits.
     assert plan.grid < 2 ** 31 and 20 <= 65535 and plan.chunks <= 65535
+    if kernel == "sample_views_grad":       # K8 launches K6's plan
+        assert plan == sample_plan("sample_views_grad_t", c, s, window)
 
 
 def test_sample_plan_defaults_at_the_flagship():
-    """K6 pre-reduces by default with room for five blocks on an SM (its
-    counts and sorted taps take 3.6 KB); K5 reads its taps from device
-    memory with room for five (staged 384-pixel windows would leave room
-    for two); one chunk of 32 channels, 1024 bricks of 256 voxels each."""
-    k5 = sample_plan(FLAG_C, FLAG_S, K5_WINDOW, False)
-    k6 = sample_plan(FLAG_C, FLAG_S, K6_WINDOW, True)
-    assert K6_WINDOW == 384 and K5_WINDOW == 0
-    assert k5.grid == k6.grid == 1024 and k5.chunks == k6.chunks == 1
-    assert 5 * (k6.smem + BLOCK_RESERVED) <= SM_SMEM
-    assert 5 * (k5.smem + BLOCK_RESERVED) <= SM_SMEM
-    staged = sample_plan(FLAG_C, FLAG_S, K6_WINDOW, False)
-    assert 2 * (staged.smem + BLOCK_RESERVED) <= SM_SMEM < 3 * (
-        staged.smem + BLOCK_RESERVED)
+    """K5, K6 and K8 leave room for five blocks on an SM (K6's and K8's
+    counts and sorted taps take 3.6 KB beside the 32 KB tile); K7, with no
+    tile, for eight, the most 256-thread blocks an SM holds; one chunk of
+    32 channels, 1024 bricks of 256 voxels each."""
+    plans = {k: sample_plan(k, FLAG_C, FLAG_S,
+                            K6_WINDOW if "grad" in k else 0)
+             for k in KERNELS}
+    assert K6_WINDOW == 384
+    for k, plan in plans.items():
+        assert plan.grid == 1024 and plan.chunks == 1
+        blocks = 8 if k == "sample_views" else 5
+        assert blocks * (plan.smem + BLOCK_RESERVED) <= SM_SMEM
+    assert plans["sample_views"].smem == 256 * 32
 
 
 def test_sample_plan_refuses_what_cannot_fit():
     with pytest.raises(ValueError, match="does not fit"):
-        sample_plan(32, 64, 2000, False)
+        sample_plan("sample_views_grad_t", 32, 64, 60000)
     with pytest.raises(ValueError, match="does not fit"):
-        sample_plan(32, 64, 60000, True)
+        sample_plan("sample_views_grad", 32, 64, 60000)
+    for kernel in ("sample_views_t", "sample_views"):
+        with pytest.raises(ValueError, match="no window"):
+            sample_plan(kernel, 32, 64, 24)
+    with pytest.raises(ValueError, match="no kernel"):
+        sample_plan("unproject_agg", 32, 64)
 
 
 def test_sample_kernel_constants_are_the_plans():
     src = (CSRC / "sample_brick.cuh").read_text()
     assert "return (window + 4) / 4 * 4;" in src
-    assert ("return grad ? count_slots(window) * 4 + 4 * kNT * 2 : window * "
-            "kChunk * 4;") in src
-    assert ("return window_bytes(window, grad) + kChunk * kPitch * 4 + kNT * "
-            "32 +\n         kNW * 16;") in src
+    assert ("return l == kScatter ? count_slots(window) * 4 + 4 * kNT * 2 : "
+            "0;") in src
+    assert ("return region_bytes(window, l) + (l == kTaps ? 0 : kChunk * "
+            "kPitch * 4) +\n         kNT * 32 + (l == kScatter ? kNW * 16 : "
+            "0);") in src
     assert "constexpr int kPitch = kNT + 1;" in src
     assert "constexpr int kNW = kNT / 32;" in src
 
@@ -109,13 +130,27 @@ def test_sample_kernel_constants_are_the_plans():
     assert "constexpr int kNT = 256;" in src
     assert math.prod(AGG_BRICK) == math.prod(K5_BRICK) == 256
     assert "using K5Brick = Brick<{}, {}, {}>;".format(*K5_BRICK) in src
-    assert "using K6Brick = Brick<{}, {}, {}>;".format(*AGG_BRICK) in src
-    for name, brick in (("sample_views_t", "K5Brick"),
-                        ("sample_views_grad_t", "K6Brick")):
+    assert "using K6Brick = Brick<{}, {}, {}>;  // K6, K7, K8".format(
+        *AGG_BRICK) in src
+    for name, brick, layout in (("sample_views_t", "K5Brick", "kTile"),
+                                ("sample_views_grad_t", "K6Brick",
+                                 "kScatter"),
+                                ("sample_views", "K6Brick", "kTaps"),
+                                ("sample_views_grad", "K6Brick",
+                                 "kScatter")):
         kernel = (CSRC / f"{name}.cu").read_text()
         assert '#include "sample_brick.cuh"' in kernel
         assert f"brick_voxel<{brick}>" in kernel
         assert f"plan_error<{brick}>" in kernel
+        assert re.search(rf"smem_layout\(smem, [\w.]+, {layout}\)", kernel)
+        assert re.search(rf"plan_error<{brick}>\([^;]*{layout}\);", kernel)
+        assert SAMPLE_BRICKS[name] == (K5_BRICK if brick == "K5Brick"
+                                       else AGG_BRICK)
+    # K8 shares K6's body: the pre-reduction is written once.
+    for name in ("sample_views_grad_t", "sample_views_grad"):
+        kernel = (CSRC / f"{name}.cu").read_text()
+        assert "brick_scatter(p, sm, box, bv, c0, CH);" in kernel
+        assert "atomicAdd(" not in kernel
 
 
 def test_flagship_training_windows_fit_k6_budget():
@@ -207,28 +242,30 @@ def _taps(m, s, h, w):
             inside)
 
 
-def _windows(m, s, h, w, budget, brick):
+def _windows(m, s, h, w, budget):
     """Per view and brick: its box (x0, x1, y0, y1), pixels, and whether
-    the kernel takes the window path (the box has pixels, within the
+    the scatter takes the window path (the box has pixels, within the
     budget)."""
-    boxes, pixels = brick_windows(m[None], s, h, w, brick)
+    boxes, pixels = brick_windows(m[None], s, h, w)
     boxes, pixels = boxes[0], pixels[0]
     fits = (pixels > 0) & (pixels <= budget)
     return boxes, pixels, fits
 
 
-def _k6_model(g, m, shape, s, budget):
-    """Window path: the brick's taps summed by pixel of its box (the
-    kernel's counting sort and per-pixel sums), each pixel's sum added to
-    dF; direct path: each tap added to dF."""
+def _scatter_model(tile, m, shape, s, budget):
+    """K6's body, brick by brick (brick_scatter): ``tile(v, vox)`` is the
+    brick's gradient tile (C, voxels) as the kernel loads it.  Window path:
+    the brick's taps summed by pixel of its box (the kernel's counting sort
+    and per-pixel sums), each pixel's sum added to dF; direct path: each
+    tap added to dF."""
     bv, h, w, c = shape
     xs, ys, wts, inside = _taps(m, s, h, w)
-    boxes, pixels, fits = _windows(m, s, h, w, budget, AGG_BRICK)
+    boxes, pixels, fits = _windows(m, s, h, w, budget)
     df = torch.zeros(bv, h * w, c)
     for v in range(bv):
         for bi, vox in enumerate(_bricks(s, AGG_BRICK)):
             keep = inside[v, vox]                            # (n, 4)
-            terms = (g[v][:, vox].T[:, None, :]
+            terms = (tile(v, vox).T[:, None, :]
                      * wts[v, vox][..., None])[keep]         # (taps, C)
             x, y = xs[v, vox][keep], ys[v, vox][keep]
             if fits[v, bi]:
@@ -245,39 +282,88 @@ def _k6_model(g, m, shape, s, budget):
     return df.reshape(shape)
 
 
-def _k5_model(feats, m, s, budget):
-    """Taps read from the brick's staged window or from the map; a tap off
-    the map reads pixel 0 and its term is dropped by a select."""
-    bv, h, w, c = feats.shape
+def _k6_model(g, m, shape, s, budget):
+    """K6: the tile is g's (C, S^3) columns of the brick's voxels."""
+    return _scatter_model(lambda v, vox: g[v][:, vox], m, shape, s, budget)
+
+
+def _k8_model(g, m, shape, s, budget):
+    """K8: the tile loaded from g's voxels-major rows, chunk by chunk of 32
+    channels, at ((gx * S + gy) * S + gz) * C + c0 + cc of the flattened
+    view, bfloat16 widened; then K6's body."""
+    c = shape[-1]
+    flat = g.float().reshape(shape[0], -1)
+
+    def tile(v, vox):
+        rows = torch.cat([flat[v][vox[:, None] * c + c0
+                                  + torch.arange(min(AGG_CHUNK, c - c0))]
+                          for c0 in range(0, c, AGG_CHUNK)], 1)
+        return rows.T
+
+    return _scatter_model(tile, m, shape, s, budget)
+
+
+def _map_taps(m, s, h, w, c):
+    """Each view's and voxel's tap offsets (y * W + x) * C into the
+    flattened map, -1 off the map (sample_brick.cuh's map_taps), and
+    weights."""
     xs, ys, wts, inside = _taps(m, s, h, w)
-    boxes, pixels, fits = _windows(m, s, h, w, budget, K5_BRICK)
-    out = torch.zeros(bv, c, s ** 3)
+    return torch.where(inside, (ys * w + xs) * c, -1), wts
+
+
+def _gather(flat, off, wt, c0, ch):
+    """gather4 over a chunk: channels c0..c0+ch of the voxels' samples, the
+    taps summed k = 0..3, a tap off the map reading pixel 0 and dropped by
+    a select."""
+    val = torch.zeros(len(off), ch)
+    cols = c0 + torch.arange(ch)
+    for k in range(4):
+        keep = off[:, k, None] >= 0
+        vals = flat[off[:, k, None].clamp_min(0) + cols]
+        val = torch.where(keep, val + wt[:, k, None] * vals, val)
+    return val
+
+
+def _k5_model(feats, m, s):
+    """K5: taps read from the map; each brick's samples into the (C,
+    voxels) tile, stored as channel rows."""
+    bv, h, w, c = feats.shape
+    off, wts = _map_taps(m, s, h, w, c)
+    flat = feats.float().reshape(bv, -1)
+    out = torch.full((bv, c, s ** 3), float("nan"))
     for v in range(bv):
-        for bi, vox in enumerate(_bricks(s, K5_BRICK)):
-            keep = inside[v, vox]
-            x, y = xs[v, vox], ys[v, vox]
-            if fits[v, bi]:
-                x0, x1, y0, y1 = boxes[v, bi].tolist()
-                src = feats[v, y0:y1 + 1, x0:x1 + 1].reshape(-1, c)
-                idx = (y - y0) * (x1 - x0 + 1) + (x - x0)
-            else:
-                src = feats[v].reshape(-1, c)
-                idx = y * w + x
-            vals = src[torch.where(keep, idx, 0)]           # (n, 4, C)
-            val = torch.zeros(len(vox), c)
-            for k in range(4):
-                val = torch.where(keep[:, k, None],
-                                  val + wts[v, vox, k, None] * vals[:, k],
-                                  val)
-            out[v][:, vox] = val.T
+        for vox in _bricks(s, K5_BRICK):
+            for c0 in range(0, c, AGG_CHUNK):
+                ch = min(AGG_CHUNK, c - c0)
+                out[v, c0:c0 + ch, vox] = _gather(flat[v], off[v, vox],
+                                                  wts[v, vox], c0, ch).T
+    assert not bool(out.isnan().any())       # every element written once
     return out
 
 
-def _paths_taken(m, s, h, w, budget, brick):
+def _k7_model(feats, m, s, out_dtype=torch.float32):
+    """K7: taps read from the map (bfloat16 features widened); each brick's
+    samples written as rows at ((gx * S + gy) * S + gz) * C + c0 + cc of
+    the flattened view, rounded once to ``out_dtype``."""
+    bv, h, w, c = feats.shape
+    off, wts = _map_taps(m, s, h, w, c)
+    flat = feats.float().reshape(bv, -1)
+    out = torch.full((bv, s ** 3 * c), float("nan"))
+    for v in range(bv):
+        for vox in _bricks(s, AGG_BRICK):
+            for c0 in range(0, c, AGG_CHUNK):
+                ch = min(AGG_CHUNK, c - c0)
+                out[v][vox[:, None] * c + c0 + torch.arange(ch)] = _gather(
+                    flat[v], off[v, vox], wts[v, vox], c0, ch)
+    assert not bool(out.isnan().any())       # every element written once
+    return out.reshape(bv, s ** 3, c).to(out_dtype)
+
+
+def _paths_taken(m, s, h, w, budget):
     """Budget 0 takes every brick with a tap in the map down the direct
     path, K6_WINDOW every one down the window path, the middle budget some
     down each."""
-    _, pixels, fits = _windows(m, s, h, w, budget, brick)
+    _, pixels, fits = _windows(m, s, h, w, budget)
     direct = (pixels > 0) & ~fits
     assert bool(fits.any()) == (budget > 0)
     assert bool(direct.any()) == (budget < K6_WINDOW)
@@ -293,7 +379,7 @@ def test_k6_model_of_both_paths_is_the_plain_scatter(s, c, budget):
     g = torch.from_numpy(np.random.RandomState(1).randn(
         shape[0], c, s ** 3).astype(np.float32))
     g[5] = 0.0
-    _paths_taken(m, s, shape[1], shape[2], budget, AGG_BRICK)
+    _paths_taken(m, s, shape[1], shape[2], budget)
     got = _k6_model(g, m, shape, s, budget)
     ref = sample.sample_views_grad_t_plain(g, m, shape, s)
     assert bool((got[5] == 0).all()) and bool((got[1] == 0).all())
@@ -301,37 +387,101 @@ def test_k6_model_of_both_paths_is_the_plain_scatter(s, c, budget):
                                atol=1e-5 * ref.abs().max().item())
 
 
-@pytest.mark.parametrize("budget", [0, 16, K6_WINDOW])
-@pytest.mark.parametrize("s, c", [(7, 40), (10, 17)])
-def test_k5_model_of_both_paths_is_the_plain_sample(s, c, budget):
-    """Taps read from the staged window or from the map, a tap off the map
-    reading pixel 0 and dropped by a select: equal to
-    sample_views_t_plain; with inf in the maps' first row and column, every
-    voxel whose taps in the map stay clear of them (all of views 1 and 3,
-    whose taps are all off the map) keeps its sample bit for bit."""
+@pytest.mark.parametrize("g_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("budget", [0, 40, K6_WINDOW])
+@pytest.mark.parametrize("s, c", [(7, 40), (10, 17), (13, 8)])
+def test_k8_model_of_both_paths_is_the_plain_scatter(s, c, budget, g_dtype):
+    """K8's tile from whole voxels-major rows, then K6's body: equal to
+    sample_views_grad_plain for float32 and bfloat16 g (widened), and to
+    the K6 model on the transposed cotangent; a masked view (a gradient of
+    0) and the view behind its camera get no gradient."""
     feats, m = _scene(s, seed=s, c=c)
-    _paths_taken(m, s, *feats.shape[1:3], budget, K5_BRICK)
-    ref = sample.sample_views_t_plain(feats, m, s)
-    got = _k5_model(feats, m, s, budget)
-    torch.testing.assert_close(got, ref, rtol=0, atol=1e-6)
+    shape = tuple(feats.shape)
+    g = torch.from_numpy(np.random.RandomState(2).randn(
+        shape[0], s ** 3, c).astype(np.float32)).to(g_dtype)
+    g[5] = 0.0
+    _paths_taken(m, s, shape[1], shape[2], budget)
+    got = _k8_model(g, m, shape, s, budget)
+    ref = sample.sample_views_grad_plain(g, m, shape, s)
+    assert bool((got[5] == 0).all()) and bool((got[1] == 0).all())
+    atol = 1e-5 * ref.abs().max().item()
+    torch.testing.assert_close(got, ref, rtol=0, atol=atol)
+    k6 = _k6_model(g.float().transpose(1, 2), m, shape, s, budget)
+    torch.testing.assert_close(got, k6, rtol=0, atol=atol)
+
+
+def _inf_clear(feats, m, s, model):
+    """With inf in the maps' first row and column, every voxel whose taps
+    in the map stay clear of them (all of views 1 and 3, whose taps are all
+    off the map) keeps its sample bit for bit; ``model`` gives voxels-major
+    samples."""
     xs, ys, _, inside = _taps(m, s, *feats.shape[1:3])
     clear = ~(inside & ((xs == 0) | (ys == 0))).any(-1)        # (BV, N)
     assert bool(clear[1].all()) and bool(clear[3].all())
     inf = feats.clone()
     inf[:, 0] = float("inf")
     inf[:, :, 0] = float("inf")
-    got_inf = _k5_model(inf, m, s, budget).transpose(1, 2)
-    assert torch.equal(got_inf[clear], got.transpose(1, 2)[clear])
+    assert torch.equal(model(inf)[clear], model(feats)[clear])
 
 
-def test_wrappers_take_the_plain_versions_on_the_cpu_whatever_the_plan():
+@pytest.mark.parametrize("s, c", [(7, 40), (10, 17), (13, 8)])
+def test_k5_model_of_both_paths_is_the_plain_sample(s, c):
+    """Taps read from the map, a tap off the map reading pixel 0 and
+    dropped by a select: equal to sample_views_t_plain; inf in the maps'
+    first row and column reaches no voxel whose taps stay clear of it."""
+    feats, m = _scene(s, seed=s, c=c)
+    ref = sample.sample_views_t_plain(feats, m, s)
+    got = _k5_model(feats, m, s)
+    torch.testing.assert_close(got, ref, rtol=0, atol=1e-6)
+    _inf_clear(feats, m, s, lambda f: _k5_model(f, m, s).transpose(1, 2))
+
+
+@pytest.mark.parametrize("in_dtype, out_dtype", [
+    (torch.float32, torch.float32), (torch.float32, torch.bfloat16),
+    (torch.bfloat16, torch.float32), (torch.bfloat16, torch.bfloat16)])
+@pytest.mark.parametrize("s", [7, 10, 13])
+@pytest.mark.parametrize("c", [40, 17, 8])
+def test_k7_model_of_its_bricks_is_the_plain_sample(c, s, in_dtype,
+                                                     out_dtype):
+    """Voxels-major rows, brick by brick: equal to sample_views_plain on
+    _scene's edge views (one bfloat16 ulp of the largest value where the
+    output is bfloat16: the two round once, from float32 sums in another
+    order) and to the K5 model transposed (bit for bit, rounded once);
+    inf in the maps' first row and column reaches no voxel whose taps stay
+    clear of it."""
+    feats, m = _scene(s, seed=s, c=c)
+    feats = feats.to(in_dtype)
+    got = _k7_model(feats, m, s, out_dtype)
+    assert got.dtype == out_dtype
+    ref = sample.sample_views_plain(feats, m, s, out_dtype)
+    atol = (2.0 ** -7 * ref.abs().max().item() if out_dtype == torch.bfloat16
+            else 1e-6)
+    torch.testing.assert_close(got.float(), ref.float(), rtol=0, atol=atol)
+    assert torch.equal(got, _k5_model(feats, m, s).transpose(1, 2)
+                       .to(out_dtype))
+    assert bool((got[1] == 0).all()) and bool((got[3] == 0).all())
+    _inf_clear(feats, m, s, lambda f: _k7_model(f, m, s, out_dtype))
+
+
+@pytest.mark.parametrize("kernel", KERNELS)
+def test_wrappers_take_the_plain_versions_on_the_cpu_whatever_the_plan(
+        kernel):
     feats, m = _scene(7, seed=0)
-    plan = sample_plan(40, 7, 24, False)
-    torch.testing.assert_close(sample.sample_views_t(feats, m, 7, plan),
-                               sample.sample_views_t_plain(feats, m, 7))
-    plan = sample_plan(40, 7, 24, True)
-    g = torch.randn(6, 40, 7 ** 3, generator=torch.Generator().manual_seed(0))
     shape = tuple(feats.shape)
-    torch.testing.assert_close(
-        sample.sample_views_grad_t(g, m, shape, 7, plan),
-        sample.sample_views_grad_t_plain(g, m, shape, 7))
+    plan = sample_plan(kernel, 40, 7, 24 if "grad" in kernel else 0)
+    gen = torch.Generator().manual_seed(0)
+    if kernel == "sample_views_t":
+        got, ref = (sample.sample_views_t(feats, m, 7, plan),
+                    sample.sample_views_t_plain(feats, m, 7))
+    elif kernel == "sample_views":
+        got, ref = (sample.sample_views(feats, m, 7, torch.bfloat16, plan),
+                    sample.sample_views_plain(feats, m, 7, torch.bfloat16))
+    elif kernel == "sample_views_grad_t":
+        g = torch.randn(6, 40, 7 ** 3, generator=gen)
+        got, ref = (sample.sample_views_grad_t(g, m, shape, 7, plan),
+                    sample.sample_views_grad_t_plain(g, m, shape, 7))
+    else:
+        g = torch.randn(6, 7 ** 3, 40, generator=gen)
+        got, ref = (sample.sample_views_grad(g, m, shape, 7, plan),
+                    sample.sample_views_grad_plain(g, m, shape, 7))
+    torch.testing.assert_close(got, ref, rtol=0, atol=0)
