@@ -10,8 +10,12 @@ version.  K2 runs on the tensor cores in two instances of one body:
 ``upsample3d_2x_mma`` (tensor cores) for bfloat16.  Every bfloat16 path
 must launch only the bfloat16 bodies, every float32 path only the float32
 ones.  K1's replay line also times its other launch plan (feature windows
-staged in shared memory or not), held to the plain version as well.  Then
-it drives
+staged in shared memory or not), K4's its scalar instance (on a base off 16
+bytes), each held to the plain version as well; K3's and K4's launches,
+a few microseconds each at the small levels, are timed also as CUDA graphs
+(``graph_ms``), which the host's launch loop cannot keep fed.  A phase
+plants NaN and infinities in K1-K4's inputs and holds each kernel to its
+plain version's NaN (``nan_checks``).  Then it drives
 the port's paths at the flagship width (ResNet-152, 384^2 images, 4 views,
 64^3 volume, softmax aggregation, 17 joints, seeded random weights): the
 eval forward through K1-K4 (requests at batch 8) in float32 and in the
@@ -40,6 +44,7 @@ are the kernels JSON, the ``nvidia-smi`` name / power-limit line and
 from __future__ import annotations
 
 import argparse
+import contextlib
 import functools
 import json
 import math
@@ -83,6 +88,16 @@ KP_TOL_BF16_MM = 4.0
 FIX_BF16_MEAN_MM = 3.0
 FIX_BF16_MAX_MM = 15.0
 REQUESTS = 3            # flagship forwards answered on the kernel path
+# The kernels whose replayed launches are also timed as a CUDA graph
+# (graph_ms): launches of a few microseconds, which the host's launch loop
+# cannot keep fed.  Their rows' ``ms`` is the graph time, ``loop_ms`` the
+# loop's.
+GRAPH_TIMED = ("max_pool3d_2x", "upsample3d_2x", "upsample3d_2x_mma")
+# Compared bit for bit with their plain versions.
+BIT_EXACT = ("split_bf16", "max_pool3d_2x")
+GRAPH_BUDGET_MS = 5.0   # device time one captured graph holds, about
+GRAPH_MAX_CALLS = 200   # calls one captured graph holds, at most
+GRAPH_REPLAYS = 5       # replays of the graph between the two events
 TRAIN_YAML = "experiments/human36m/train/human36m_vol_softmax.yaml"
 SYNTH_YAML = "experiments/synthetic/vol_tiny_2stage.yaml"
 TRAIN_BATCH = 5         # the flagship training config's batch
@@ -136,7 +151,8 @@ def split_products(k: int) -> int:
 # The C argument that carries a launch's activation type (default: the
 # last one); split_bf16 takes float32 only.
 DTYPE_ARG = {"conv3d_mma": 13, "conv3d_mma_f32": 13, "upsample3d_2x": 11,
-             "upsample3d_2x_mma": 11, "unproject_agg": 14, "split_bf16": None}
+             "upsample3d_2x_mma": 11, "unproject_agg": 14, "split_bf16": None,
+             "max_pool3d_2x": 7}
 
 # The TPU kernels (pallas_call sites) each CUDA kernel replaces.
 _K2_SITES = ("lt_tpu/ops/pallas/conv_mp.py:237, :442, "
@@ -191,6 +207,78 @@ def cuda_ms(fn, budget_ms: float = 300.0) -> float:
     return start.elapsed_time(end) / n
 
 
+@contextlib.contextmanager
+def launches_kept():
+    """Leave every kernel's launch count as it was on entry: capturing a
+    CUDA graph calls each wrapper once per captured launch (which counts
+    it) and launches nothing then."""
+    from lt_tpu_torch.ops.kernels import _build
+
+    saved = dict(_build.LAUNCHES)
+    try:
+        yield
+    finally:
+        _build.LAUNCHES.update(saved)
+
+
+def graph_n(est_ms: float, budget_ms: float = GRAPH_BUDGET_MS) -> int:
+    """Calls of ``est_ms`` each that one captured graph holds: about
+    ``budget_ms`` of work, 2 to GRAPH_MAX_CALLS."""
+    return int(max(2, min(GRAPH_MAX_CALLS, budget_ms // max(est_ms, 1e-3))))
+
+
+@functools.lru_cache(maxsize=None)
+def _capture_stream():
+    """The one stream every graph is warmed up and captured on: a cuBLAS
+    call on a new stream allocates a workspace that lives as long as the
+    process, and would add to the training step's peak memory later."""
+    import torch
+
+    return torch.cuda.Stream()
+
+
+def graph_ms(fn) -> float:
+    """Mean device time of ``fn`` without host gaps between launches: n
+    calls (:func:`graph_n`) captured once as a CUDA graph, replayed
+    GRAPH_REPLAYS times between two CUDA events, the span over the calls.
+    The capture leaves the launch counts as they were
+    (:func:`launches_kept`)."""
+    import torch
+
+    n = graph_n(cuda_ms(fn, 0.0))
+    graph = torch.cuda.CUDAGraph()
+    side = _capture_stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):           # warm-up off the default stream
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    with launches_kept():
+        with torch.cuda.graph(graph, stream=side):
+            for _ in range(n):
+                fn()
+    graph.replay()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(GRAPH_REPLAYS):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    del graph
+    return start.elapsed_time(end) / (GRAPH_REPLAYS * n)
+
+
+def unaligned(x):
+    """A contiguous copy of ``x`` whose base lies one element past a
+    16-byte boundary: a kernel with a vector and a scalar instance takes
+    the scalar one there."""
+    import torch
+
+    buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    out = buf[1:].view(x.shape)
+    out.copy_(x)
+    return out
+
+
 def rel_err(got, ref):
     """(max |got - ref|, that over max |ref|)."""
     err = (got - ref).abs().max().item()
@@ -238,6 +326,12 @@ def deterministic_cudnn():
 
     return torch.backends.cudnn.flags(enabled=True, benchmark=False,
                                       deterministic=True, allow_tf32=False)
+
+
+def pool_bytes(numel: int, itemsize: int) -> float:
+    """Bytes MaxPool3d(2) must move: its input read once, its output (an
+    eighth of it) written once."""
+    return itemsize * numel * 9 / 8
 
 
 def bound(nbytes: float, flops: float, peak_flops: float = PEAK_F32_FLOPS):
@@ -351,13 +445,18 @@ def make_case(name, args, geometry, dev, gen):
                  * (2 if skip is not None else 1)) + 4 * b8.numel(),
             2.0 * out_n * cin)
     if name == "max_pool3d_2x":
-        _, _, b, sx, sy, sz, c, _ = args
+        b, sx, sy, sz, c = args[2:7]
         x = randn(b, sx, sy, sz, c)
-        return Case(
+        case = Case(
             lambda: updown.max_pool3d_2x(x),
             lambda: updown.max_pool3d_2x_plain(x),
             lambda: F.max_pool3d(x.permute(0, 4, 1, 2, 3), 2),
-            f * x.numel() * 9 / 8, 7.0 * x.numel() / 8)
+            pool_bytes(x.numel(), f), 7.0 * x.numel() / 8)
+        if args[8] > 1:     # the scalar instance too, on a base off 16 bytes
+            xs = unaligned(x)
+            case.variants["scalar instance"] = lambda: updown.max_pool3d_2x(
+                xs)
+        return case
     if name == "unproject_agg":
         _, _, _, conf_ptr, _, b, v, h, w, c, s, method = args[:12]
         names = {0: "softmax", 1: "sum", 2: "max", 3: "conf"}
@@ -452,19 +551,21 @@ def _dtype_of(name, args):
     return torch.bfloat16 if i is not None and args[i] else torch.float32
 
 
-def _acc(table, key, mult, err, rel, ms, plain_ms, lib_ms, case, peak):
+def _acc(table, key, mult, err, rel, ms, loop_ms, plain_ms, lib_ms, case,
+         peak):
     """Add ``mult`` launches of ``case`` to ``table[key]``.  The bound of
     several launches is the sum of each launch's bound (each is its own
     pass over its bytes), on ``peak`` and on the tensor cores."""
     acc = table.setdefault(key, dict(
-        launches=0, max_abs_err=0.0, max_rel_err=0.0, ms=0.0, plain_ms=0.0,
-        library_ms=None, nbytes=0.0, flops=0.0, tc_bound_ms=0.0,
-        f32_bound_ms=0.0, bound_ms=0.0,
+        launches=0, max_abs_err=0.0, max_rel_err=0.0, ms=0.0, loop_ms=0.0,
+        plain_ms=0.0, library_ms=None, nbytes=0.0, flops=0.0,
+        tc_bound_ms=0.0, f32_bound_ms=0.0, bound_ms=0.0,
         bound_by={"bytes": 0.0, "operations": 0.0}))
     acc["launches"] += mult
     acc["max_abs_err"] = max(acc["max_abs_err"], err)
     acc["max_rel_err"] = max(acc["max_rel_err"], rel)
     acc["ms"] += mult * ms
+    acc["loop_ms"] += mult * loop_ms
     acc["plain_ms"] += mult * plain_ms
     if lib_ms is not None:
         acc["library_ms"] = (acc["library_ms"] or 0.0) + mult * lib_ms
@@ -492,24 +593,28 @@ def replay(calls, geometry, dev):
         distinct.setdefault(key, [entry, name, args, 0])[3] += 1
     for entry, name, args, mult in distinct.values():
         case = make_case(name, args, geometry, dev, gen)
-        tol = (0.0 if name == "split_bf16" else      # bit for bit
+        tol = (0.0 if name in BIT_EXACT else
                REL_TOL if _dtype_of(name, args) == torch.float32
                else REL_TOL_BF16)
+        timer = graph_ms if name in GRAPH_TIMED else cuda_ms
         got, ref = case.run(), case.plain()
         err, rel = check(f"{name}{_shape_str(name, args)}", got, ref, tol)
         variants = ""
         for label, fn in case.variants.items():
             rel_v = check(f"{name} {label}", fn(), ref, tol)[1]
-            variants += f"  [{label}: {cuda_ms(fn):.4f} ms, rel {rel_v:.3e}]"
+            variants += f"  [{label}: {timer(fn):.4f} ms, rel {rel_v:.3e}]"
         del ref
         emu = ""
         if case.emulation is not None:
             emu = (f"  (rel {rel_err(got, case.emulation())[1]:.3e} from its "
                    f"products summed in float32)")
         del got
-        ms = cuda_ms(case.run)
-        plain_ms = cuda_ms(case.plain)
-        lib_ms = None if case.library is None else cuda_ms(case.library)
+        loop_ms = cuda_ms(case.run)
+        ms = timer(case.run)
+        plain_ms = timer(case.plain)
+        lib_ms = None if case.library is None else timer(case.library)
+        graphed = (f" as a graph (loop {loop_ms:.4f} ms)"
+                   if name in GRAPH_TIMED else "")
         b_ms, _ = bound(case.nbytes, case.flops,
                         PEAK_OF.get(name, PEAK_F32_FLOPS))
         tc = ""
@@ -526,13 +631,14 @@ def replay(calls, geometry, dev):
                    f"CUDA-core bound "
                    f"{bound(case.nbytes, case.f32_flops)[0]:.4f} ms)")
         log(f"  {entry}: {name}{_shape_str(name, args)} x{mult}: "
-            f"max_abs_err {err:.3e} rel {rel:.3e}  kernel {ms:.4f} ms  plain "
+            f"max_abs_err {err:.3e} rel {rel:.3e}  kernel {ms:.4f} ms"
+            f"{graphed}  plain "
             f"{plain_ms:.4f} ms  library "
             f"{'n/a' if lib_ms is None else f'{lib_ms:.4f} ms'}  bound "
             f"{b_ms:.4f} ms{tc}{emu}{variants}")
         for table, k in ((per_kernel, name), (per_entry, entry)):
-            _acc(table, k, mult, err, rel, ms, plain_ms, lib_ms, case,
-                 PEAK_OF.get(name, PEAK_F32_FLOPS))
+            _acc(table, k, mult, err, rel, ms, loop_ms, plain_ms, lib_ms,
+                 case, PEAK_OF.get(name, PEAK_F32_FLOPS))
         del case
         torch.cuda.empty_cache()
     return per_kernel, per_entry
@@ -563,6 +669,11 @@ def _shape_str(name, args):
         return (f"({','.join(map(str, ints[:7]))}) plan kp={kp} "
                 f"steps_per_block={per} n_split={nsplit} smem={smem} B "
                 f"grid={grid}")
+    if name == "max_pool3d_2x":
+        vec, bx, by, gx, gy, gz = ints[6:]
+        return (f"({','.join(map(str, ints[:6]))}) "
+                f"{'vector' if vec > 1 else 'scalar'} instance plan "
+                f"vec={vec} block={bx}x{by} grid={gx}x{gy}x{gz}")
     if name == "unproject_agg":
         window, smem, grid, chunks = ints[10:]
         return (f"({','.join(map(str, ints[:7]))}) plan window={window} px "
@@ -711,6 +822,166 @@ def entry_point_checks(batch, geometry, dev, dt=None, tol=REL_TOL):
         lambda: updown.upsample3d_2x(h64, w8, b8, skip=x32),
         lambda: updown.upsample3d_2x_plain(h64, w8, b8, skip=x32))
     torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# NaN and infinities: each kernel keeps them where its plain version does
+# ---------------------------------------------------------------------------
+
+
+def plant(x, gen, count=4):
+    """``x`` with NaN, +inf and -inf each at ``count`` random elements (in
+    place; returns x)."""
+    import torch
+
+    flat = x.view(-1)
+    idx = torch.randint(0, flat.numel(), (3, count), generator=gen,
+                        device=x.device)
+    for row, v in zip(idx, (math.nan, math.inf, -math.inf)):
+        flat[row] = v
+    return x
+
+
+def nonfinite_diff(name, got, ref, tol, nan_ref=None):
+    """Kernel vs plain on inputs with NaN or inf planted (``check`` refuses
+    non-finite outputs): NaN exactly where the plain version has NaN, its
+    infinities the same, its finite values finite and within ``tol`` of the
+    largest finite |plain| (0: bit for bit), and at least one NaN reached.
+    ``nan_ref``: where the kernel turns an infinity of its input into NaN,
+    the plain version's output with the planted infinities made NaN, whose
+    NaN the kernel must have instead.  Logs the counts; returns ``name`` if
+    the case fails, else None."""
+    if got.shape != ref.shape or got.dtype != ref.dtype:
+        log(f"  {name}: {tuple(got.shape)} {got.dtype} != "
+            f"{tuple(ref.shape)} {ref.dtype} -> FAIL")
+        return name
+    g, r = got.float(), ref.float()
+    want_nan = (ref if nan_ref is None else nan_ref).float().isnan()
+    nan_g = g.isnan()
+    dropped = int((want_nan & ~nan_g).sum())
+    added = int((nan_g & ~want_nan).sum())
+    inf_r = r.isinf() & ~want_nan
+    inf_bad = int((inf_r & (g != r)).sum())
+    fin = r.isfinite() & ~want_nan
+    both = fin & g.isfinite()
+    err = (g[both] - r[both]).abs().max().item() if both.any() else 0.0
+    scale = r[fin].abs().max().item() if fin.any() else 0.0
+    rel = err / max(scale, 1e-30)
+    ok = (not (dropped or added or inf_bad) and rel <= tol
+          and bool(want_nan.any()))
+    log(f"  {name}: NaN {int(want_nan.sum())} (kernel drops {dropped}, adds "
+        f"{added}), inf {int(inf_r.sum())} (kernel differs at {inf_bad}), "
+        f"finite {int(fin.sum())}, rel err {rel:.3e} (limit {tol}) -> "
+        f"{'ok' if ok else 'FAIL'}")
+    return None if ok else name
+
+
+def nan_checks(batch, geometry, dev):
+    """NaN and inf planted in the inputs of K1-K4, each kernel held to its
+    plain version by :func:`nonfinite_diff`: K4 bit for bit at the
+    flagship's five pool shapes, both instances and types; K3 and K2 (the
+    per-conv ``conv3d_same`` and the fused ``res3d_block_fused``) in both
+    types; K1's four aggregations with NaN features.  Raises after the
+    phase, naming every case that failed."""
+    import torch
+
+    from lt_tpu_torch.ops.kernels import conv3d, res3d, unproject, updown
+
+    gen = torch.Generator(device=dev).manual_seed(6)
+    failed = []
+
+    def randn(*shape, scale=1.0, dtype=torch.float32):
+        return (torch.randn(shape, generator=gen, device=dev)
+                * scale).to(dtype)
+
+    def run(label, kernel_fn, plain_fn, tol, nan_fn=None):
+        got = kernel_fn()
+        with deterministic_cudnn():
+            ref = plain_fn()
+            nan_ref = None if nan_fn is None else nan_fn()
+        failed.append(nonfinite_diff(label, got, ref, tol, nan_ref))
+
+    def inf_to_nan(t):
+        return t.masked_fill(t.isinf(), math.nan)
+
+    s = FLAGSHIP["volume"]
+    for dt, tol in ((torch.float32, REL_TOL), (torch.bfloat16, REL_TOL_BF16)):
+        name = str(dt).replace("torch.", "")
+        for side, c in ((s, 32), (s // 2, 64), (s // 4, 128), (s // 8, 128),
+                        (s // 16, 128)):
+            x = plant(randn(batch, side, side, side, c, dtype=dt), gen)
+            x[0, :2, :2, :2, 0] = math.nan          # a window all NaN
+            x[0, 2:4, :2, :2, 1] = -math.inf        # a window all -inf
+            for label, xi in (("vector", x), ("scalar", unaligned(x))):
+                run(f"max_pool3d_2x {side}^3x{c} x{batch} {name} {label} "
+                    f"instance", lambda: updown.max_pool3d_2x(xi),
+                    lambda: updown.max_pool3d_2x_plain(xi), 0.0)
+            del x, xi
+        for shape, cout, skip in (((2, 8, 8, 8, 128), 128, True),
+                                  ((1, 4, 4, 4, 64), 17, False)):
+            cin = shape[-1]
+            x = plant(randn(*shape, dtype=dt), gen)
+            w8 = randn(cin, 8 * cout, scale=cin ** -0.5, dtype=dt)
+            b8 = randn(8 * cout, scale=0.1)
+            sk = (plant(randn(shape[0], *(2 * d for d in shape[1:4]), cout,
+                              dtype=dt), gen) if skip else None)
+            run(f"upsample3d_2x {shape} -> {cout} skip={skip} {name}",
+                lambda: updown.upsample3d_2x(x, w8, b8, sk),
+                lambda: updown.upsample3d_2x_plain(x, w8, b8, sk), tol)
+        # K2: the float32 body sums products of bfloat16 parts, and an
+        # infinity's lower parts are inf - inf = NaN, so it gives NaN
+        # wherever an infinity of its convolved input reaches, even through
+        # a ReLU that maps -inf to 0 (ROADMAP Queue C; the residual is added
+        # in float32): its NaN is held to the plain version's with those
+        # infinities made NaN.
+        f32 = dt == torch.float32
+        x = plant(randn(2, 16, 16, 16, 32, dtype=dt), gen)
+        res = plant(randn(2, 16, 16, 16, 32, dtype=dt), gen)
+        w = randn(3, 3, 3, 32, 32, scale=(27 * 32) ** -0.5, dtype=dt)
+        bias = randn(32, scale=0.1)
+        run(f"conv3d_same 32->32 relu + residual {name}",
+            lambda: conv3d.conv3d_same(x, w, bias, relu=True, residual=res),
+            lambda: conv3d.conv3d_fused_plain(x, w, bias, res, True), tol,
+            (lambda: conv3d.conv3d_fused_plain(inf_to_nan(x), w, bias, res,
+                                               True)) if f32 else None)
+        x = plant(randn(2, 8, 8, 8, 64, dtype=dt), gen)
+        blk = [randn(3, 3, 3, 64, 64, scale=(27 * 64) ** -0.5, dtype=dt),
+               randn(64, scale=0.1),
+               randn(3, 3, 3, 64, 64, scale=(27 * 64) ** -0.5, dtype=dt),
+               randn(64, scale=0.1)]
+
+        def p_block(v):
+            y = conv3d.conv3d_fused_plain(v, blk[0], blk[1], relu=True)
+            return conv3d.conv3d_fused_plain(y, blk[2], blk[3], residual=v,
+                                             relu=True)
+
+        run(f"res3d_block_fused identity 64 @8^3 {name}",
+            lambda: res3d.res3d_block_fused(x, *blk), lambda: p_block(x),
+            tol if f32 else 2 * tol,
+            (lambda: p_block(inf_to_nan(x))) if f32 else None)
+        # K1: NaN in a patch of each map's interior, which only in-map taps
+        # reach (a tap off the map is dropped by a select in K1 and
+        # multiplied by 0 in the plain version: ROADMAP Queue C).
+        hm = FLAGSHIP["heatmap"]
+        feats = randn(2, 4, hm, hm, 32, dtype=dt)
+        feats[:, :, hm // 2 - 4:hm // 2 + 4, hm // 2 - 4:hm // 2 + 4,
+              ::3] = math.nan
+        m = geometry(2)
+        mask = torch.ones(2, 4, device=dev)
+        conf = randn(2, 4, 32).abs()
+        for method in ("softmax", "sum", "max", "conf"):
+            vc = conf if method == "conf" else None
+            run(f"unproject_agg {method} NaN features {name}",
+                lambda: unproject.unproject_agg(feats, m, mask, vc, method,
+                                                s),
+                lambda: unproject.unproject_agg_plain(feats, m, mask, vc,
+                                                      method, s), tol)
+        del feats
+        torch.cuda.empty_cache()
+    failed = [f for f in failed if f]
+    if failed:
+        raise AssertionError(f"non-finite inputs: {len(failed)} cases "
+                             f"differ from the plain version: {failed}")
 
 
 # ---------------------------------------------------------------------------
@@ -1438,8 +1709,13 @@ def main(argv=None) -> int:
                 "max_abs_err": k["max_abs_err"], "ms": k["ms"],
                 "plain_ms": k["plain_ms"], "bound_ms": b_ms,
                 "bound_by": b_by, "library_ms": k["library_ms"]}
+            graphed = ""
+            if name in GRAPH_TIMED:
+                table[name]["loop_ms"] = k["loop_ms"]
+                graphed = f" as graphs (loop {k['loop_ms']:.3f} ms)"
             log(f"  {name}: {launches[name] // n} launches/forward, kernel "
-                f"{k['ms']:.3f} ms, plain {k['plain_ms']:.3f} ms, library "
+                f"{k['ms']:.3f} ms{graphed}, plain {k['plain_ms']:.3f} ms, "
+                f"library "
                 f"{_ms(k['library_ms'])}, bound {b_ms:.4f} ms ({b_by}; with "
                 f"tensor cores {k['tc_bound_ms']:.4f} ms, on the CUDA cores "
                 f"{k['f32_bound_ms']:.4f} ms), max rel err "
@@ -1454,6 +1730,11 @@ def main(argv=None) -> int:
     log(f"[entry points] batch {b}, flagship shapes, tolerance rel "
         f"{REL_TOL}")
     entry_point_checks(b, geometry, dev)
+
+    # Phase 3b: NaN and infinities in the kernels' inputs.
+    log("[nan] NaN, +inf and -inf planted in the inputs of K1-K4, each "
+        "kernel against its plain version")
+    nan_checks(b, geometry, dev)
 
     # Phase 4: the flagship forward on the kernel path.
     log(f"[flagship] VolumetricTriangulationNet RN-{fl['layers']} "

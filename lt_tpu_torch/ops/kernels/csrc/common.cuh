@@ -26,6 +26,18 @@ __device__ __forceinline__ void ltk_st(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16_rn(v);
 }
 
+// The larger of a and b, NaN where either is NaN, as jnp.maximum,
+// torch.amax and torch.relu give it (fmaxf returns the other operand where
+// one is NaN).  max.NaN (sm_80+) orders zeros as fmaxf's max does, so finite
+// inputs give fmaxf's bits.
+__device__ __forceinline__ float ltk_max_nan(float a, float b) {
+  float d;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(d) : "f"(a), "f"(b));
+  return d;
+}
+// ReLU that keeps NaN (K2's and K3's epilogues).
+__device__ __forceinline__ float ltk_relu(float v) { return ltk_max_nan(v, 0.f); }
+
 // Blocks for a grid-stride loop over `total` items, `threads` per block.
 static inline int ltk_blocks(int64_t total, int threads, int64_t cap = 1 << 20) {
   int64_t b = (total + threads - 1) / threads;

@@ -414,7 +414,7 @@ conv3d_mma_kernel(const MmaArgs p) {
         const int64_t off = base + co0 + col;
         float v = tile[m * TS + col] + p.bias[co0 + col];
         if (res != nullptr) v += ltk_ld(res + off);
-        if (p.relu) v = fmaxf(v, 0.f);
+        if (p.relu) v = ltk_relu(v);
         ltk_st(out + off, v);
       }
     }
@@ -456,7 +456,7 @@ conv3d_mma_kernel(const MmaArgs p) {
     }
     if (p.relu) {
 #pragma unroll
-      for (int q = 0; q < V; ++q) v[q] = fmaxf(v[q], 0.f);
+      for (int q = 0; q < V; ++q) v[q] = ltk_relu(v[q]);
     }
     if constexpr (sizeof(TO) == 2) {
       unsigned u[4];

@@ -220,7 +220,7 @@ unproject_agg_kernel(const AggArgs p) {
         } else if (METHOD == kSum) {
           if (keep) a += val[g];
         } else if (METHOD == kMax) {
-          a = fmaxf(a, keep ? val[g] : -INFINITY);
+          a = ltk_max_nan(a, keep ? val[g] : -INFINITY);
         } else if (keep && cc + g < CH) {  // kConf
           a += val[g] * p.conf[static_cast<int64_t>(bu) * p.C + c0 + cc + g];
         }

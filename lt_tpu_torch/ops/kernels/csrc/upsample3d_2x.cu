@@ -188,10 +188,10 @@ upsample3d_2x_kernel(const UpArgs p) {
         const int64_t ro = rowoff[mg * 8 + r];
         if (ro < 0) continue;
         const float4 o = make_float4(
-            fmaxf(acc[r][0] + b4.x, 0.f) + sk[r].x,
-            fmaxf(acc[r][1] + b4.y, 0.f) + sk[r].y,
-            fmaxf(acc[r][2] + b4.z, 0.f) + sk[r].z,
-            fmaxf(acc[r][3] + b4.w, 0.f) + sk[r].w);
+            ltk_relu(acc[r][0] + b4.x) + sk[r].x,
+            ltk_relu(acc[r][1] + b4.y) + sk[r].y,
+            ltk_relu(acc[r][2] + b4.z) + sk[r].z,
+            ltk_relu(acc[r][3] + b4.w) + sk[r].w);
         *reinterpret_cast<float4*>(p.out + ro + poff + col) = o;
       }
     } else if (col < C2) {
@@ -203,7 +203,7 @@ upsample3d_2x_kernel(const UpArgs p) {
         for (int j = 0; j < 4; ++j) {
           if (col + j >= C2) continue;
           const int64_t off = ro + poff + col + j;
-          float v = fmaxf(acc[r][j] + bias[j], 0.f);
+          float v = ltk_relu(acc[r][j] + bias[j]);
           if (p.skip != nullptr) v += p.skip[off];
           p.out[off] = v;
         }

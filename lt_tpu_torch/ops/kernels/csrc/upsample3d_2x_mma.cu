@@ -230,9 +230,9 @@ upsample3d_2x_mma_kernel(const UpArgs p) {
           const float2 sv = __bfloat1622float2(
               *reinterpret_cast<const __nv_bfloat162*>(&su[q]));
           const float a =
-              fmaxf(src[2 * q] + bias[col + 2 * q], 0.f) + sv.x;
+              ltk_relu(src[2 * q] + bias[col + 2 * q]) + sv.x;
           const float b =
-              fmaxf(src[2 * q + 1] + bias[col + 2 * q + 1], 0.f) + sv.y;
+              ltk_relu(src[2 * q + 1] + bias[col + 2 * q + 1]) + sv.y;
           const __nv_bfloat162 pr = __floats2bfloat162_rn(a, b);
           u[q] = *reinterpret_cast<const unsigned*>(&pr);
         }
@@ -244,7 +244,7 @@ upsample3d_2x_mma_kernel(const UpArgs p) {
         const int m = e / NT, col = e % NT;
         if (rowoff[m] < 0 || n0 + col >= C2) continue;
         const int64_t off = rowoff[m] + poff + n0 + col;
-        float v = fmaxf(tile[m * TS + col] + bias[col], 0.f);
+        float v = ltk_relu(tile[m * TS + col] + bias[col]);
         if (p.skip != nullptr) v += __bfloat162float(p.skip[off]);
         p.out[off] = __float2bfloat16_rn(v);
       }

@@ -1,7 +1,8 @@
 """MaxPool3d(2) (kernel K4) and the fused 2x transposed conv (kernel K3).
 
 Port of ``lt_tpu/ops/pallas/updown.py:98-416``.  CUDA kernels:
-``csrc/max_pool3d_2x.cu``; K3 ``csrc/upsample3d_2x.cu`` (float32, a
+``csrc/max_pool3d_2x.cu`` (a 16-byte streaming pass, launched with the plan
+of :func:`pool_plan`); K3 ``csrc/upsample3d_2x.cu`` (float32, a
 register-tiled GEMM on the CUDA cores, launched with the plan of
 :func:`upsample_f32_plan`) and ``csrc/upsample3d_2x_mma.cu`` (bfloat16,
 tensor cores, the plan of :func:`upsample_mma_plan`); the ``*_plain``
@@ -28,8 +29,59 @@ def max_pool3d_2x_plain(x: torch.Tensor) -> torch.Tensor:
         dim=(2, 4, 6))
 
 
+# max_pool3d_2x.cu's launch constants: threads a block aims at, and the
+# largest grid y / z extent.
+POOL_THREADS = 256
+GRID_YZ_MAX = 65535
+
+
+class PoolPlan(NamedTuple):
+    """One max_pool3d_2x launch: elements per thread (16 bytes' worth, or
+    1 for the scalar instance), the block (channel vectors x output z) and
+    the grid (output z blocks, Y/2, B * X/2)."""
+    vec: int
+    bx: int
+    by: int
+    gx: int
+    gy: int
+    gz: int
+
+    @property
+    def args(self):
+        return tuple(self)
+
+
+@functools.lru_cache(maxsize=None)
+def pool_plan(b: int, sx: int, sy: int, sz: int, c: int, dtype: torch.dtype,
+              aligned: bool) -> PoolPlan:
+    """The launch plan of max_pool3d_2x over a (b, sx, sy, sz, c) input of
+    ``dtype`` whose base pointer is 16-byte aligned or not.
+
+    The vector instance takes 16 bytes of channels a thread where C fills
+    them and the pointer is aligned, else the scalar instance one channel.
+    The block's x runs over a voxel's channel vectors (at most
+    POOL_THREADS, looping over the rest), its y over output z, up to
+    POOL_THREADS threads.  Raises where the input holds 2^31 elements or
+    more (the kernel's offsets are 32-bit) or the grid exceeds its limits.
+    """
+    numel = b * sx * sy * sz * c
+    if numel >= 2 ** 31:
+        raise ValueError(f"max_pool3d_2x: {numel} elements, the kernel "
+                         f"takes fewer than 2^31")
+    wide = 16 // dtype.itemsize
+    vec = wide if aligned and c % wide == 0 else 1
+    bx = min(c // vec, POOL_THREADS)
+    by = max(1, min(POOL_THREADS // bx, sz // 2))
+    gy, gz = sy // 2, b * (sx // 2)
+    if max(gy, gz) > GRID_YZ_MAX:
+        raise ValueError(f"max_pool3d_2x: grid ({gy}, {gz}) over "
+                         f"{GRID_YZ_MAX} in y or z")
+    return PoolPlan(vec, bx, by, math.ceil(sz // 2 / by), gy, gz)
+
+
 def max_pool3d_2x(x: torch.Tensor) -> torch.Tensor:
-    """MaxPool3d(kernel=2, stride=2) over (B, X, Y, Z, C), all dims even."""
+    """MaxPool3d(kernel=2, stride=2) over (B, X, Y, Z, C), all dims even;
+    NaN where a window holds one.  K4 on CUDA, plain on CPU."""
     b, sx, sy, sz, c = x.shape
     if sx % 2 or sy % 2 or sz % 2:
         raise ValueError(f"max_pool3d_2x needs even dims, got "
@@ -39,10 +91,11 @@ def max_pool3d_2x(x: torch.Tensor) -> torch.Tensor:
     _build.check_cuda(x, "x", dtypes=_build.F32_BF16)
     out = torch.empty((b, sx // 2, sy // 2, sz // 2, c), dtype=x.dtype,
                       device=x.device)
+    plan = pool_plan(b, sx, sy, sz, c, x.dtype, x.data_ptr() % 16 == 0)
     p, i = _build.ptr, _build.i32
-    _build.launch("max_pool3d_2x", x.device, [p, p] + [i] * 6,
+    _build.launch("max_pool3d_2x", x.device, [p, p] + [i] * 12,
                   x.data_ptr(), out.data_ptr(), b, sx, sy, sz, c,
-                  _build.DTYPE_CODES[x.dtype])
+                  _build.DTYPE_CODES[x.dtype], *plan.args)
     return out
 
 

@@ -44,6 +44,17 @@ def _rel_err(got, ref):
 
 
 def _close(got, ref, rel=REL):
+    """NaN and the infinities where ``ref`` has them; finite values within
+    ``rel`` of the largest finite |ref|."""
+    got = got.detach().numpy() if torch.is_tensor(got) else np.asarray(got)
+    ref = np.asarray(ref)
+    np.testing.assert_array_equal(np.isnan(got), np.isnan(ref))
+    inf = np.isinf(ref)
+    np.testing.assert_array_equal(got[inf], ref[inf])
+    fin = np.isfinite(ref)
+    assert np.isfinite(got[fin]).all()
+    if not fin.all():
+        got, ref = got[fin], ref[fin]
     err = _rel_err(got, ref)
     print(f"measured relative max err {err:.2e} (limit {rel:.1e})")
     assert err <= rel, f"relative max err {err} > {rel}"
@@ -71,11 +82,23 @@ def _block(rng, cin, c):
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("case", ["bias_relu", "residual", "bare_rect"])
+@pytest.mark.parametrize("case", ["bias_relu", "residual", "bare_rect",
+                                  "relu_nonfinite"])
 def test_conv3d_same_matches_pallas(case):
-    """Measured relative error: 2.7e-7 to 5.9e-7 (limit 1e-4)."""
+    """Measured relative error: 2.7e-7 to 5.9e-7 (limit 1e-4).
+    ``relu_nonfinite``: NaN, +inf and -inf in x and the residual; NaN and
+    the infinities where the Pallas function has them (its ReLU is
+    jnp.maximum, which keeps NaN)."""
     rng = np.random.RandomState(0)
-    if case == "bias_relu":          # tests/test_pallas_conv3d.py:11
+    if case == "relu_nonfinite":
+        x, w = rng.randn(1, 8, 8, 8, 8), _w(rng, 3, 3, 3, 8, 8)
+        res = rng.randn(1, 8, 8, 8, 8)
+        for a in (x, res):
+            flat = a.reshape(-1)
+            for v in (np.nan, np.inf, -np.inf):
+                flat[rng.randint(0, flat.size, 2)] = v
+        kw = dict(bias=rng.randn(8), relu=True, residual=res)
+    elif case == "bias_relu":        # tests/test_pallas_conv3d.py:11
         x, w = rng.randn(2, 16, 16, 16, 8), _w(rng, 3, 3, 3, 8, 8)
         kw = dict(bias=rng.randn(8), relu=True)
     elif case == "residual":         # :27

@@ -10,7 +10,9 @@ voxels-major sampling kernels K7 / K8 on their bricks (four type pairs,
 both of K8's paths, bit for bit against K5 and within 1e-5 of K6),
 ``conv3d_same`` and the three
 ``res3d_block_*`` entry points at a small and at the flagship shape, and
-V2V's per-conv and bfloat16 paths.
+V2V's per-conv and bfloat16 paths; K4's vector and scalar instances and
+the plans its C entry point refuses; NaN and infinities kept by K1's
+'max', K2's and K3's ReLU and K4 where their plain versions keep them.
 
 Marked ``cuda``: without a GPU every test skips.  On a machine with one
 (this file imports torch only, so ``--noconftest`` keeps JAX out):
@@ -95,12 +97,123 @@ def test_upsample3d_2x(dev, shape, cout, with_skip):
            updown.upsample3d_2x_plain(x, w8, b8, skip))
 
 
-@pytest.mark.parametrize("shape", [(2, 4, 6, 8, 32), (1, 2, 2, 2, 17)])
-def test_max_pool3d_2x(dev, shape):
+def _plant(t, seed=7):
+    """``t`` with NaN, +inf and -inf each at three random elements (in
+    place; returns t)."""
+    g = torch.Generator(device=t.device).manual_seed(seed)
+    flat = t.view(-1)
+    idx = torch.randint(0, flat.numel(), (3, 3), generator=g,
+                        device=t.device)
+    for row, v in zip(idx, (float("nan"), float("inf"), -float("inf"))):
+        flat[row] = v
+    return t
+
+
+def _pool_equal(x, instance, planted):
+    """K4 equals its plain version bit for bit, NaN included: the vector
+    instance on an aligned base where C fills 16 bytes, else (and on a base
+    off 16 bytes) the scalar one."""
     from lt_tpu_torch.ops.kernels import updown
 
-    x = _randn(dev, *shape)
-    assert torch.equal(updown.max_pool3d_2x(x), updown.max_pool3d_2x_plain(x))
+    if planted:
+        _plant(x)
+        x[0, :2, :2, :2, 0] = float("nan")          # a window all NaN
+    if instance == "scalar":
+        x = _offset(x)
+    got = updown.max_pool3d_2x(x)
+    ref = updown.max_pool3d_2x_plain(x)
+    torch.cuda.synchronize()
+    assert got.dtype == x.dtype
+    torch.testing.assert_close(got, ref, rtol=0, atol=0, equal_nan=True)
+    assert bool(ref.isnan().any()) == planted
+
+
+@pytest.mark.parametrize("planted", [False, True])
+@pytest.mark.parametrize("instance", ["vector", "scalar"])
+@pytest.mark.parametrize("shape", [(2, 4, 6, 8, 32), (1, 2, 2, 2, 17),
+                                   (2, 4, 4, 4, 4), (1, 64, 64, 64, 32)])
+def test_max_pool3d_2x(dev, shape, instance, planted):
+    _pool_equal(_randn(dev, *shape), instance, planted)
+
+
+@pytest.mark.parametrize("wrong", ["vec for C = 17", "vec off 16 bytes",
+                                   "grid y", "too few z blocks"])
+def test_max_pool3d_2x_refuses_wrong_plans(dev, monkeypatch, wrong):
+    """The C entry point checks the plan against the shapes, the type and
+    the pointers and launches nothing where it does not fit."""
+    from lt_tpu_torch.ops.kernels import _build, updown
+
+    c = 17 if wrong == "vec for C = 17" else 32
+    x = _randn(dev, 2, 4, 6, 8, c)
+    if wrong == "vec off 16 bytes":
+        x = _offset(x)
+    plan = updown.pool_plan(2, 4, 6, 8, c, torch.float32, True)
+    bad = {"grid y": plan._replace(gy=plan.gy + 1),
+           "too few z blocks": plan._replace(gx=0)}.get(
+               wrong, plan._replace(vec=4))
+    monkeypatch.setattr(updown, "pool_plan", lambda *args: bad)
+    before = _build.LAUNCHES["max_pool3d_2x"]
+    with pytest.raises(RuntimeError, match="failed to launch"):
+        updown.max_pool3d_2x(x)
+    assert _build.LAUNCHES["max_pool3d_2x"] == before
+
+
+def _nan_close(got, ref, rel, nan_ref=None):
+    """NaN exactly where ``ref`` (or ``nan_ref``) has it, ref's infinities
+    elsewhere, the finite values within ``rel`` of the largest finite
+    |ref|."""
+    torch.cuda.synchronize()
+    assert got.shape == ref.shape and got.dtype == ref.dtype
+    g, r = got.float(), ref.float()
+    want = (ref if nan_ref is None else nan_ref).float().isnan()
+    assert want.any()
+    assert torch.equal(g.isnan(), want)
+    inf = r.isinf() & ~want
+    assert torch.equal(g[inf], r[inf])
+    fin = r.isfinite() & ~want
+    assert bool(g[fin].isfinite().all())
+    err = (g[fin] - r[fin]).abs().max().item()
+    assert err <= rel * r[fin].abs().max().item(), err
+
+
+@pytest.mark.parametrize("dt", [torch.float32, BF16])
+@pytest.mark.parametrize("kernel", ["conv3d_fused", "upsample3d_2x",
+                                    "unproject_agg max",
+                                    "unproject_agg softmax"])
+def test_kernels_keep_nan(dev, kernel, dt):
+    """NaN, +inf and -inf in K2's and K3's inputs, NaN in K1's features:
+    the ReLU epilogues and K1's 'max' keep NaN as their plain versions do.
+    The float32 K2 sums products of bfloat16 parts, where an infinity's
+    lower parts are NaN: it gives NaN wherever an infinity of x reaches."""
+    from lt_tpu_torch.ops.kernels import conv3d, unproject, updown
+
+    rel = REL if dt == torch.float32 else REL_BF16
+    if kernel == "conv3d_fused":
+        x, w, b, r = _conv_inputs(dev, (2, 6, 7, 8, 32), 3, 24, True, dt)
+        _plant(x)
+        _plant(r, seed=8)
+        nan_ref = None
+        if dt == torch.float32:
+            nan_ref = conv3d.conv3d_fused_plain(
+                x.masked_fill(x.isinf(), float("nan")), w, b, r, True)
+        _nan_close(conv3d.conv3d_fused(x, w, b, r, True),
+                   conv3d.conv3d_fused_plain(x, w, b, r, True), rel, nan_ref)
+    elif kernel == "upsample3d_2x":
+        x = _plant(_randn(dev, 2, 3, 4, 5, 64).to(dt))
+        w8 = _randn(dev, 64, 8 * 32, scale=0.125, seed=1).to(dt)
+        b8 = _randn(dev, 8 * 32, scale=0.1, seed=2)
+        skip = _plant(_randn(dev, 2, 6, 8, 10, 32, seed=3).to(dt), seed=9)
+        _nan_close(updown.upsample3d_2x(x, w8, b8, skip),
+                   updown.upsample3d_2x_plain(x, w8, b8, skip), rel)
+    else:
+        method = kernel.split()[1]
+        feats, m = _flagship_k1_inputs(dev)
+        feats = feats.to(dt)
+        feats[:, :, 44:52, 44:52, ::3] = float("nan")   # inside every map
+        mask = torch.ones(feats.shape[:2], device=dev)
+        _nan_close(unproject.unproject_agg(feats, m, mask, None, method, FLAG),
+                   unproject.unproject_agg_plain(feats, m, mask, None, method,
+                                                 FLAG), rel)
 
 
 @pytest.mark.parametrize("method", ["softmax", "sum", "max", "conf"])
@@ -634,15 +747,13 @@ def test_upsample3d_2x_bf16_element_paths(dev):
            updown.upsample3d_2x_plain(x, w8, b8, skip), REL_BF16)
 
 
+@pytest.mark.parametrize("planted", [False, True])
+@pytest.mark.parametrize("instance", ["vector", "scalar"])
 @pytest.mark.parametrize("shape", [(2, 4, 6, 8, 32), (1, 2, 2, 2, 17),
+                                   (2, 4, 4, 4, 4),
                                    (2, FLAG, FLAG, FLAG, 32)])
-def test_max_pool3d_2x_bf16(dev, shape):
-    from lt_tpu_torch.ops.kernels import updown
-
-    x = _randn(dev, *shape).to(BF16)
-    got = updown.max_pool3d_2x(x)
-    assert got.dtype == BF16
-    assert torch.equal(got, updown.max_pool3d_2x_plain(x))
+def test_max_pool3d_2x_bf16(dev, shape, instance, planted):
+    _pool_equal(_randn(dev, *shape).to(BF16), instance, planted)
 
 
 @pytest.mark.parametrize("method", ["softmax", "sum", "max", "conf"])

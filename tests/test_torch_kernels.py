@@ -35,13 +35,29 @@ def _t(a):
 
 
 def _close(got, ref, rel=REL):
+    """NaN and the infinities where ``ref`` has them; finite values within
+    ``rel`` of the largest finite |ref|."""
     got = got.numpy() if torch.is_tensor(got) else np.asarray(got)
     ref = np.asarray(ref)
     assert got.shape == ref.shape, (got.shape, ref.shape)
-    scale = np.abs(ref).max()
+    np.testing.assert_array_equal(np.isnan(got), np.isnan(ref))
+    inf = np.isinf(ref)
+    np.testing.assert_array_equal(got[inf], ref[inf])
+    fin = np.isfinite(ref)
+    assert np.isfinite(got[fin]).all()
+    scale = np.abs(ref[fin]).max()
     assert scale > 0
-    err = np.abs(got - ref).max()
+    err = np.abs(got[fin] - ref[fin]).max()
     assert err <= rel * scale, f"max err {err} > {rel} * {scale}"
+
+
+def _plant(rng, a, count=3):
+    """``a`` with NaN, +inf and -inf each at ``count`` random elements (in
+    place; returns a)."""
+    flat = a.reshape(-1)
+    for v in (np.nan, np.inf, -np.inf):
+        flat[rng.randint(0, flat.size, count)] = v
+    return a
 
 
 def _w(rng, *shape):
@@ -151,21 +167,39 @@ def test_upsample_res3d_fused_with_tail_matches_pallas():
     _close(got, ref)
 
 
-@pytest.mark.parametrize("shape", [(2, 8, 8, 8, 16), (1, 16, 8, 4, 32)])
-def test_max_pool3d_2x_matches_pallas(shape):
-    x = np.random.RandomState(4).randn(*shape).astype(np.float32)
+@pytest.mark.parametrize("shape, planted", [
+    pytest.param((2, 8, 8, 8, 16), False, id="shape0"),
+    pytest.param((1, 16, 8, 4, 32), False, id="shape1"),
+    pytest.param((2, 8, 8, 8, 16), True, id="shape0-planted"),
+    pytest.param((1, 16, 8, 4, 32), True, id="shape1-planted")])
+def test_max_pool3d_2x_matches_pallas(shape, planted):
+    """Bit for bit; with NaN, +inf and -inf planted and one window all NaN,
+    the same NaN (jnp.maximum keeps it)."""
+    rng = np.random.RandomState(4)
+    x = rng.randn(*shape).astype(np.float32)
+    if planted:
+        _plant(rng, x)
+        x[0, :2, :2, :2, 0] = np.nan
     ref = j_updown.max_pool3d_2x(jnp.asarray(x), interpret=True)
     got = t_updown.max_pool3d_2x(_t(x))
     np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
 
 
-@pytest.mark.parametrize("with_skip", [False, True])
-def test_upsample3d_2x_matches_pallas(with_skip):
+@pytest.mark.parametrize("with_skip, planted", [
+    pytest.param(False, False, id="False"),
+    pytest.param(True, False, id="True"),
+    pytest.param(True, True, id="True-planted")])
+def test_upsample3d_2x_matches_pallas(with_skip, planted):
+    """``planted``: NaN, +inf and -inf in x and the skip; the ReLU keeps
+    NaN as jnp.maximum does."""
     rng = np.random.RandomState(5)
     cin, c = 16, 8
     x = rng.randn(2, 4, 4, 4, cin).astype(np.float32)
     w8, b8 = _w(rng, cin, 8 * c), np.tile(_b(rng, c), 8)
     skip = rng.randn(2, 8, 8, 8, c).astype(np.float32) if with_skip else None
+    if planted:
+        _plant(rng, x)
+        _plant(rng, skip)
     ref = j_updown.upsample3d_2x(
         jnp.asarray(x), jnp.asarray(w8), jnp.asarray(b8), interpret=True,
         skip=None if skip is None else jnp.asarray(skip))
