@@ -14,8 +14,10 @@ staged in shared memory or not), K4's its scalar instance (on a base off 16
 bytes), each held to the plain version as well; K3's and K4's launches,
 a few microseconds each at the small levels, are timed also as CUDA graphs
 (``graph_ms``), which the host's launch loop cannot keep fed.  A phase
-plants NaN and infinities in K1-K4's inputs and holds each kernel to its
-plain version's NaN (``nan_checks``).  Then it drives
+plants NaN and infinities in K1-K5's and K7's inputs (for the samplers
+also on the maps' edges, which taps off the map read with weight 0, and
++inf for K1's softmax) and holds each kernel to its plain version's NaN
+(``nan_checks``).  Then it drives
 the port's paths at the flagship width (ResNet-152, 384^2 images, 4 views,
 64^3 volume, softmax aggregation, 17 joints, seeded random weights): the
 eval forward through K1-K4 (requests at batch 8) in float32 and in the
@@ -31,7 +33,15 @@ through K1 and, in its backward, K5 and K6; before it, K5 and K6 at its
 shapes (K6 also with direct atomics only), K5 held to K7 and to K1's 'sum'
 of each view bit for bit.  It also runs the committed trained RN-18
 fixture in float32 and bfloat16, and trains the synthetic config for one
-epoch through the CLI's ``run``, then resumes it.
+epoch through the CLI's ``run``, then resumes it.  Last, the algebraic and
+RANSAC families, which launch no kernel of the port (``lt_tpu`` computes
+them with XLA only): AlgebraicTriangulationNet at the flagship width in
+float32 and bfloat16 and RANSACTriangulationNet in float32 (batch 8,
+seeded random weights; the DLT's and RANSAC's launches and device time),
+both on the trained RN-18 backbone fixture (card vs CPU, bfloat16 vs
+float32), the training step of
+experiments/human36m/train/human36m_alg.yaml (batch 8) and one CLI epoch
+of experiments/synthetic/alg_tiny.yaml with its resume.
 
     python3 chip_smoke.py [--batch N]
 
@@ -99,6 +109,35 @@ GRAPH_BUDGET_MS = 5.0   # device time one captured graph holds, about
 GRAPH_MAX_CALLS = 200   # calls one captured graph holds, at most
 GRAPH_REPLAYS = 5       # replays of the graph between the two events
 TRAIN_YAML = "experiments/human36m/train/human36m_vol_softmax.yaml"
+ALG_TRAIN_YAML = "experiments/human36m/train/human36m_alg.yaml"
+ALG_TINY_YAML = "experiments/synthetic/alg_tiny.yaml"
+ALG_TINY_STEPS = 16     # alg_tiny.yaml: 64 training poses at batch 4
+ALG_KP2D_PX = 1e-3      # [alg] 2D keypoints vs a float64 soft-argmax
+# [alg] 3D keypoints vs the float64 numpy DLT: lt_tpu's own limit for that
+# comparison (tests/test_geometry.py:130-142).
+ALG_KP3D_MM = 0.5
+# Random weights put some points hundreds of metres out, where the float32
+# DLT's homogeneous coordinate is tiny and its error grows with the
+# distance (on the CPU, RN-18 / RN-50: at most 0.054 mm within 10 m, 1.1e-4
+# of the distance beyond; lt_tpu's float32 Jacobi shares this): ALG_KP3D_MM
+# holds within ALG_NEAR_MM of the rig's centre (its cameras are 4 m out),
+# ALG_FAR_REL of the distance beyond.
+ALG_NEAR_MM = 10000.0
+ALG_FAR_REL = 1e-3
+RANSAC_PLANT_MM = 1.0   # [ransac] planted points with an outlier view
+ALG_FIX_F32_MM = 0.1    # [alg fixture] float32 on the card vs the CPU
+# [alg fixture] bfloat16 vs float32.  The volumetric fixture's band (mean
+# FIX_BF16_MEAN_MM, max FIX_BF16_MAX_MM per joint) does not hold for
+# lt_tpu's own algebraic and RANSAC models on this backbone: on the CPU
+# lt_tpu's bfloat16 keypoints lie mean 5.57 / max 49.5 mm (algebraic) and
+# 4.75 / 215 mm (RANSAC, where an argmax that moves one heatmap pixel moves
+# a joint by a hundred mm or more) from its float32 ones
+# (tests/test_torch_alg_train.py::test_fixture_bfloat16_band_of_lt_tpu).
+# The algebraic model is held per joint to about twice lt_tpu's band;
+# both are held to the dataset's rel MPJPE within FIX_BF16_MEAN_MM of
+# float32's.
+FIX_ALG_BF16_MEAN_MM = 12.0
+FIX_ALG_BF16_MAX_MM = 100.0
 SYNTH_YAML = "experiments/synthetic/vol_tiny_2stage.yaml"
 TRAIN_BATCH = 5         # the flagship training config's batch
 TRAIN_STEPS = 3         # timed flagship training steps
@@ -877,15 +916,18 @@ def nonfinite_diff(name, got, ref, tol, nan_ref=None):
 
 
 def nan_checks(batch, geometry, dev):
-    """NaN and inf planted in the inputs of K1-K4, each kernel held to its
-    plain version by :func:`nonfinite_diff`: K4 bit for bit at the
+    """NaN and inf planted in the inputs of K1-K5 and K7, each kernel held
+    to its plain version by :func:`nonfinite_diff`: K4 bit for bit at the
     flagship's five pool shapes, both instances and types; K3 and K2 (the
     per-conv ``conv3d_same`` and the fused ``res3d_block_fused``) in both
-    types; K1's four aggregations with NaN features.  Raises after the
-    phase, naming every case that failed."""
+    types; K1's four aggregations with NaN features inside the maps and
+    with NaN and infinities on their edges, and its softmax of +inf
+    features; K5 and K7 with NaN and infinities on the edges.  Raises after
+    the phase, naming every case that failed."""
     import torch
 
-    from lt_tpu_torch.ops.kernels import conv3d, res3d, unproject, updown
+    from lt_tpu_torch.ops.kernels import (conv3d, res3d, sample, unproject,
+                                          updown)
 
     gen = torch.Generator(device=dev).manual_seed(6)
     failed = []
@@ -959,24 +1001,47 @@ def nan_checks(batch, geometry, dev):
             lambda: res3d.res3d_block_fused(x, *blk), lambda: p_block(x),
             tol if f32 else 2 * tol,
             (lambda: p_block(inf_to_nan(x))) if f32 else None)
-        # K1: NaN in a patch of each map's interior, which only in-map taps
-        # reach (a tap off the map is dropped by a select in K1 and
-        # multiplied by 0 in the plain version: ROADMAP Queue C).
+        # K1, K5 and K7: NaN in a patch of each map's interior, then NaN,
+        # +inf and -inf on the maps' edges (row 0, the last column, the last
+        # row), which the flagship's taps off the map read at their clamped
+        # pixels with weight 0 (inf * 0 = NaN, as lt_tpu's sampler), and
+        # +inf features inside the maps, whose softmax over views is NaN.
         hm = FLAGSHIP["heatmap"]
-        feats = randn(2, 4, hm, hm, 32, dtype=dt)
-        feats[:, :, hm // 2 - 4:hm // 2 + 4, hm // 2 - 4:hm // 2 + 4,
-              ::3] = math.nan
         m = geometry(2)
         mask = torch.ones(2, 4, device=dev)
         conf = randn(2, 4, 32).abs()
-        for method in ("softmax", "sum", "max", "conf"):
+        interior = randn(2, 4, hm, hm, 32, dtype=dt)
+        interior[:, :, hm // 2 - 4:hm // 2 + 4, hm // 2 - 4:hm // 2 + 4,
+                 ::3] = math.nan
+        edges = randn(2, 4, hm, hm, 32, dtype=dt)
+        edges[:, :, 0, :, 0::3] = math.nan
+        edges[:, :, :, -1, 1::3] = math.inf
+        edges[:, :, -1, :, 2::3] = -math.inf
+        pos_inf = randn(2, 4, hm, hm, 32, dtype=dt)
+        pos_inf[:, :, hm // 2 - 8:hm // 2 + 8, hm // 2 - 8:hm // 2 + 8,
+                1::3] = math.inf
+        k1_cases = [(f"{method} NaN features", interior, method)
+                    for method in ("softmax", "sum", "max", "conf")]
+        k1_cases += [(f"{method} NaN / +-inf on the map edges", edges,
+                      method) for method in ("softmax", "sum", "max", "conf")]
+        k1_cases.append(("softmax +inf features", pos_inf, "softmax"))
+        for label, feats, method in k1_cases:
             vc = conf if method == "conf" else None
-            run(f"unproject_agg {method} NaN features {name}",
+            run(f"unproject_agg {label} {name}",
                 lambda: unproject.unproject_agg(feats, m, mask, vc, method,
                                                 s),
                 lambda: unproject.unproject_agg_plain(feats, m, mask, vc,
                                                       method, s), tol)
-        del feats
+        fv, mv = edges.reshape(8, hm, hm, 32), m.reshape(8, 3, 4)
+        run(f"sample_views NaN / +-inf on the map edges {name} -> {name}",
+            lambda: sample.sample_views(fv, mv, s, dt),
+            lambda: sample.sample_views_plain(fv, mv, s, dt), tol)
+        f32v = fv.float()
+        run(f"sample_views_t NaN / +-inf on the map edges (the {name} "
+            f"edges widened to float32)",
+            lambda: sample.sample_views_t(f32v, mv, s),
+            lambda: sample.sample_views_t_plain(f32v, mv, s), REL_TOL)
+        del interior, edges, pos_inf, fv, f32v
         torch.cuda.empty_cache()
     failed = [f for f in failed if f]
     if failed:
@@ -1532,6 +1597,395 @@ def train_cli(dev):
 
 
 # ---------------------------------------------------------------------------
+# The algebraic and RANSAC families (no kernel of the port on their path)
+# ---------------------------------------------------------------------------
+
+
+def device_kernels(fn):
+    """(kernel launches, summed device ms) of one call of ``fn`` as
+    ``torch.profiler`` records them, or (None, None) where it records no
+    device time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA
+            and e.self_device_time_total > 0
+            and not getattr(e, "is_user_annotation", False)]
+    if not rows:
+        return None, None
+    return (sum(e.count for e in rows),
+            sum(e.self_device_time_total for e in rows) / 1e3)
+
+
+def _no_kernel_launched(what):
+    """Raise if any kernel of the port was launched since the counts were
+    last set to 0: the algebraic and RANSAC paths have none."""
+    from lt_tpu_torch.ops.kernels import _build
+
+    launched = {k: v for k, v in _build.LAUNCHES.items() if v}
+    if launched:
+        raise AssertionError(f"{what} launched kernels of the port: "
+                             f"{launched}")
+
+
+def _timed_requests(net, images, proj, n):
+    """``n`` requests after one warm-up: (outputs, host ms of each)."""
+    import torch
+
+    net(images, proj)
+    times, outs = [], []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs.append(net(images, proj))
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return outs, times
+
+
+def _finite(what, out, shapes):
+    for name, shape in shapes.items():
+        t = getattr(out, name)
+        if tuple(t.shape) != shape or not bool(t.isfinite().all()):
+            raise AssertionError(f"{what} {name}: {tuple(t.shape)} (want "
+                                 f"{shape}), finite "
+                                 f"{bool(t.isfinite().all())}")
+
+
+def alg_flagship(dev, smi, images, proj):
+    """[alg]: AlgebraicTriangulationNet at the flagship width (RN-152,
+    384^2, 4 views, 17 joints, confidences), seeded random weights, in
+    float32 (TF32 off) and bf16: true, REQUESTS timed requests each after
+    the launch counts were set to 0: shapes, finite outputs, no kernel of
+    the port launched; 2D keypoints within ALG_KP2D_PX of a float64
+    soft-argmax of the request's own heatmaps, 3D keypoints within
+    ALG_KP3D_MM of the float64 numpy DLT of its own 2D keypoints and
+    confidences; the DLT's launches and device time."""
+    import numpy as np
+    import torch
+
+    from lt_tpu_torch.models.triangulation import AlgebraicTriangulationNet
+    from lt_tpu_torch.ops import geometry
+    from lt_tpu_torch.ops.kernels import _build
+
+    b, v = images.shape[:2]
+    fl = FLAGSHIP
+    f32 = AlgebraicTriangulationNet(num_joints=17, num_layers=fl["layers"],
+                                    device=dev, seed=0)
+    raw = {}
+    f32.backbone.final_layer.register_forward_hook(
+        lambda mod, args, out: raw.__setitem__("heatmaps", out))
+    for dt in (torch.float32, torch.bfloat16):
+        name = str(dt).replace("torch.", "")
+        net = f32
+        if dt == torch.bfloat16:
+            net = AlgebraicTriangulationNet(
+                num_joints=17, num_layers=fl["layers"], device=dev,
+                compute_dtype=dt)
+            net.load_state_dict(f32.state_dict())
+            net.backbone.final_layer.register_forward_hook(
+                lambda mod, args, out: raw.__setitem__("heatmaps", out))
+        _build.reset_launches()
+        outs, times = _timed_requests(net, images, proj, REQUESTS)
+        _no_kernel_launched(f"the algebraic model ({name})")
+        out = outs[-1]
+        _finite(f"[alg] {name}", out, {
+            "keypoints_3d": (b, 17, 3), "keypoints_2d": (b, v, 17, 2),
+            "heatmaps": (b, v, 17, fl["heatmap"], fl["heatmap"]),
+            "confidences": (b, v, 17)})
+        ms = float(np.median(times))
+        log(f"[alg] AlgebraicTriangulationNet RN-{fl['layers']} "
+            f"{fl['image']}^2 x{v} views, 17 joints, confidences, {name}, "
+            f"batch {b}, seed 0, on {smi}: request ms (median of "
+            f"{REQUESTS}) {ms:.1f}  all {[round(t, 1) for t in times]}  "
+            f"frames/s {b / ms * 1e3:.2f}; kernels of the port launched: 0")
+        # 2D: the float64 soft-argmax of the last request's heatmaps, the
+        # backbone's times the multiplier as the model forms them in
+        # float32, as lt_tpu does (random weights give logits up to ~1000,
+        # where that product's rounding alone moves a keypoint by more
+        # than ALG_KP2D_PX: printed as "exact product").
+        heat = raw["heatmaps"].float()
+        idx = torch.arange(fl["heatmap"], dtype=torch.float64, device=dev)
+
+        def soft_argmax64(logits):
+            p = torch.softmax(logits.reshape(b, v, 17, -1), -1).reshape(
+                b, v, 17, fl["heatmap"], fl["heatmap"])
+            xy = torch.stack([(p.sum(-2) * idx).sum(-1),
+                              (p.sum(-1) * idx).sum(-1)], -1)
+            return (out.keypoints_2d.double()
+                    - xy * (fl["image"] / fl["heatmap"])).abs().max().item()
+
+        err2d = soft_argmax64((heat * 100.0).double())
+        err2d_exact = soft_argmax64(heat.double() * 100.0)
+        # 3D: the numpy DLT (float64 SVD) of each point, its views' rows
+        # weighted by the confidences (each view's matrix scaled).
+        kp2d = out.keypoints_2d.double().cpu().numpy()
+        conf = out.confidences.double().cpu().numpy()
+        pm = proj.double().cpu().numpy()
+        ref3d = np.array([[geometry.triangulate_point_dlt_np(
+            conf[i, :, j, None, None] * pm[i], kp2d[i, :, j])
+            for j in range(17)] for i in range(b)])
+        err3d = np.abs(out.keypoints_3d.double().cpu().numpy()
+                       - ref3d).max(-1)
+        dist = np.linalg.norm(ref3d, axis=-1)
+        near = dist < ALG_NEAR_MM
+        near_err = err3d[near].max() if near.any() else math.inf
+        far_rel = (err3d / dist)[~near].max() if (~near).any() else 0.0
+        log(f"  keypoints_2d max |model - float64 soft-argmax| {err2d:.3e} "
+            f"px (limit {ALG_KP2D_PX}; of the exact product "
+            f"{err2d_exact:.3e} px, heatmaps up to "
+            f"{heat.abs().max().item():.2f}); keypoints_3d vs the float64 numpy "
+            f"DLT: {int(near.sum())} of {near.size} points within "
+            f"{ALG_NEAR_MM:.0f} mm of the rig's centre, max {near_err:.3e} "
+            f"mm (limit {ALG_KP3D_MM}); the rest (up to {dist.max():.0f} "
+            f"mm) max {far_rel:.3e} of their distance (limit "
+            f"{ALG_FAR_REL})")
+        if (err2d > ALG_KP2D_PX or not near_err <= ALG_KP3D_MM
+                or far_rel > ALG_FAR_REL):
+            raise AssertionError(f"[alg] {name}: 2D {err2d:.3e} px, 3D "
+                                 f"{near_err:.3e} mm, far {far_rel:.3e}")
+        del outs, out
+    # The DLT alone on the last request's keypoints and confidences.
+    kp2d, conf = f32(images, proj)[1:4:2]
+
+    def dlt():
+        return geometry.triangulate_batch_dlt(proj, kp2d, conf)
+
+    n, busy = device_kernels(dlt)
+    log(f"  DLT (8-sweep Jacobi, {b} x 17 points, eager): "
+        f"{_ms(cuda_ms(dlt))} a request on CUDA events; torch.profiler: "
+        f"{n if n is not None else 'not measured'} kernel launches, "
+        f"{_ms(busy)} of device time, on {smi}")
+    del f32, net
+    torch.cuda.empty_cache()
+
+
+def ransac_flagship(dev, smi, images, proj):
+    """[ransac]: RANSACTriangulationNet with direct optimization at the
+    flagship width, batch 8, float32: REQUESTS timed requests, shapes and
+    finite outputs, no kernel of the port launched; the RANSAC stage's
+    device time beside the backbone's; then a planted case on the flagship
+    rig (8 x 17 points within 400 mm, view 2 moved 200 px): every point
+    back within RANSAC_PLANT_MM."""
+    import numpy as np
+    import torch
+
+    from lt_tpu_torch.models.triangulation import (RANSACTriangulationNet,
+                                                   ransac_triangulate)
+    from lt_tpu_torch.ops import geometry
+    from lt_tpu_torch.ops.kernels import _build
+
+    b, v = images.shape[:2]
+    fl = FLAGSHIP
+    net = RANSACTriangulationNet(num_joints=17, num_layers=fl["layers"],
+                                 direct_optimization=True, device=dev,
+                                 seed=0)
+    _build.reset_launches()
+    outs, times = _timed_requests(net, images, proj, REQUESTS)
+    _no_kernel_launched("the RANSAC model")
+    out = outs[-1]
+    _finite("[ransac]", out, {"keypoints_3d": (b, 17, 3),
+                              "keypoints_2d": (b, v, 17, 2),
+                              "confidences": (b, v, 17)})
+    ms = float(np.median(times))
+    flat = images.reshape((b * v,) + images.shape[2:]).permute(0, 3, 1, 2)
+    with torch.no_grad():
+        backbone_ms = cuda_ms(lambda: net.backbone(flat))
+    pts = out.keypoints_2d.transpose(1, 2)
+    pm = proj[:, None].expand(b, 17, v, 3, 4)
+
+    def stage():
+        return ransac_triangulate(pm, pts, direct_optimization=True)
+
+    n, busy = device_kernels(stage)
+    log(f"[ransac] RANSACTriangulationNet RN-{fl['layers']} {fl['image']}^2"
+        f" x{v} views, 17 joints, direct optimization, float32, batch {b}, "
+        f"seed 0, on {smi}: request ms (median of {REQUESTS}) {ms:.1f}  all "
+        f"{[round(t, 1) for t in times]}  frames/s {b / ms * 1e3:.2f}; "
+        f"backbone {backbone_ms:.3f} ms, RANSAC stage {_ms(cuda_ms(stage))} "
+        f"on CUDA events (torch.profiler: "
+        f"{n if n is not None else 'not measured'} kernel launches, "
+        f"{_ms(busy)} of device time); kernels of the port launched: 0")
+    # The planted case.
+    gen = np.random.RandomState(5)
+    pts3d = torch.from_numpy(gen.uniform(-400, 400, (b, 17, 3)).astype(
+        np.float32)).to(dev)
+    planted = geometry.project_points(proj, pts3d[:, None])  # (B, V, J, 2)
+    planted[:, 2] += 200.0
+    rec = ransac_triangulate(pm, planted.transpose(1, 2),
+                             direct_optimization=True)
+    err = (rec - pts3d).abs().max().item()
+    log(f"  planted: {b} x 17 points within 400 mm, view 2 moved 200 px: "
+        f"recovered within {err:.3e} mm (limit {RANSAC_PLANT_MM})")
+    if not err <= RANSAC_PLANT_MM:
+        raise AssertionError(f"[ransac] planted points {err:.3e} mm off")
+    del net, outs, out
+    torch.cuda.empty_cache()
+
+
+def alg_fixture(dev, smi):
+    """[alg fixture]: the trained RN-18 backbone fixture in the algebraic
+    model without confidences and in RANSAC, on 8 validation poses of the
+    port's synthetic data (128^2): float32 on the card within
+    ALG_FIX_F32_MM of the same model on the CPU; bfloat16 against float32:
+    the rel MPJPE within FIX_BF16_MEAN_MM, and the algebraic model's
+    per-joint distances within FIX_ALG_BF16_MEAN_MM / FIX_ALG_BF16_MAX_MM
+    (mean / max)."""
+    import numpy as np
+    import torch
+
+    from lt_tpu_torch.data.synthetic import SyntheticMultiViewDataset
+    from lt_tpu_torch.models.triangulation import (AlgebraicTriangulationNet,
+                                                   RANSACTriangulationNet)
+    from lt_tpu_torch.ops.kernels import _build
+    from lt_tpu_torch.utils.weights import load_backbone_npz
+
+    fix = str(ROOT / "tests" / "fixtures" / "backbone_rn18_synth.npz")
+    ds = SyntheticMultiViewDataset(n_samples=8, n_views=4, image_size=128,
+                                   sample_offset=1_000_000)
+    val = [ds[i] for i in range(len(ds))]
+    images = torch.from_numpy(np.stack([np.stack(s["images"]) for s in val])
+                              .astype(np.float32))
+    proj = torch.from_numpy(np.stack([np.stack(s["proj_matrices"])
+                                      for s in val]).astype(np.float32))
+    families = {"alg": lambda **kw: AlgebraicTriangulationNet(
+        num_joints=17, num_layers=18, use_confidences=False, **kw),
+        "ransac": lambda **kw: RANSACTriangulationNet(
+            num_joints=17, num_layers=18, **kw)}
+    for family, build in families.items():
+        kps = {}
+        for where, dt in (("cpu", torch.float32), ("cuda", torch.float32),
+                          ("cuda", torch.bfloat16)):
+            net = build(device=dev if where == "cuda" else "cpu",
+                        compute_dtype=dt)
+            load_backbone_npz(net, fix, 18)
+            on = dev if where == "cuda" else "cpu"
+            _build.reset_launches()
+            with deterministic_cudnn():
+                kps[where, dt] = net(images.to(on),
+                                     proj.to(on)).keypoints_3d.cpu()
+            _no_kernel_launched(f"[alg fixture] {family}")
+            del net
+        f32 = kps["cuda", torch.float32]
+        err = (f32 - kps["cpu", torch.float32]).abs().max().item()
+        d = (kps["cuda", torch.bfloat16] - f32).norm(dim=-1).flatten()
+        mpjpe = {k: ds.evaluate(v.numpy())[0] for k, v in kps.items()}
+        dm = abs(mpjpe["cuda", torch.bfloat16] - mpjpe["cuda", torch.float32])
+        per_joint = (f"limits {FIX_ALG_BF16_MEAN_MM} / {FIX_ALG_BF16_MAX_MM}"
+                     if family == "alg" else "not held: hard argmax")
+        log(f"[alg fixture] {family} on backbone_rn18_synth.npz, 8 "
+            f"validation poses, 128^2, on {smi}: float32 card vs CPU "
+            f"{err:.3e} mm (limit {ALG_FIX_F32_MM}); bfloat16 vs float32 "
+            f"mean {d.mean().item():.3f} p95 {d.quantile(0.95).item():.3f} "
+            f"max {d.max().item():.3f} mm ({per_joint}); rel MPJPE float32 "
+            f"{mpjpe['cuda', torch.float32]:.2f} mm, bfloat16 "
+            f"{mpjpe['cuda', torch.bfloat16]:.2f} mm (difference limit "
+            f"{FIX_BF16_MEAN_MM})")
+        bad = (err > ALG_FIX_F32_MM or not bool(d.isfinite().all())
+               or dm > FIX_BF16_MEAN_MM)
+        if family == "alg":
+            bad |= (d.mean().item() > FIX_ALG_BF16_MEAN_MM
+                    or d.max().item() > FIX_ALG_BF16_MAX_MM)
+        if bad:
+            raise AssertionError(f"[alg fixture] {family} outside its limits")
+    torch.cuda.empty_cache()
+
+
+def alg_train(dev, smi):
+    """[alg train]: the training step of ALG_TRAIN_YAML at its batch (8),
+    float32, seeded random weights: the median of TRAIN_STEPS timed steps
+    after a warm-up, samples/s and peak memory; finite losses and
+    gradients, the parameters moved, no kernel of the port launched.  Then
+    ALG_TINY_YAML one epoch through the CLI's ``run`` and a resume."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from lt_tpu_torch.engine import checkpoint as ckpt
+    from lt_tpu_torch.engine import factory, steps
+    from lt_tpu_torch.engine.train import run
+    from lt_tpu_torch.ops.kernels import _build
+    from lt_tpu_torch.utils import cfg
+    from lt_tpu_torch.utils.example import example_train_batch
+
+    config = cfg.load_config(str(ROOT / ALG_TRAIN_YAML),
+                             {"model.backbone.init_weights": False})
+    b = config.opt.batch_size
+    model = factory.make_model(config, device=dev, seed=0)
+    optimizer = factory.make_optimizer(config, model)
+    criterion = factory.make_criterion(config)
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in example_train_batch(
+        b, config.image_shape[0], 17, seed=3).items()}
+    before = {k: p.detach().clone() for k, p in model.named_parameters()}
+    steps.train_step(model, optimizer, criterion, config, batch)  # warm-up
+    grads = [p.grad for p in model.parameters() if p.grad is not None]
+    if not grads or not all(bool(g.isfinite().all()) for g in grads):
+        raise AssertionError("[alg train] missing or non-finite gradients")
+    moved = sum(not torch.equal(p, before[k])
+                for k, p in model.named_parameters())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()
+    times, losses = [], []
+    for _ in range(TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(steps.train_step(model, optimizer, criterion, config,
+                                       batch)["total_loss"])
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    _no_kernel_launched("the algebraic training step")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    ms = float(np.median(times))
+    log(f"[alg train] {ALG_TRAIN_YAML}: RN-{config.model.backbone.num_layers}"
+        f" {config.image_shape[0]}^2 x4 views, confidences, batch {b}, "
+        f"float32, seed 0, random weights, on {smi}: step ms (median of "
+        f"{TRAIN_STEPS}) {ms:.1f}  all {[round(t, 1) for t in times]}  "
+        f"samples/s {b / ms * 1e3:.2f}  peak memory {peak:.2f} GiB  losses "
+        f"{[round(x, 3) for x in losses]}; {moved} of "
+        f"{len(before)} parameter tensors moved in the first step")
+    if not np.isfinite(losses).all() or moved < len(before) // 2:
+        raise AssertionError(f"[alg train] losses {losses}, {moved} tensors "
+                             f"moved")
+    del model, optimizer, batch, before, grads
+    torch.cuda.empty_cache()
+
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as logdir:
+        t0 = time.perf_counter()
+        metric = run(str(ROOT / ALG_TINY_YAML), logdir + "/a", max_epochs=1,
+                     device=dev)
+        secs = time.perf_counter() - t0
+        exp = next(Path(logdir, "a").iterdir())
+        train = [json.loads(x)["total_loss"] for x in open(
+            exp / "metrics.jsonl") if json.loads(x)["tag"] == "train"]
+        latest = ckpt.latest_epoch_dir(str(exp / "checkpoints"))
+        if (len(train) != ALG_TINY_STEPS
+                or not np.isfinite(train + [metric]).all() or latest is None):
+            raise AssertionError(f"[alg train] CLI epoch: {len(train)} "
+                                 f"records, metric {metric}, checkpoint "
+                                 f"{latest}")
+        run(str(ROOT / ALG_TINY_YAML), logdir + "/b", max_epochs=2,
+            resume_dir=str(exp), device=dev)
+        exp_b = next(Path(logdir, "b").iterdir())
+        steps_b = [json.loads(x)["step"] for x in open(exp_b / "metrics.jsonl")
+                   if json.loads(x)["tag"] == "train"]
+        if steps_b != list(range(ALG_TINY_STEPS, 2 * ALG_TINY_STEPS)):
+            raise AssertionError(f"[alg train] resumed steps {steps_b}")
+        log(f"  {ALG_TINY_YAML}: epoch 0 in {secs:.1f} s on {smi}, train "
+            f"total_loss {train[0]:.3f} -> {train[-1]:.3f}, val MPJPE rel "
+            f"{metric:.2f} mm, checkpoint {Path(latest).name}; resumed at "
+            f"step {steps_b[0]} and ran epoch 1")
+
+
+# ---------------------------------------------------------------------------
 # Main
 # ---------------------------------------------------------------------------
 
@@ -1732,8 +2186,8 @@ def main(argv=None) -> int:
     entry_point_checks(b, geometry, dev)
 
     # Phase 3b: NaN and infinities in the kernels' inputs.
-    log("[nan] NaN, +inf and -inf planted in the inputs of K1-K4, each "
-        "kernel against its plain version")
+    log("[nan] NaN, +inf and -inf planted in the inputs of K1-K5 and K7, "
+        "each kernel against its plain version")
     nan_checks(b, geometry, dev)
 
     # Phase 4: the flagship forward on the kernel path.
@@ -1968,6 +2422,13 @@ def main(argv=None) -> int:
 
     # Phase 9: the CLI's run on the synthetic config, one epoch, then resume.
     train_cli(dev)
+
+    # Phase 10: the algebraic and RANSAC families at the flagship width, on
+    # the trained fixture, and the algebraic training step and CLI.
+    alg_flagship(dev, smi, images, proj)
+    ransac_flagship(dev, smi, images, proj)
+    alg_fixture(dev, smi)
+    alg_train(dev, smi)
 
     log(json.dumps({"kernels": rows}))
     log(smi)

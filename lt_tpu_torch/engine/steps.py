@@ -1,9 +1,10 @@
 """The training and evaluation steps.
 
-Port of ``lt_tpu/engine/steps.py:36-197``: the criterion plus the weighted
-volumetric CE with the reference's keypoint scaling, ``base_point_l2`` and
-the ``l2`` metric; one train step is forward, loss, backward, clipping and
-the Adam update.
+Port of ``lt_tpu/engine/steps.py:36-197``: the criterion plus, for the
+volumetric model, the weighted volumetric CE and ``base_point_l2``, with
+the reference's keypoint scaling, and the ``l2`` metric; one train step is
+forward, loss, backward, clipping and the Adam update.  The model family
+is ``config.model.name``: only 'vol' takes a pelvis and rotations.
 """
 
 from __future__ import annotations
@@ -17,10 +18,14 @@ from lt_tpu_torch.models import losses
 
 def model_outputs(model, batch: Dict[str, torch.Tensor], config,
                   generator: Optional[torch.Generator] = None):
-    """The model's forward over a batch dict.  The pelvis comes from the
-    ground truth when ``model.use_gt_pelvis``, else from
-    ``pred_keypoints_3d`` where the batch has it; an optional
-    ``rotation_thetas`` (B,) pins the training rotations."""
+    """The model's forward over a batch dict.  The volumetric model's
+    pelvis comes from the ground truth when ``model.use_gt_pelvis``, else
+    from ``pred_keypoints_3d`` where the batch has it; an optional
+    ``rotation_thetas`` (B,) pins its training rotations.  The algebraic
+    and RANSAC models take images, projections and the view mask."""
+    if config.model.name != "vol":
+        return model(batch["images"], batch["proj_matrices"],
+                     view_mask=batch.get("view_mask"))
     if config.model.get("use_gt_pelvis", False):
         pelvis = batch["keypoints_3d"]
     else:
@@ -42,8 +47,10 @@ def _single_view_relative(kp_pred, kp_gt, base_joint: int):
 
 
 def compute_losses(criterion, config, out, batch):
-    """(total loss, metrics): the criterion on scaled keypoints, plus the
-    weighted volumetric CE where ``opt.use_volumetric_ce_loss``."""
+    """(total loss, metrics): the criterion on scaled keypoints, plus for
+    the volumetric model the weighted volumetric CE where
+    ``opt.use_volumetric_ce_loss`` and ``base_point_l2``."""
+    vol = config.model.name == "vol"
     kp_pred = out.keypoints_3d
     kp_gt = batch["keypoints_3d"][:, :, :3]
     validity = (batch["keypoints_validity"] > 0.0).to(kp_gt.dtype)
@@ -58,7 +65,7 @@ def compute_losses(criterion, config, out, batch):
     metrics[config.opt.criterion] = loss
     total = loss
 
-    if config.opt.get("use_volumetric_ce_loss", False):
+    if vol and config.opt.get("use_volumetric_ce_loss", False):
         ce = losses.volumetric_ce_loss(out.coord_volumes, out.volumes, kp_gt,
                                        validity)
         metrics["volumetric_ce_loss"] = ce
@@ -67,9 +74,9 @@ def compute_losses(criterion, config, out, batch):
     kind = config.model.get("kind", "mpii")
     n_joints = kp_gt.shape[1]
     gt_base = None
-    if kind == "coco" and n_joints > 12:
+    if vol and kind == "coco" and n_joints > 12:
         gt_base = (kp_gt[:, 11] + kp_gt[:, 12]) / 2.0
-    elif kind != "coco" and n_joints > 6:
+    elif vol and kind != "coco" and n_joints > 6:
         gt_base = kp_gt[:, 6]
     if gt_base is not None:
         diff = (out.base_points - gt_base) * scale
@@ -91,14 +98,21 @@ def train_step(model, optimizer, criterion, config,
 
     Returns the metrics as floats, with ``grad_norm_times_lr``: the L2 norm
     of the trainable gradients before clipping, capped at the clip
-    threshold, times ``opt.lr`` (``lt_tpu/engine/steps.py:153-163``).
+    threshold, times ``opt.lr`` (``lt_tpu/engine/steps.py:153-163``).  A
+    loss that no parameter reaches (RANSAC's hard argmax) has gradients of
+    0, as in ``lt_tpu``: the step then updates only the BatchNorm
+    statistics.
     """
     model.train()
     out = model_outputs(model, batch, config, generator)
     total, metrics = compute_losses(criterion, config, out, batch)
     optimizer.zero_grad(set_to_none=True)
-    total.backward()
     params = [p for group in optimizer.param_groups for p in group["params"]]
+    if total.requires_grad:
+        total.backward()
+    else:
+        for p in params:
+            p.grad = torch.zeros_like(p)
     lr = config.opt.lr
     norm = torch.nn.utils.get_total_norm(
         [p.grad for p in params if p.grad is not None])

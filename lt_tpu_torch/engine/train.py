@@ -2,11 +2,13 @@
 metrics, checkpoints and resume.
 
 Port of ``lt_tpu/engine/train.py``'s ``run`` for the synthetic dataset
-(Human3.6M and CMU data are not in the repository): per-step ``train`` and
-per-epoch ``val_epoch`` records in ``metrics.jsonl``, a full train-state
-checkpoint per epoch under ``checkpoints/{epoch:04d}`` and ``--resume``.
-Weights can start from an ``lt_tpu`` ``.npz`` fixture, whole-model or
-backbone-only, merged where names and shapes match.
+(Human3.6M and CMU data are not in the repository) and the three model
+families of ``config.model.name`` ('alg', 'vol', 'ransac'; each trains, as
+in ``lt_tpu``): per-step ``train`` and per-epoch ``val_epoch`` records in
+``metrics.jsonl``, a full train-state checkpoint per epoch under
+``checkpoints/{epoch:04d}`` and ``--resume``.  Weights can start from an
+``lt_tpu`` ``.npz`` fixture, whole-model or backbone-only, merged where
+names and shapes match.
 """
 
 from __future__ import annotations
@@ -33,12 +35,13 @@ from lt_tpu_torch.utils import weights
 
 
 def setup_experiment(config_path: str, logdir: str, title: str,
-                     is_train: bool = True) -> str:
-    """Create ``logdir/[eval_]<title>VolumetricTriangulationNet@<time>``
-    with a ``checkpoints/`` directory and a copy of the config."""
-    name = "{}{}VolumetricTriangulationNet@{}".format(
+                     model_name: str, is_train: bool = True) -> str:
+    """Create ``logdir/[eval_]<title>_<model_name>@<time>`` (the model's
+    class name) with a ``checkpoints/`` directory and a copy of the
+    config."""
+    name = "{}{}{}@{}".format(
         "" if is_train else "eval_", f"{title}_" if title else "",
-        datetime.now().strftime("%d.%m.%Y-%H.%M.%S"))
+        model_name, datetime.now().strftime("%d.%m.%Y-%H.%M.%S"))
     experiment_dir = os.path.join(logdir, name)
     os.makedirs(os.path.join(experiment_dir, "checkpoints"), exist_ok=True)
     if config_path and os.path.isfile(config_path):
@@ -95,10 +98,16 @@ def _load_matching(model: torch.nn.Module, src: dict) -> int:
     return len(matching)
 
 
+_WHOLE_MODEL = {"alg": weights.algebraic_state_dict,
+                "ransac": weights.ransac_state_dict,
+                "vol": weights.volumetric_state_dict}
+
+
 def init_model_state(config, model: torch.nn.Module) -> None:
     """Load the configured ``.npz`` weights into ``model``: the backbone
     fixture of ``model.backbone.checkpoint``, then the whole-model fixture
-    of ``model.checkpoint``, each where its ``init_weights`` is set."""
+    of ``model.checkpoint`` (an ``lt_tpu`` model of the configured
+    family), each where its ``init_weights`` is set."""
     bb = config.model.backbone
     layers = bb.num_layers
     if bb.get("init_weights") and bb.get("checkpoint"):
@@ -111,7 +120,7 @@ def init_model_state(config, model: torch.nn.Module) -> None:
     if config.model.get("init_weights") and path:
         if not path.endswith(".npz"):
             raise NotImplementedError(f"model weights from .npz only: {path}")
-        _load_matching(model, weights.volumetric_state_dict(
+        _load_matching(model, _WHOLE_MODEL[config.model.name](
             weights.load_npz_variables(path), layers))
 
 
@@ -237,6 +246,7 @@ def run(config_path: str, logdir: str, eval_only: bool = False,
 
     experiment_dir = setup_experiment(config_path, logdir,
                                       config.get("title", ""),
+                                      type(model).__name__,
                                       is_train=not eval_only)
     logger = MetricLogger(experiment_dir)
     try:

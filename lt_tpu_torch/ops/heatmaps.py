@@ -1,17 +1,71 @@
-"""Volumetric soft-argmax (port of ``lt_tpu/ops/heatmaps.py:90-149``).
+"""Soft-argmax over 2D heatmaps and 3D volumes, and Gaussian rendering
+(port of ``lt_tpu/ops/heatmaps.py``).
 
 Plain PyTorch: these are reductions, not Pallas kernels, in ``lt_tpu``.
 The coordinate expectations are explicit multiply-sums in the inputs'
-dtype, so float32 stays full float32 on the card (no TF32).
+dtype (a bfloat16 input is widened to float32 first), so float32 stays
+full float32 on the card (no TF32).
 """
 
 from __future__ import annotations
 
+import math
+
 import torch
+
+
+def _widen(x: torch.Tensor) -> torch.Tensor:
+    return x.float() if x.dtype == torch.bfloat16 else x
 
 
 def _normalize(x_flat: torch.Tensor, softmax: bool) -> torch.Tensor:
     return torch.softmax(x_flat, -1) if softmax else torch.relu(x_flat)
+
+
+def _index(n: int, like: torch.Tensor) -> torch.Tensor:
+    return torch.arange(n, dtype=like.dtype, device=like.device)
+
+
+def integrate_tensor_2d(heatmaps: torch.Tensor, softmax: bool = True):
+    """Soft-argmax over (..., H, W) heatmaps: softmax over H * W (or ReLU
+    with the mass normalized), per-axis marginals, the expected index.
+
+    Returns (coordinates (..., 2) as (x, y), normalized heatmaps
+    (..., H, W)).
+    """
+    *lead, h, w = heatmaps.shape
+    maps = _normalize(_widen(heatmaps).reshape(*lead, h * w),
+                      softmax).reshape(*lead, h, w)
+    mass_x = maps.sum(-2)                                # (..., W)
+    mass_y = maps.sum(-1)                                # (..., H)
+    x = (mass_x * _index(w, maps)).sum(-1)
+    y = (mass_y * _index(h, maps)).sum(-1)
+    if not softmax:
+        x = x / mass_x.sum(-1)
+        y = y / mass_y.sum(-1)
+    return torch.stack([x, y], -1), maps
+
+
+def integrate_tensor_3d(volumes: torch.Tensor, softmax: bool = True):
+    """Soft-argmax over (..., X, Y, Z) volumes in index space.
+
+    Returns (coordinates (..., 3) as (x, y, z) voxel indices, normalized
+    volumes).
+    """
+    *lead, xs, ys, zs = volumes.shape
+    vols = _normalize(_widen(volumes).reshape(*lead, xs * ys * zs),
+                      softmax).reshape(*lead, xs, ys, zs)
+    mass_x = vols.sum((-2, -1))
+    mass_y = vols.sum((-3, -1))
+    mass_z = vols.sum((-3, -2))
+    x = (mass_x * _index(xs, vols)).sum(-1)
+    y = (mass_y * _index(ys, vols)).sum(-1)
+    z = (mass_z * _index(zs, vols)).sum(-1)
+    if not softmax:
+        x = x / mass_x.sum(-1)
+        y = y / mass_y.sum(-1)
+        z = z / mass_z.sum(-1)
+    return torch.stack([x, y, z], -1), vols
 
 
 def integrate_tensor_3d_with_coordinates(volumes: torch.Tensor,
@@ -52,3 +106,30 @@ def integrate_tensor_3d_with_coordinates_channels_last(
         coords = (vols[..., None] * cv).sum(1)
     vols = vols.reshape(b, xs, ys, zs, j)
     return coords, vols.permute(0, 4, 1, 2, 3)
+
+
+def gaussian_2d_pdf(coords: torch.Tensor, means: torch.Tensor,
+                    sigmas: torch.Tensor, normalize: bool = True
+                    ) -> torch.Tensor:
+    """Axis-aligned 2D Gaussian density of (..., 2) broadcastable
+    coordinates, means and sigmas; normalized by 2 pi sigma_x^2, as
+    ``lt_tpu`` and the reference normalize it."""
+    z = ((coords[..., 0] - means[..., 0]) ** 2 / sigmas[..., 0] ** 2
+         + (coords[..., 1] - means[..., 1]) ** 2 / sigmas[..., 1] ** 2)
+    pdf = torch.exp(-z / 2.0)
+    if normalize:
+        pdf = pdf / (2 * math.pi * sigmas[..., 0] * sigmas[..., 0])
+    return pdf
+
+
+def render_points_as_2d_gaussians(points: torch.Tensor, sigmas: torch.Tensor,
+                                  image_shape, normalize: bool = True
+                                  ) -> torch.Tensor:
+    """Render (..., N, 2) points with (..., N, 2) sigmas as (..., N, H, W)
+    Gaussian images."""
+    h, w = image_shape
+    yy, xx = torch.meshgrid(_index(h, points), _index(w, points),
+                            indexing="ij")
+    grid = torch.stack([xx, yy], -1)                     # (H, W, 2) as (x, y)
+    return gaussian_2d_pdf(grid, points[..., None, None, :],
+                           sigmas[..., None, None, :], normalize=normalize)

@@ -47,11 +47,20 @@ static inline int ltk_blocks(int64_t total, int threads, int64_t cap = 1 << 20) 
 
 // The bilinear taps of one voxel in one view: tap k at pixel (x + (k & 1),
 // y + (k >> 1)), its weight, and a bit per tap that is set where the tap
-// lies in the map.
+// lies in the map.  The samplers (K1, K5, K7) read tap k at the pixel
+// clamped to the map, (cx[k & 1], cy[k >> 1]), with its weight where the
+// tap is in the map and 0 where it is not, as lt_tpu's sampler
+// (lt_tpu/ops/volumetric.py:bilinear_sample_2d) and the plain versions do:
+// a NaN or inf at an edge pixel then reaches the voxels whose taps lie off
+// the map beside it (inf * 0 = NaN).  The scatters (K6, K8) add only the
+// taps in the map.  A voxel behind the camera (w <= 0) has no taps
+// (front == false): its sample is 0 whatever the map holds.
 struct LtkTaps {
   float wt[4];
   unsigned in;
-  int x, y;  // pixel of tap 0 (x0, y0), where a tap is in the map
+  int x, y;          // pixel of tap 0 (x0, y0), where a tap is in the map
+  bool front;        // w > 0
+  int cx[2], cy[2];  // x0, x0 + 1 and y0, y0 + 1 clamped to the map
 };
 
 // Project voxel (gx, gy, gz) through the composed 3x4 matrix
@@ -61,10 +70,11 @@ struct LtkTaps {
 // (sample_views_t, sample_views_grad_t) and K7 / K8 (sample_views,
 // sample_views_grad) all sample through this one function, so a backward
 // recomputes exactly the taps that its forward took, also at pixel edges.
-// Taps are tested in float coordinates: a far-off projection never reaches
-// an integer conversion that could overflow.  Each kernel computes (gx,
-// gy, gz) of its thread's voxel from its block and thread indices
-// (sample_brick.cuh's brick_voxel; K1 likewise) and projects it once.
+// Taps are tested, and clamped, in float coordinates: a far-off projection
+// never reaches an integer conversion that could overflow.  Each kernel
+// computes (gx, gy, gz) of its thread's voxel from its block and thread
+// indices (sample_brick.cuh's brick_voxel; K1 likewise) and projects it
+// once.
 __device__ __forceinline__ LtkTaps ltk_voxel_taps(const float* __restrict__ mm,
                                                   float gx, float gy,
                                                   float gz, int H, int W,
@@ -75,7 +85,9 @@ __device__ __forceinline__ LtkTaps ltk_voxel_taps(const float* __restrict__ mm,
   LtkTaps t;
   t.in = 0u;
   t.x = t.y = 0;
-  if (!(w > 0.f)) {
+  t.front = w > 0.f;
+  t.cx[0] = t.cx[1] = t.cy[0] = t.cy[1] = 0;
+  if (!t.front) {
     for (int k = 0; k < 4; ++k) t.wt[k] = 0.f;
     return t;
   }
@@ -97,13 +109,25 @@ __device__ __forceinline__ LtkTaps ltk_voxel_taps(const float* __restrict__ mm,
          (yin1 && xin0 ? 4u : 0u) | (yin1 && xin1 ? 8u : 0u);
   t.x = xi;
   t.y = yi;
+  t.cx[0] = static_cast<int>(fminf(fmaxf(x0, 0.f), W - 1.f));
+  t.cx[1] = static_cast<int>(fminf(fmaxf(x0 + 1.f, 0.f), W - 1.f));
+  t.cy[0] = static_cast<int>(fminf(fmaxf(y0, 0.f), H - 1.f));
+  t.cy[1] = static_cast<int>(fminf(fmaxf(y0 + 1.f, 0.f), H - 1.f));
   return t;
+}
+
+// A sampler's weight of tap k: its bilinear weight where it lies in the
+// map, 0 where it does not (its clamped pixel is read all the same).
+__device__ __forceinline__ float ltk_sample_wt(const LtkTaps& t, int k) {
+  return t.in >> k & 1u ? t.wt[k] : 0.f;
 }
 
 // One tap's term of a bilinear sample, val + wt * f rounded once (an
 // explicit FMA): K1 and sample_brick.cuh's gather4 (K5, K7) add the taps of
 // a sample with it in the order k = 0..3, so a view that K1 samples alone
-// gives K5's and K7's sample bit for bit.
+// gives K5's and K7's sample bit for bit.  A tap off the map adds 0 * f:
+// nothing for a finite f (the sum may turn a -0 into +0), NaN for a NaN or
+// an infinity, as the plain versions' products do.
 __device__ __forceinline__ float ltk_tap(float val, float wt, float f) {
   return __fmaf_rn(wt, f, val);
 }

@@ -9,10 +9,11 @@
 // come from the block and thread indices in 32-bit arithmetic.  Each thread
 // projects its voxel once (common.cuh's ltk_voxel_taps on float
 // coordinates, as K1) and writes its taps to shared memory: for the
-// samplers (K5, K7) as offsets into the map; for the scatters (K6, K8) a
-// block reduction first takes the pixel box of the brick's taps that lie
-// in the map, and the taps are offsets into the box's window where the box
-// fits the plan's budget (the pre-reduction), else into the map.
+// samplers (K5, K7) as offsets into the map of each tap's pixel clamped to
+// the map, with weight 0 where the tap lies off it; for the scatters (K6,
+// K8) a block reduction first takes the pixel box of the brick's taps that
+// lie in the map, and the taps are offsets into the box's window where the
+// box fits the plan's budget (the pre-reduction), else into the map.
 //
 // Dynamic shared memory (smem_bytes), by layout: the scatters' region (a
 // count a pixel of the window and the brick's taps sorted by pixel), a
@@ -162,8 +163,9 @@ __device__ __forceinline__ LtkTaps voxel_taps(const Args& p,
 
 // The samplers (K5, K7): projects this thread's voxel (if `mine`) through
 // mm and writes its taps to shared memory as offsets (y * W + x) * C into
-// the map, -1 for a tap off the map (a voxel behind the camera has every
-// tap off).  The caller synchronises before reading.
+// the map of each tap's pixel clamped to the map, and its weight (0 for a
+// tap off the map); -1 for every tap of a voxel behind the camera.  The
+// caller synchronises before reading.
 __device__ __forceinline__ void map_taps(const Args& p, const Smem& sm,
                                          const float* __restrict__ mm,
                                          bool mine, int gx, int gy, int gz) {
@@ -171,11 +173,11 @@ __device__ __forceinline__ void map_taps(const Args& p, const Smem& sm,
   int off[4];
 #pragma unroll
   for (int k = 0; k < 4; ++k)
-    off[k] = tp.in >> k & 1u
-                 ? ((tp.y + (k >> 1)) * p.W + tp.x + (k & 1)) * p.C
-                 : -1;
+    off[k] = tp.front ? (tp.cy[k >> 1] * p.W + tp.cx[k & 1]) * p.C : -1;
   sm.toff[threadIdx.x] = make_int4(off[0], off[1], off[2], off[3]);
-  sm.twt[threadIdx.x] = make_float4(tp.wt[0], tp.wt[1], tp.wt[2], tp.wt[3]);
+  sm.twt[threadIdx.x] =
+      make_float4(ltk_sample_wt(tp, 0), ltk_sample_wt(tp, 1),
+                  ltk_sample_wt(tp, 2), ltk_sample_wt(tp, 3));
 }
 
 // Four channels of a float32 or bfloat16 row, widened to float32: one
@@ -209,13 +211,15 @@ __device__ __forceinline__ void ld4(const __nv_bfloat16* q, float (&f)[4],
 }
 
 // Channels cc..cc+3 of voxel j's sample from the map (channel c0 of pixel
-// 0): its taps summed k = 0..3 with ltk_tap, the order K1 sums them in.  A
-// tap off the map reads pixel 0 and its term is dropped by a select, not a
-// branch, so that K1's 'sum' of one view, K5 and K7 agree bit for bit
-// whatever the features hold.  vec: each tap's 4 channels in one load; else
-// element by element, channels past the chunk's CH left 0.  (The sums sit
-// in each branch: one shared sum after a common load measured 2-13 %
-// slower in K5 and K7 on an H100 80GB HBM3 at 700 W, PERF.md.)
+// 0): its taps summed k = 0..3 with ltk_tap, the order K1 sums them in; a
+// tap off the map reads its clamped pixel with weight 0.  A voxel behind
+// the camera (offsets -1) reads pixel 0 and its terms are dropped by a
+// select, not a branch, so that K1's 'sum' of one view, K5 and K7 agree bit
+// for bit whatever the features hold.  vec: each tap's 4 channels in one
+// load; else element by element, channels past the chunk's CH left 0.
+// (The sums sit in each branch: one shared sum after a common load
+// measured 2-13 % slower in K5 and K7 on an H100 80GB HBM3 at 700 W,
+// PERF.md.)
 template <typename T>
 __device__ __forceinline__ void gather4(const T* __restrict__ map,
                                         const Smem& sm, int j, int cc,

@@ -6,7 +6,9 @@ Port of ``lt_tpu/ops/pallas/unproject.py:360-504, 710-829``
 ``unproject_heatmaps_affine``).  The CUDA kernel is ``csrc/unproject_agg.cu``,
 launched with the plan of :func:`unproject_plan`;
 :func:`unproject_agg_plain` is its plain PyTorch version and
-:func:`brick_windows` computes the feature windows it stages.  The backward of
+:func:`brick_windows` computes the feature windows it stages.  As
+``lt_tpu``'s sampler, the kernel reads a tap off the map at its pixel
+clamped to the map, with weight 0.  The backward of
 :func:`sample_views_agg` runs kernels K5 and K6 (``sample.py``).
 """
 
@@ -80,12 +82,18 @@ def unproject_plan(channels: int, grid_size: int, elem: int,
     return AggPlan(window, smem, bricks, math.ceil(channels / AGG_CHUNK))
 
 
-def brick_windows(m: torch.Tensor, grid_size: int, h: int, w: int):
-    """K1's staged windows in plain PyTorch (and the boxes of K6's and K8's
-    pre-reduction, on the same brick): for each sample, view and brick (in
-    the kernel's grid order: z fastest, then y, then x), the pixel bounding
-    box (x0, x1, y0, y1) of the taps of the brick's voxels that lie in the
-    (h, w) map, and its pixel count (0 where no tap does).
+def brick_windows(m: torch.Tensor, grid_size: int, h: int, w: int,
+                  clamped: bool = False):
+    """The boxes of K1's staged windows (``clamped=True``) or of K6's and
+    K8's pre-reduction (the default), on the same brick, in plain PyTorch:
+    for each sample, view and brick (in the kernel's grid order: z fastest,
+    then y, then x), the pixel bounding box (x0, x1, y0, y1) and its pixel
+    count (0 where the brick has no tap).
+
+    The scatters' box holds the taps of the brick's voxels that lie in the
+    (h, w) map.  K1 reads every tap of a voxel in front of the camera at
+    its pixel clamped to the map (weight 0 off the map): its box holds
+    those clamped pixels.
 
     Args:
       m: (B, V, 3, 4) composed grid-index -> pixel matrices.
@@ -111,12 +119,17 @@ def brick_windows(m: torch.Tensor, grid_size: int, h: int, w: int):
     idx = brick_of[None, :, None].expand(b * v, -1, 2)
     for dx, dy in ((0, 0), (1, 0), (0, 1), (1, 1)):
         xk, yk = x0 + dx, y0 + dy
-        inside = (z > 0) & (xk >= 0) & (xk <= w - 1) & (yk >= 0) & (
-            yk <= h - 1)
-        xy = torch.stack([xk.clamp(-1, w), yk.clamp(-1, h)], -1).long()
-        lo.scatter_reduce_(1, idx, torch.where(inside[..., None], xy, big),
+        if clamped:
+            taken = z > 0
+            xy = torch.stack([xk.clamp(0, w - 1), yk.clamp(0, h - 1)], -1)
+        else:
+            taken = (z > 0) & (xk >= 0) & (xk <= w - 1) & (yk >= 0) & (
+                yk <= h - 1)
+            xy = torch.stack([xk.clamp(-1, w), yk.clamp(-1, h)], -1)
+        xy = xy.long()
+        lo.scatter_reduce_(1, idx, torch.where(taken[..., None], xy, big),
                            "amin")
-        hi.scatter_reduce_(1, idx, torch.where(inside[..., None], xy, -big),
+        hi.scatter_reduce_(1, idx, torch.where(taken[..., None], xy, -big),
                            "amax")
     boxes = torch.stack([lo[..., 0], hi[..., 0], lo[..., 1], hi[..., 1]], -1)
     empty = boxes[..., 0] > boxes[..., 1]

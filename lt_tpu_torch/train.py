@@ -1,9 +1,11 @@
-"""CLI: train or evaluate the volumetric model with the port, on an NVIDIA
-GPU (``--device cpu`` runs the kernels' plain versions on the CPU).
+"""CLI: train or evaluate the configured model (``model.name``: 'alg',
+'vol' or 'ransac') with the port, on an NVIDIA GPU (``--device cpu`` runs
+the kernels' plain versions on the CPU).
 
 The flags of the repository's ``train.py``:
 
     python -m lt_tpu_torch.train --config experiments/synthetic/vol_tiny_2stage.yaml --logdir ./logs
+    python -m lt_tpu_torch.train --config experiments/synthetic/alg_tiny.yaml --logdir ./logs
     python -m lt_tpu_torch.train --eval --eval_dataset val --config ... --logdir ...
     python -m lt_tpu_torch.train --resume ./logs/<experiment> --config ...
 """

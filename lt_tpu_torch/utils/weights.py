@@ -185,8 +185,53 @@ def backbone_state_dict(variables: dict, num_layers: int
     return r.sd
 
 
+def algebraic_state_dict(variables: dict, num_layers: int
+                         ) -> Dict[str, torch.Tensor]:
+    """AlgebraicTriangulationNet variables (the backbone, with its
+    ``alg_confidences`` head where the model has one) -> the port's
+    state_dict."""
+    r = _Reader(variables["params"], variables["batch_stats"])
+    _pose_resnet(r, num_layers, "backbone.", ("backbone",))
+    return r.sd
+
+
+def ransac_state_dict(variables: dict, num_layers: int
+                      ) -> Dict[str, torch.Tensor]:
+    """RANSACTriangulationNet variables (its backbone) -> the port's
+    state_dict."""
+    return backbone_state_dict(
+        {"params": variables["params"]["backbone"],
+         "batch_stats": variables["batch_stats"].get("backbone", {})},
+        num_layers)
+
+
 def load_volumetric_npz(model: torch.nn.Module, path: str,
                         num_layers: int) -> None:
     """Load an ``lt_tpu`` whole-model ``.npz`` fixture into ``model``."""
     model.load_state_dict(volumetric_state_dict(load_npz_variables(path),
                                                 num_layers))
+
+
+def load_algebraic_npz(model: torch.nn.Module, path: str,
+                       num_layers: int) -> None:
+    """Load an ``lt_tpu`` whole-model ``.npz`` of the algebraic model into
+    ``model``."""
+    model.load_state_dict(algebraic_state_dict(load_npz_variables(path),
+                                               num_layers))
+
+
+def load_ransac_npz(model: torch.nn.Module, path: str,
+                    num_layers: int) -> None:
+    """Load an ``lt_tpu`` whole-model ``.npz`` of the RANSAC model (its
+    backbone) into ``model``."""
+    model.load_state_dict(ransac_state_dict(load_npz_variables(path),
+                                            num_layers))
+
+
+def load_backbone_npz(model: torch.nn.Module, path: str,
+                      num_layers: int) -> None:
+    """Load a backbone-only ``.npz`` (``tests/fixtures/
+    backbone_rn18_synth.npz``'s format) into the backbone of an algebraic
+    model without confidences or a RANSAC model: every entry must match."""
+    model.load_state_dict(backbone_state_dict(load_npz_variables(path),
+                                              num_layers))

@@ -176,16 +176,36 @@ def _nan_close(got, ref, rel, nan_ref=None):
     assert err <= rel * r[fin].abs().max().item(), err
 
 
+def _plant_edges(feats):
+    """NaN in the maps' first row, +inf in their last column and -inf in
+    their last row (every third channel each): the pixels that taps off
+    the map read, with weight 0 (in place; returns feats)."""
+    feats[..., 0, :, 0::3] = float("nan")
+    feats[..., :, -1, 1::3] = float("inf")
+    feats[..., -1, :, 2::3] = -float("inf")
+    return feats
+
+
 @pytest.mark.parametrize("dt", [torch.float32, BF16])
 @pytest.mark.parametrize("kernel", ["conv3d_fused", "upsample3d_2x",
                                     "unproject_agg max",
-                                    "unproject_agg softmax"])
+                                    "unproject_agg softmax",
+                                    "unproject_agg softmax edges",
+                                    "unproject_agg sum edges",
+                                    "unproject_agg softmax +inf",
+                                    "sample_views_t edges",
+                                    "sample_views edges"])
 def test_kernels_keep_nan(dev, kernel, dt):
     """NaN, +inf and -inf in K2's and K3's inputs, NaN in K1's features:
     the ReLU epilogues and K1's 'max' keep NaN as their plain versions do.
     The float32 K2 sums products of bfloat16 parts, where an infinity's
-    lower parts are NaN: it gives NaN wherever an infinity of x reaches."""
-    from lt_tpu_torch.ops.kernels import conv3d, unproject, updown
+    lower parts are NaN: it gives NaN wherever an infinity of x reaches.
+    'edges': NaN and infinities on the maps' edges, which the flagship's
+    taps off the map read at their clamped pixels with weight 0 (K1, K5 and
+    K7 as lt_tpu's sampler: inf * 0 = NaN; K5 reads float32 features, the
+    bfloat16 case's rounded ones widened).  '+inf': +inf features inside
+    the maps, whose softmax over the views is NaN."""
+    from lt_tpu_torch.ops.kernels import conv3d, sample, unproject, updown
 
     rel = REL if dt == torch.float32 else REL_BF16
     if kernel == "conv3d_fused":
@@ -205,11 +225,28 @@ def test_kernels_keep_nan(dev, kernel, dt):
         skip = _plant(_randn(dev, 2, 6, 8, 10, 32, seed=3).to(dt), seed=9)
         _nan_close(updown.upsample3d_2x(x, w8, b8, skip),
                    updown.upsample3d_2x_plain(x, w8, b8, skip), rel)
+    elif kernel.startswith("sample_views"):
+        feats, m = _flagship_k1_inputs(dev)
+        b, v, h, w, c = feats.shape
+        feats = _plant_edges(feats.to(dt)).reshape(b * v, h, w, c)
+        m = m.reshape(b * v, 3, 4)
+        if kernel.startswith("sample_views_t"):
+            feats = feats.float()
+            _nan_close(sample.sample_views_t(feats, m, FLAG),
+                       sample.sample_views_t_plain(feats, m, FLAG), REL)
+        else:
+            _nan_close(sample.sample_views(feats, m, FLAG, dt),
+                       sample.sample_views_plain(feats, m, FLAG, dt), rel)
     else:
-        method = kernel.split()[1]
+        _, method, *where = kernel.split()
         feats, m = _flagship_k1_inputs(dev)
         feats = feats.to(dt)
-        feats[:, :, 44:52, 44:52, ::3] = float("nan")   # inside every map
+        if where == ["edges"]:
+            _plant_edges(feats)
+        elif where == ["+inf"]:
+            feats[:, :, 40:56, 40:56, 1::3] = float("inf")
+        else:
+            feats[:, :, 44:52, 44:52, ::3] = float("nan")  # inside every map
         mask = torch.ones(feats.shape[:2], device=dev)
         _nan_close(unproject.unproject_agg(feats, m, mask, None, method, FLAG),
                    unproject.unproject_agg_plain(feats, m, mask, None, method,
@@ -875,7 +912,8 @@ def _k7_bits(feats, m, s, out_dtype, got):
     from lt_tpu_torch.ops.kernels import sample
 
     k5 = sample.sample_views_t(feats.float(), m, s).transpose(1, 2)
-    assert torch.equal(got, k5.to(out_dtype))
+    torch.testing.assert_close(got, k5.to(out_dtype), rtol=0, atol=0,
+                               equal_nan=True)
 
 
 @pytest.mark.parametrize("in_dtype, out_dtype", TYPE_PAIRS)
@@ -1031,8 +1069,8 @@ def test_unproject_agg_sum_of_one_view_is_k5_bit_for_bit(dev, scene):
     taps and sum them k = 0..3 with ltk_tap, so the training backward (K5,
     K6) recomputes exactly the samples that K1 aggregated.  edge_inf puts
     inf in the maps' first row and column (pixel 0 of the map and of the
-    windows that touch them), where K1's taps off the map read: they must
-    not reach the sum."""
+    windows that touch them), which taps off the map read at their clamped
+    pixels with weight 0: both give the same NaN there."""
     from lt_tpu_torch.ops.kernels import sample, unproject
 
     feats, m = (_flagship_k1_inputs(dev) if scene == "flagship"
@@ -1221,7 +1259,8 @@ def _k56_scene(dev, scene):
     over_budget: _k1_scene's views whose windows exceed 384 pixels;
     inf: inf in the maps' first row and column, where no tap in the map
       lands (x = 5 gx - 12.5, y = 5 gy - 12.5 pixels; view 1 behind its
-      camera): only taps off the map, dropped by a select, read them."""
+      camera): only taps off the map read them, at their clamped pixels
+      with weight 0 (inf * 0 = NaN, as in the plain version)."""
     if scene == "over_budget":
         feats, m, s = _k1_scene(dev, scene, torch.float32)
         b, v = feats.shape[:2]
@@ -1253,19 +1292,21 @@ K56_SCENES = ["edge", "s10", "c17", "c48", "misaligned", "over_budget"]
 def test_sample_views_t_bricks_and_windows(dev, scene):
     """K5 against its plain version where its bricks have edges, with its
     one plan; a plan that does not fit is refused.  With inf in the maps'
-    first row and column K5 gives what it gives without (the plain version
-    on the maps without inf), where K1 does too."""
+    first row and column K5 has the plain version's NaN (the taps off the
+    map read the edge with weight 0), as K1 does, and the view behind its
+    camera stays 0."""
     from lt_tpu_torch.ops.kernels import sample
 
     feats, m, s = _k56_scene(dev, scene)
     out = sample.sample_views_t(feats, m, s)
-    finite = feats.nan_to_num(posinf=0.0)
-    _close(out, sample.sample_views_t_plain(finite, m, s))
+    ref = sample.sample_views_t_plain(feats, m, s)
     _refuses_wrong_plans(sample.sample_views_t, "sample_views_t",
                          feats.shape[-1], s, feats, m, s)
     if scene == "inf":
-        assert torch.equal(out, sample.sample_views_t(finite, m, s))
+        _nan_close(out, ref, REL)
         assert bool((out[1] == 0).all())
+    else:
+        _close(out, ref)
 
 
 def _refuses_wrong_plans(fn, kernel, c, s, *args):
@@ -1336,7 +1377,7 @@ def test_sample_views_bricks_and_types(dev, scene, in_dtype, out_dtype):
     sample transposed (of the widened features, rounded once for a
     bfloat16 output).  misaligned: features one element off their 16-byte
     (float32) or 8-byte (bfloat16) boundary.  With inf in the maps' first
-    row and column K7 gives what it gives without."""
+    row and column K7 has the plain version's NaN, as K5 does."""
     from lt_tpu_torch.ops.kernels import sample
 
     feats, m, s = _k78_scene(dev, scene)
@@ -1345,15 +1386,15 @@ def test_sample_views_bricks_and_types(dev, scene, in_dtype, out_dtype):
         feats = _offset(feats)
     out = sample.sample_views(feats, m, s, out_dtype)
     exact = in_dtype == out_dtype == torch.float32
-    finite = feats.nan_to_num(posinf=0.0)
-    _close(out, sample.sample_views_plain(finite, m, s, out_dtype),
-           REL if exact else REL_BF16)
+    ref = sample.sample_views_plain(feats, m, s, out_dtype)
+    if scene == "inf":
+        _nan_close(out, ref, REL if exact else REL_BF16)
+        assert bool((out[1] == 0).all())
+    else:
+        _close(out, ref, REL if exact else REL_BF16)
     _refuses_wrong_plans(sample.sample_views, "sample_views",
                          feats.shape[-1], s, feats, m, s, out_dtype)
     _k7_bits(feats, m, s, out_dtype, out)
-    if scene == "inf":
-        assert torch.equal(out, sample.sample_views(finite, m, s, out_dtype))
-        assert bool((out[1] == 0).all())
 
 
 @pytest.mark.parametrize("g_dtype", [torch.float32, BF16])

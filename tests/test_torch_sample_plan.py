@@ -23,9 +23,11 @@ memory never runs, so the guard is here, where no card is needed:
   taps added to dF; K8's tile loaded from whole voxels-major rows, bfloat16
   widened) equal the plain versions for budgets that take every brick down
   either path or some down each; K5 and K7 modelled brick by brick (taps
-  read from the map, a tap off the map reading pixel 0 and dropped by a
-  select; K7 reading bfloat16 features widened and writing rows, a
-  bfloat16 output rounded once) equal the plain versions and each other.
+  read from the map, a tap off the map at its pixel clamped to the map
+  with weight 0, a voxel behind the camera reading pixel 0 and dropped by
+  a select; K7 reading bfloat16 features widened and writing rows, a
+  bfloat16 output rounded once) equal the plain versions and each other,
+  NaN and infinities on the maps' edges included.
 """
 
 import math
@@ -305,16 +307,20 @@ def _k8_model(g, m, shape, s, budget):
 
 def _map_taps(m, s, h, w, c):
     """Each view's and voxel's tap offsets (y * W + x) * C into the
-    flattened map, -1 off the map (sample_brick.cuh's map_taps), and
-    weights."""
+    flattened map of the tap's pixel clamped to the map, -1 for a voxel
+    behind the camera, and weights, 0 for a tap off the map
+    (sample_brick.cuh's map_taps)."""
     xs, ys, wts, inside = _taps(m, s, h, w)
-    return torch.where(inside, (ys * w + xs) * c, -1), wts
+    front = (_project(m, s)[..., 2] > 0)[..., None].expand_as(inside)
+    off = (ys.clamp(0, h - 1) * w + xs.clamp(0, w - 1)) * c
+    return (torch.where(front, off, -1),
+            torch.where(inside, wts, torch.zeros_like(wts)))
 
 
 def _gather(flat, off, wt, c0, ch):
     """gather4 over a chunk: channels c0..c0+ch of the voxels' samples, the
-    taps summed k = 0..3, a tap off the map reading pixel 0 and dropped by
-    a select."""
+    taps summed k = 0..3, a voxel behind the camera reading pixel 0 and
+    dropped by a select."""
     val = torch.zeros(len(off), ch)
     cols = c0 + torch.arange(ch)
     for k in range(4):
@@ -330,14 +336,16 @@ def _k5_model(feats, m, s):
     bv, h, w, c = feats.shape
     off, wts = _map_taps(m, s, h, w, c)
     flat = feats.float().reshape(bv, -1)
-    out = torch.full((bv, c, s ** 3), float("nan"))
+    out = torch.zeros((bv, c, s ** 3))
+    written = torch.zeros(out.shape, dtype=torch.int64)
     for v in range(bv):
         for vox in _bricks(s, K5_BRICK):
             for c0 in range(0, c, AGG_CHUNK):
                 ch = min(AGG_CHUNK, c - c0)
                 out[v, c0:c0 + ch, vox] = _gather(flat[v], off[v, vox],
                                                   wts[v, vox], c0, ch).T
-    assert not bool(out.isnan().any())       # every element written once
+                written[v, c0:c0 + ch, vox] += 1
+    assert bool((written == 1).all())        # every element written once
     return out
 
 
@@ -348,14 +356,17 @@ def _k7_model(feats, m, s, out_dtype=torch.float32):
     bv, h, w, c = feats.shape
     off, wts = _map_taps(m, s, h, w, c)
     flat = feats.float().reshape(bv, -1)
-    out = torch.full((bv, s ** 3 * c), float("nan"))
+    out = torch.zeros((bv, s ** 3 * c))
+    written = torch.zeros(out.shape, dtype=torch.int64)
     for v in range(bv):
         for vox in _bricks(s, AGG_BRICK):
             for c0 in range(0, c, AGG_CHUNK):
                 ch = min(AGG_CHUNK, c - c0)
-                out[v][vox[:, None] * c + c0 + torch.arange(ch)] = _gather(
-                    flat[v], off[v, vox], wts[v, vox], c0, ch)
-    assert not bool(out.isnan().any())       # every element written once
+                rows = vox[:, None] * c + c0 + torch.arange(ch)
+                out[v][rows] = _gather(flat[v], off[v, vox], wts[v, vox], c0,
+                                       ch)
+                written[v][rows] += 1
+    assert bool((written == 1).all())        # every element written once
     return out.reshape(bv, s ** 3, c).to(out_dtype)
 
 
@@ -410,30 +421,41 @@ def test_k8_model_of_both_paths_is_the_plain_scatter(s, c, budget, g_dtype):
     torch.testing.assert_close(got, k6, rtol=0, atol=atol)
 
 
-def _inf_clear(feats, m, s, model):
-    """With inf in the maps' first row and column, every voxel whose taps
-    in the map stay clear of them (all of views 1 and 3, whose taps are all
-    off the map) keeps its sample bit for bit; ``model`` gives voxels-major
-    samples."""
-    xs, ys, _, inside = _taps(m, s, *feats.shape[1:3])
-    clear = ~(inside & ((xs == 0) | (ys == 0))).any(-1)        # (BV, N)
-    assert bool(clear[1].all()) and bool(clear[3].all())
-    inf = feats.clone()
-    inf[:, 0] = float("inf")
-    inf[:, :, 0] = float("inf")
-    assert torch.equal(model(inf)[clear], model(feats)[clear])
+def _edges_nonfinite(feats, m, s, model, plain):
+    """With NaN in the maps' first row, +inf in their first column and
+    -inf in their last column (every third channel each), ``model`` (voxels
+    -major samples, float32) has NaN exactly where ``plain`` has it (the
+    taps off the map read the edge with weight 0: inf * 0 = NaN), its
+    infinities and its finite values within 1e-6 of the largest; view 1,
+    behind its camera, stays 0."""
+    edge = feats.clone()
+    edge[:, 0, :, 0::3] = float("nan")
+    edge[:, :, 0, 1::3] = float("inf")
+    edge[:, :, -1, 2::3] = -float("inf")
+    got, ref = model(edge).float(), plain(edge).float()
+    nan = ref.isnan()
+    assert bool(nan.any())
+    assert torch.equal(got.isnan(), nan)
+    assert torch.equal(got[ref.isinf()], ref[ref.isinf()])
+    fin = ref.isfinite()
+    torch.testing.assert_close(got[fin], ref[fin], rtol=0,
+                               atol=1e-6 * ref[fin].abs().max().item())
+    assert bool((got[1] == 0).all())
 
 
 @pytest.mark.parametrize("s, c", [(7, 40), (10, 17), (13, 8)])
 def test_k5_model_of_both_paths_is_the_plain_sample(s, c):
-    """Taps read from the map, a tap off the map reading pixel 0 and
-    dropped by a select: equal to sample_views_t_plain; inf in the maps'
-    first row and column reaches no voxel whose taps stay clear of it."""
+    """Taps read from the map, a tap off the map at its clamped pixel with
+    weight 0: equal to sample_views_t_plain, also with NaN and infinities
+    on the maps' edges."""
     feats, m = _scene(s, seed=s, c=c)
     ref = sample.sample_views_t_plain(feats, m, s)
     got = _k5_model(feats, m, s)
     torch.testing.assert_close(got, ref, rtol=0, atol=1e-6)
-    _inf_clear(feats, m, s, lambda f: _k5_model(f, m, s).transpose(1, 2))
+    _edges_nonfinite(feats, m, s,
+                     lambda f: _k5_model(f, m, s).transpose(1, 2),
+                     lambda f: sample.sample_views_t_plain(f, m, s)
+                     .transpose(1, 2))
 
 
 @pytest.mark.parametrize("in_dtype, out_dtype", [
@@ -447,8 +469,8 @@ def test_k7_model_of_its_bricks_is_the_plain_sample(c, s, in_dtype,
     _scene's edge views (one bfloat16 ulp of the largest value where the
     output is bfloat16: the two round once, from float32 sums in another
     order) and to the K5 model transposed (bit for bit, rounded once);
-    inf in the maps' first row and column reaches no voxel whose taps stay
-    clear of it."""
+    with NaN and infinities on the maps' edges, the plain version's NaN
+    and infinities."""
     feats, m = _scene(s, seed=s, c=c)
     feats = feats.to(in_dtype)
     got = _k7_model(feats, m, s, out_dtype)
@@ -460,7 +482,9 @@ def test_k7_model_of_its_bricks_is_the_plain_sample(c, s, in_dtype,
     assert torch.equal(got, _k5_model(feats, m, s).transpose(1, 2)
                        .to(out_dtype))
     assert bool((got[1] == 0).all()) and bool((got[3] == 0).all())
-    _inf_clear(feats, m, s, lambda f: _k7_model(f, m, s, out_dtype))
+    _edges_nonfinite(feats, m, s, lambda f: _k7_model(f, m, s, out_dtype),
+                     lambda f: sample.sample_views_plain(f, m, s,
+                                                         out_dtype))
 
 
 @pytest.mark.parametrize("kernel", KERNELS)
