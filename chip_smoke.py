@@ -14,10 +14,12 @@ staged in shared memory or not), K4's its scalar instance (on a base off 16
 bytes), each held to the plain version as well; K3's and K4's launches,
 a few microseconds each at the small levels, are timed also as CUDA graphs
 (``graph_ms``), which the host's launch loop cannot keep fed.  A phase
-plants NaN and infinities in K1-K5's and K7's inputs (for the samplers
-also on the maps' edges, which taps off the map read with weight 0, and
-+inf for K1's softmax) and holds each kernel to its plain version's NaN
-(``nan_checks``).  Then it drives
+plants NaN and infinities in K1-K8's inputs (for the samplers also on the
+maps' edges, which taps off the map read with weight 0, with a masked
+view for K1, +inf for K1's softmax, and for the scatters K6 and K8 in the
+gradient of voxels with taps off the map) and holds each kernel to its
+plain version's NaN, the float32 K2 to true float32 (``nan_checks``).
+Then it drives
 the port's paths at the flagship width (ResNet-152, 384^2 images, 4 views,
 64^3 volume, softmax aggregation, 17 joints, seeded random weights): the
 eval forward through K1-K4 (requests at batch 8) in float32 and in the
@@ -33,7 +35,7 @@ through K1 and, in its backward, K5 and K6; before it, K5 and K6 at its
 shapes (K6 also with direct atomics only), K5 held to K7 and to K1's 'sum'
 of each view bit for bit.  It also runs the committed trained RN-18
 fixture in float32 and bfloat16, and trains the synthetic config for one
-epoch through the CLI's ``run``, then resumes it.  Last, the algebraic and
+epoch through the CLI's ``run``, then resumes it.  Then the algebraic and
 RANSAC families, which launch no kernel of the port (``lt_tpu`` computes
 them with XLA only): AlgebraicTriangulationNet at the flagship width in
 float32 and bfloat16 and RANSACTriangulationNet in float32 (batch 8,
@@ -41,7 +43,16 @@ seeded random weights; the DLT's and RANSAC's launches and device time),
 both on the trained RN-18 backbone fixture (card vs CPU, bfloat16 vs
 float32), the training step of
 experiments/human36m/train/human36m_alg.yaml (batch 8) and one CLI epoch
-of experiments/synthetic/alg_tiny.yaml with its resume.
+of experiments/synthetic/alg_tiny.yaml with its resume.  Last, the
+dataset configs through the CLI's ``run``: human36m_vol_softmax.yaml
+--eval at its width (val batch 20, float32) on a Human3.6M tree it
+writes from a seed (1000^2 JPEGs, the reference's labels ``.npy``, a
+whole-model ``.pth`` the port saves with DDP's names), and one batch of
+cmu_vol_softmax.yaml on a CMU Panoptic tree: the decoder, K1-K4 launched
+as in the flagship forward and no plain version, keypoints equal to a
+direct forward, that forward held to the plain path at the run's own
+shapes (batch 20, 17 or 19 joints), metric.json's breakdown, and the
+loader's rate beside the request's.
 
     python3 chip_smoke.py [--batch N]
 
@@ -881,21 +892,18 @@ def plant(x, gen, count=4):
     return x
 
 
-def nonfinite_diff(name, got, ref, tol, nan_ref=None):
+def nonfinite_diff(name, got, ref, tol):
     """Kernel vs plain on inputs with NaN or inf planted (``check`` refuses
     non-finite outputs): NaN exactly where the plain version has NaN, its
     infinities the same, its finite values finite and within ``tol`` of the
     largest finite |plain| (0: bit for bit), and at least one NaN reached.
-    ``nan_ref``: where the kernel turns an infinity of its input into NaN,
-    the plain version's output with the planted infinities made NaN, whose
-    NaN the kernel must have instead.  Logs the counts; returns ``name`` if
-    the case fails, else None."""
+    Logs the counts; returns ``name`` if the case fails, else None."""
     if got.shape != ref.shape or got.dtype != ref.dtype:
         log(f"  {name}: {tuple(got.shape)} {got.dtype} != "
             f"{tuple(ref.shape)} {ref.dtype} -> FAIL")
         return name
     g, r = got.float(), ref.float()
-    want_nan = (ref if nan_ref is None else nan_ref).float().isnan()
+    want_nan = r.isnan()
     nan_g = g.isnan()
     dropped = int((want_nan & ~nan_g).sum())
     added = int((nan_g & ~want_nan).sum())
@@ -915,15 +923,34 @@ def nonfinite_diff(name, got, ref, tol, nan_ref=None):
     return None if ok else name
 
 
+def offmap_voxels(m, s, h, w):
+    """(BV, S^3) bool: the voxels in front of their camera (w > 0) that
+    have a bilinear tap off the (h, w) map, as ltk_voxel_taps picks
+    them."""
+    import torch
+
+    from lt_tpu_torch.ops.kernels import sample
+
+    uvw = sample._project(m, s)
+    z = uvw[..., 2]
+    z_safe = torch.where(z == 0.0, torch.ones_like(z), z)
+    x0 = torch.floor(uvw[..., 0] / z_safe * ((w - 1) / w))
+    y0 = torch.floor(uvw[..., 1] / z_safe * ((h - 1) / h))
+    return (z > 0) & ((x0 < 0) | (x0 + 1 > w - 1) | (y0 < 0)
+                      | (y0 + 1 > h - 1))
+
+
 def nan_checks(batch, geometry, dev):
-    """NaN and inf planted in the inputs of K1-K5 and K7, each kernel held
-    to its plain version by :func:`nonfinite_diff`: K4 bit for bit at the
+    """NaN and inf planted in the inputs of K1-K8, each kernel held to its
+    plain version by :func:`nonfinite_diff`: K4 bit for bit at the
     flagship's five pool shapes, both instances and types; K3 and K2 (the
-    per-conv ``conv3d_same`` and the fused ``res3d_block_fused``) in both
-    types; K1's four aggregations with NaN features inside the maps and
-    with NaN and infinities on their edges, and its softmax of +inf
-    features; K5 and K7 with NaN and infinities on the edges.  Raises after
-    the phase, naming every case that failed."""
+    per-conv ``conv3d_same``, the k = 7 front conv and the fused
+    ``res3d_block_fused``) in both types, float32 K2 to true float32; K1's
+    four aggregations with NaN features inside the maps and with NaN and
+    infinities on their edges, also with a masked view, and its softmax of
+    +inf features; K5 and K7 with NaN and infinities on the edges; K6 and
+    K8 with NaN and infinities in g at voxels with taps off the map.
+    Raises after the phase, naming every case that failed."""
     import torch
 
     from lt_tpu_torch.ops.kernels import (conv3d, res3d, sample, unproject,
@@ -936,15 +963,11 @@ def nan_checks(batch, geometry, dev):
         return (torch.randn(shape, generator=gen, device=dev)
                 * scale).to(dtype)
 
-    def run(label, kernel_fn, plain_fn, tol, nan_fn=None):
+    def run(label, kernel_fn, plain_fn, tol):
         got = kernel_fn()
         with deterministic_cudnn():
             ref = plain_fn()
-            nan_ref = None if nan_fn is None else nan_fn()
-        failed.append(nonfinite_diff(label, got, ref, tol, nan_ref))
-
-    def inf_to_nan(t):
-        return t.masked_fill(t.isinf(), math.nan)
+        failed.append(nonfinite_diff(label, got, ref, tol))
 
     s = FLAGSHIP["volume"]
     for dt, tol in ((torch.float32, REL_TOL), (torch.bfloat16, REL_TOL_BF16)):
@@ -970,12 +993,10 @@ def nan_checks(batch, geometry, dev):
             run(f"upsample3d_2x {shape} -> {cout} skip={skip} {name}",
                 lambda: updown.upsample3d_2x(x, w8, b8, sk),
                 lambda: updown.upsample3d_2x_plain(x, w8, b8, sk), tol)
-        # K2: the float32 body sums products of bfloat16 parts, and an
-        # infinity's lower parts are inf - inf = NaN, so it gives NaN
-        # wherever an infinity of its convolved input reaches, even through
-        # a ReLU that maps -inf to 0 (ROADMAP Queue C; the residual is added
-        # in float32): its NaN is held to the plain version's with those
-        # infinities made NaN.
+        # K2: in float32 an infinity's bfloat16 parts are (0, 0, inf) (or
+        # (0, inf)), and x's last part meets only w's first, so that K2 has
+        # true float32's NaN and infinities (the residual is added in
+        # float32).
         f32 = dt == torch.float32
         x = plant(randn(2, 16, 16, 16, 32, dtype=dt), gen)
         res = plant(randn(2, 16, 16, 16, 32, dtype=dt), gen)
@@ -983,9 +1004,15 @@ def nan_checks(batch, geometry, dev):
         bias = randn(32, scale=0.1)
         run(f"conv3d_same 32->32 relu + residual {name}",
             lambda: conv3d.conv3d_same(x, w, bias, relu=True, residual=res),
-            lambda: conv3d.conv3d_fused_plain(x, w, bias, res, True), tol,
-            (lambda: conv3d.conv3d_fused_plain(inf_to_nan(x), w, bias, res,
-                                               True)) if f32 else None)
+            lambda: conv3d.conv3d_fused_plain(x, w, bias, res, True), tol)
+        xk7 = plant(randn(2, 16, 16, 16, 32, dtype=dt), gen)
+        wk7 = randn(7, 7, 7, 32, 16, scale=(343 * 32) ** -0.5, dtype=dt)
+        run(f"conv3d_fused k=7 32->16 relu {name} (the front conv's "
+            f"{'two-part ' if f32 else ''}instance)",
+            lambda: conv3d.conv3d_fused(xk7, wk7, bias[:16], relu=True),
+            lambda: conv3d.conv3d_fused_plain(xk7, wk7, bias[:16],
+                                              relu=True), tol)
+        del xk7, wk7
         x = plant(randn(2, 8, 8, 8, 64, dtype=dt), gen)
         blk = [randn(3, 3, 3, 64, 64, scale=(27 * 64) ** -0.5, dtype=dt),
                randn(64, scale=0.1),
@@ -999,8 +1026,7 @@ def nan_checks(batch, geometry, dev):
 
         run(f"res3d_block_fused identity 64 @8^3 {name}",
             lambda: res3d.res3d_block_fused(x, *blk), lambda: p_block(x),
-            tol if f32 else 2 * tol,
-            (lambda: p_block(inf_to_nan(x))) if f32 else None)
+            tol if f32 else 2 * tol)
         # K1, K5 and K7: NaN in a patch of each map's interior, then NaN,
         # +inf and -inf on the maps' edges (row 0, the last column, the last
         # row), which the flagship's taps off the map read at their clamped
@@ -1032,6 +1058,19 @@ def nan_checks(batch, geometry, dev):
                                                 s),
                 lambda: unproject.unproject_agg_plain(feats, m, mask, vc,
                                                       method, s), tol)
+        # A masked view (view 2 of sample 1) with NaN and infinities on its
+        # edges: 'conf' samples it and weighs it by 0 (NaN reaches the
+        # voxel, as lt_tpu's aggregation has it); the others leave it out.
+        masked = mask.clone()
+        masked[1, 2] = 0.0
+        for method in ("conf", "softmax", "sum", "max"):
+            vc = conf if method == "conf" else None
+            run(f"unproject_agg {method} with a masked view, NaN / +-inf on "
+                f"its edges {name}",
+                lambda: unproject.unproject_agg(edges, m, masked, vc, method,
+                                                s),
+                lambda: unproject.unproject_agg_plain(edges, m, masked, vc,
+                                                      method, s), tol)
         fv, mv = edges.reshape(8, hm, hm, 32), m.reshape(8, 3, 4)
         run(f"sample_views NaN / +-inf on the map edges {name} -> {name}",
             lambda: sample.sample_views(fv, mv, s, dt),
@@ -1043,6 +1082,31 @@ def nan_checks(batch, geometry, dev):
             lambda: sample.sample_views_t_plain(f32v, mv, s), REL_TOL)
         del interior, edges, pos_inf, fv, f32v
         torch.cuda.empty_cache()
+    # K6 and K8: NaN, +inf and -inf in g at voxels with a tap off the map
+    # reach dF at the taps' clamped pixels (0 * g), as in the plain
+    # versions and lt_tpu's autodiff; behind the camera nothing.
+    bv, hm = 4 * TRAIN_BATCH, FLAGSHIP["heatmap"]
+    mt = geometry(TRAIN_BATCH).reshape(bv, 3, 4).contiguous()
+    shape = (bv, hm, hm, 32)
+    g = randn(bv, s ** 3, 32)
+    off = offmap_voxels(mt, s, hm, hm)
+    for vi in range(bv):
+        idx = torch.nonzero(off[vi])[:, 0]
+        for i, val in enumerate((math.nan, math.inf, -math.inf)):
+            g[vi, idx[i::97][:8], i::3] = val
+    log(f"  K6 / K8 cotangents: {int(off.sum())} voxels in front of their "
+        f"camera with a tap off the map, {int((~g.isfinite()).sum())} "
+        f"values planted")
+    for label, gv in (("float32", g), ("bfloat16", g.to(torch.bfloat16))):
+        run(f"sample_views_grad NaN / +-inf g off the map ({label} g)",
+            lambda: sample.sample_views_grad(gv, mt, shape, s),
+            lambda: sample.sample_views_grad_plain(gv, mt, shape, s), REL_TOL)
+    gt = g.transpose(1, 2).contiguous()
+    run("sample_views_grad_t NaN / +-inf g off the map",
+        lambda: sample.sample_views_grad_t(gt, mt, shape, s),
+        lambda: sample.sample_views_grad_t_plain(gt, mt, shape, s), REL_TOL)
+    del g, gt, gv, off
+    torch.cuda.empty_cache()
     failed = [f for f in failed if f]
     if failed:
         raise AssertionError(f"non-finite inputs: {len(failed)} cases "
@@ -1986,6 +2050,572 @@ def alg_train(dev, smi):
 
 
 # ---------------------------------------------------------------------------
+# Datasets on disk: small Human3.6M and CMU Panoptic trees from a seed
+# ---------------------------------------------------------------------------
+
+H36M_SUBJECTS = ("S1", "S5", "S6", "S7", "S8", "S9", "S11")
+H36M_ACTIONS = ("Directions-1", "Directions-2", "Walking-1", "Walking-2")
+H36M_CAMERAS = ("54138969", "55011271", "58860488", "60457274")
+PANOPTIC_CAMERAS = ("00_00", "00_06", "00_12", "00_18")
+# A standing pose (mm, z up, pelvis at the origin): Human3.6M's 17 joints
+# in the reference labels' order, and CMU Panoptic's COCO19 joints.
+H36M_POSE = (
+    (-150, 0, -880), (-150, 0, -480), (-130, 0, 0), (130, 0, 0),
+    (150, 0, -480), (150, 0, -880), (0, 0, 0), (0, 0, 480), (0, 0, 600),
+    (0, 0, 760), (-420, 0, 200), (-330, 0, 380), (-180, 0, 520),
+    (180, 0, 520), (330, 0, 380), (420, 0, 200), (0, 30, 680))
+COCO19_POSE = (
+    (0, 0, 600), (0, 30, 680), (0, 0, 0), (180, 0, 520), (330, 0, 380),
+    (420, 0, 200), (130, 0, 0), (150, 0, -480), (150, 0, -880),
+    (-180, 0, 520), (-330, 0, 380), (-420, 0, 200), (-130, 0, 0),
+    (-150, 0, -480), (-150, 0, -880), (40, 60, 700), (60, 30, 690),
+    (-40, 60, 700), (-60, 30, 690))
+
+
+def _ring_cameras(n, radius, height, focal, size, seed):
+    """``n`` pinhole cameras (R, t in the world's units, K) on a ring of
+    ``radius`` at ``height``, each looking at the origin, a (width,
+    height) ``size`` frame."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    cams = []
+    for i in range(n):
+        a = 2 * np.pi * i / n + rng.uniform(-0.2, 0.2)
+        c = np.array([radius * np.cos(a), radius * np.sin(a), height])
+        z = -c / np.linalg.norm(c)
+        x = np.cross(z, [0.0, 0.0, 1.0])
+        x /= np.linalg.norm(x)
+        R = np.stack([x, np.cross(z, x), z])
+        K = np.array([[focal, 0, size[0] / 2], [0, focal, size[1] / 2],
+                      [0, 0, 1]])
+        cams.append((R, -R @ c, K))
+    return cams
+
+
+def _project(points, cam):
+    R, t, K = cam
+    uvw = (K @ (R @ points.T + t[:, None])).T
+    return uvw[:, :2] / uvw[:, 2:]
+
+
+def _poses(template, n, rng, spread):
+    """``n`` poses: the template turned about z, moved by up to
+    ``spread`` in x and y and each joint by a few cm."""
+    import numpy as np
+
+    base = np.asarray(template, np.float64)
+    out = []
+    for _ in range(n):
+        a = rng.uniform(0, 2 * np.pi)
+        rz = np.array([[np.cos(a), -np.sin(a), 0], [np.sin(a), np.cos(a), 0],
+                       [0, 0, 1]])
+        shift = np.array([*rng.uniform(-spread, spread, 2), 900.0])
+        out.append(base @ rz.T + shift + rng.normal(0, 30, base.shape))
+    return np.stack(out)
+
+
+def _jpeg_writer():
+    """(name, write(path, bgr uint8)) of the JPEG encoder present: cv2,
+    else PIL."""
+    try:
+        import cv2
+
+        return (f"cv2 {cv2.__version__}", lambda path, im: cv2.imwrite(
+            path, im, [cv2.IMWRITE_JPEG_QUALITY, 90]))
+    except ImportError:
+        from PIL import Image, __version__
+
+        return (f"PIL {__version__}", lambda path, im: Image.fromarray(
+            im[..., ::-1]).save(path, quality=90))
+
+
+def _frame(background, uv, rng):
+    """A frame: the camera's background with a disc at each joint."""
+    import numpy as np
+
+    im = background.copy()
+    h, w = im.shape[:2]
+    r = max(2, w // 100)
+    for x, y in uv:
+        x0, x1 = max(0, int(x) - r), min(w, int(x) + r + 1)
+        y0, y1 = max(0, int(y) - r), min(h, int(y) + r + 1)
+        if x0 >= x1 or y0 >= y1:
+            continue
+        yy, xx = np.ogrid[y0:y1, x0:x1]
+        im[y0:y1, x0:x1][(xx - x) ** 2 + (yy - y) ** 2 <= r * r] = \
+            rng.randint(0, 256, 3)
+    return im
+
+
+def _background(h, w, rng):
+    """Smooth seeded noise, as a photograph's low frequencies."""
+    import numpy as np
+
+    coarse = rng.randint(0, 256, (h // 16 + 2, w // 16 + 2, 3)).astype(
+        np.float32)
+    ys = np.linspace(0, coarse.shape[0] - 1.001, h)
+    xs = np.linspace(0, coarse.shape[1] - 1.001, w)
+    y0, x0 = ys.astype(int), xs.astype(int)
+    fy, fx = (ys - y0)[:, None, None], (xs - x0)[None, :, None]
+    c = coarse
+    im = ((1 - fy) * ((1 - fx) * c[y0][:, x0] + fx * c[y0][:, x0 + 1])
+          + fy * ((1 - fx) * c[y0 + 1][:, x0] + fx * c[y0 + 1][:, x0 + 1]))
+    return (im + rng.normal(0, 6, im.shape)).clip(0, 255).astype(np.uint8)
+
+
+def write_h36m_tree(root, seed=0, frame=1000, n_test=47, n_train=5):
+    """A Human3.6M tree in the layout ``lt_tpu_torch.data.human36m`` reads
+    (the reference's labels ``.npy`` and ``processed/`` frames), from
+    ``seed``: subjects S1, S5-S9, S11; two actions of two trials each; four
+    cameras on a ring at 5 m; ``n_test`` rows of S9 and S11 and
+    ``n_train`` rows of S1, S5-S8, one image per row and camera at
+    ``frame`` x ``frame`` (JPEG, with whichever encoder is present); each
+    bbox the square hull of the row's joints projected into its view; the
+    test rows' view 1 empty in their row 3 (a missing view); and the
+    algebraic predictions of the test rows (ground truth + 20 mm of
+    noise, under shuffled ``indexes``) as ``pred_results_path``.  Returns
+    the paths and the encoder's name."""
+    import os
+    import pickle
+
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    cams = _ring_cameras(4, 5000.0, 1500.0, 1.15 * frame, (frame, frame),
+                         seed)
+    cameras = np.empty((len(H36M_SUBJECTS), 4), dtype=[
+        ("R", np.float32, (3, 3)), ("t", np.float32, (3, 1)),
+        ("K", np.float32, (3, 3)), ("dist", np.float32, 5)])
+    for s in range(len(H36M_SUBJECTS)):
+        for c, (R, t, K) in enumerate(cams):
+            cameras[s, c] = (R, t[:, None], K, np.zeros(5))
+    subjects = ([H36M_SUBJECTS[i % 5] for i in range(n_train)]
+                + [("S9", "S11")[i % 2] for i in range(n_test)])
+    table = np.empty(len(subjects), dtype=[
+        ("subject_idx", np.int8), ("action_idx", np.int8),
+        ("frame_idx", np.int16), ("keypoints", np.float32, (17, 3)),
+        ("bbox_by_camera_tlbr", np.int16, (4, 4))])
+    poses = _poses(H36M_POSE, len(subjects), rng, 400.0)
+    counters = {}
+    for i, subject in enumerate(subjects):
+        action = i % len(H36M_ACTIONS)
+        key = (subject, action)
+        counters[key] = counters.get(key, -1) + 1
+        boxes = []
+        for c, cam in enumerate(cams):
+            uv = _project(poses[i], cam)
+            box = (uv.min(0) + uv.max(0)) / 2
+            half = 0.6 * (uv.max(0) - uv.min(0)).max()
+            left, top = (box - half).astype(int)
+            side = int(2 * half)
+            boxes.append((top, left, top + side, left + side))
+        if i == n_train + 3:
+            boxes[1] = (0, 0, 0, 0)
+        table[i] = (H36M_SUBJECTS.index(subject), action,
+                    5 * counters[key], poses[i], boxes)
+    labels = {"subject_names": list(H36M_SUBJECTS),
+              "action_names": list(H36M_ACTIONS),
+              "camera_names": list(H36M_CAMERAS), "cameras": cameras,
+              "table": table}
+    os.makedirs(root, exist_ok=True)
+    labels_path = os.path.join(root, "human36m-multiview-labels.npy")
+    np.save(labels_path, labels, allow_pickle=True)
+
+    encoder, write = _jpeg_writer()
+    h36m_root = os.path.join(root, "processed")
+    backgrounds = [_background(frame, frame, rng) for _ in cams]
+    for row in table:
+        subject = H36M_SUBJECTS[row["subject_idx"]]
+        for c, cam in enumerate(cams):
+            d = os.path.join(h36m_root, subject,
+                             H36M_ACTIONS[row["action_idx"]],
+                             "imageSequence-undistorted", H36M_CAMERAS[c])
+            os.makedirs(d, exist_ok=True)
+            im = _frame(backgrounds[c], _project(
+                row["keypoints"].astype(np.float64), cam), rng)
+            write(os.path.join(d, "img_%06d.jpg" % (row["frame_idx"] + 1)),
+                  im)
+    test = table[n_train:]["keypoints"]
+    perm = rng.permutation(n_test)
+    pred = {"keypoints_3d": (test + rng.normal(0, 20, test.shape))[perm]
+            .astype(np.float32), "indexes": perm}
+    pred_path = os.path.join(root, "human36m_alg_val.pkl")
+    with open(pred_path, "wb") as f:
+        pickle.dump(pred, f)
+    return {"h36m_root": h36m_root, "labels_path": labels_path,
+            "pred_results_path": pred_path, "encoder": encoder}
+
+
+def h36m_overrides(tree, split="val"):
+    """``run``'s overrides that point a Human3.6M config's split at a
+    tree of :func:`write_h36m_tree`."""
+    return {f"dataset.{split}.{k}": tree[k]
+            for k in ("h36m_root", "labels_path", "pred_results_path")}
+
+
+def write_panoptic_tree(root, sequence="171204_pose3", seed=0,
+                        size=(1920, 1080), n_frames=201, image_every=10):
+    """A CMU Panoptic tree in the toolbox layout
+    ``lt_tpu_torch.data.cmu_panoptic`` reads, from ``seed``: four HD
+    cameras (``PANOPTIC_CAMERAS``) on a ring at 5 m and a VGA camera;
+    ``n_frames`` scenes of one body (COCO19, cm), the last with none;
+    ``size`` frames (JPEG) for every ``image_every``-th scene, the ones a
+    config with ``retain_every_n_frames: image_every`` reads.  Returns the
+    root and the encoder's name."""
+    import json
+    import os
+
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    cams = _ring_cameras(4, 500.0, 150.0, 1.0 * size[0], size, seed)
+    seq_dir = os.path.join(root, sequence)
+    os.makedirs(os.path.join(seq_dir, "hdPose3d_stage1_coco19"),
+                exist_ok=True)
+    calib = [{"name": name, "type": "hd", "K": K.tolist(), "R": R.tolist(),
+              "t": t[:, None].tolist(), "distCoef": [0.0] * 5}
+             for name, (R, t, K) in zip(PANOPTIC_CAMERAS, cams)]
+    calib.append({"name": "01_01", "type": "vga", "K": np.eye(3).tolist(),
+                  "R": np.eye(3).tolist(), "t": [[0], [0], [0]]})
+    with open(os.path.join(seq_dir, f"calibration_{sequence}.json"),
+              "w") as f:
+        json.dump({"cameras": calib}, f)
+    poses = _poses(COCO19_POSE, n_frames, rng, 400.0) / 10.0     # cm
+    encoder, write = _jpeg_writer()
+    backgrounds = [_background(size[1], size[0], rng) for _ in cams]
+    for i in range(n_frames):
+        bodies = [] if i == n_frames - 1 else [{"id": 0, "joints19": np.hstack(
+            [poses[i], np.ones((19, 1))]).ravel().tolist()}]
+        with open(os.path.join(seq_dir, "hdPose3d_stage1_coco19",
+                               f"body3DScene_{i:08d}.json"), "w") as f:
+            json.dump({"bodies": bodies}, f)
+        if not bodies or i % image_every:
+            continue
+        for name, cam, bg in zip(PANOPTIC_CAMERAS, cams, backgrounds):
+            d = os.path.join(seq_dir, "hdImgs", name)
+            os.makedirs(d, exist_ok=True)
+            write(os.path.join(d, f"{name}_{i:08d}.jpg"),
+                  _frame(bg, _project(poses[i], cam), rng))
+    return {"panoptic_root": root, "encoder": encoder}
+
+
+def save_ddp_pth(model, path):
+    """The model's state_dict as the reference's DDP training saves it:
+    every name under ``module.``."""
+    import torch
+
+    torch.save({f"module.{k}": v for k, v in model.state_dict().items()},
+               path)
+
+
+H36M_EVAL_YAML = "experiments/human36m/eval/human36m_vol_softmax.yaml"
+CMU_EVAL_YAML = "experiments/cmu_panoptic/eval/cmu_vol_softmax.yaml"
+DATA_SEED = 42          # run()'s seed: the model's weights and the order
+
+
+@contextlib.contextmanager
+def count_plain():
+    """Count the calls of every kernel's plain version (each ``*_plain``
+    function of the kernel modules, where the wrappers look it up) while
+    the block runs; yields the dict of counts."""
+    import importlib
+
+    calls, saved = {}, []
+    for mod_name in ("conv3d", "res3d", "updown", "unproject", "sample",
+                     "conv_mp", "res3d_q4", "res3d_folded"):
+        mod = importlib.import_module(f"lt_tpu_torch.ops.kernels.{mod_name}")
+        for name in dir(mod):
+            fn = getattr(mod, name)
+            if not (name.endswith("_plain") and callable(fn)):
+                continue
+            calls.setdefault(name, 0)
+
+            def counted(*a, _fn=fn, _name=name, **k):
+                calls[_name] += 1
+                return _fn(*a, **k)
+
+            saved.append((mod, name, fn))
+            setattr(mod, name, counted)
+    try:
+        yield calls
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+def _run_captured(what, **kwargs):
+    """``engine.train.run(**kwargs)`` with its printed lines logged under
+    ``what``; returns (metric, lines)."""
+    import io
+
+    from lt_tpu_torch.engine.train import run
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        scalar = run(**kwargs)
+    lines = out.getvalue().splitlines()
+    for line in lines:
+        log(f"  {what}: {line}")
+    return scalar, lines
+
+
+def _experiment(logdir):
+    """The run's experiment directory (the only one under ``logdir``) and
+    its results.pkl, metric.json and metrics.jsonl records."""
+    import pickle
+
+    (exp,) = [p for p in Path(logdir).iterdir() if p.is_dir()]
+    ck = exp / "checkpoints" / "0000"
+    with open(ck / "results.pkl", "rb") as f:
+        results = pickle.load(f)
+    metric = json.loads((ck / "metric.json").read_text())
+    records = [json.loads(x) for x in
+               (exp / "metrics.jsonl").read_text().splitlines()]
+    return results, metric, records
+
+
+def _dataset_path(config, yaml, overrides, per_forward, packing, dev, what,
+                  smi, tmp, check_metric):
+    """Evaluate ``yaml`` with ``run(eval_only=True)`` under cuDNN's
+    deterministic algorithms, counting the kernels' launches (the
+    flagship forward's ``per_forward`` a batch, and ``packing``
+    split_bf16 launches once, where the first forward splits the V2V
+    weights) and their plain versions' calls; hold the keypoints of
+    results.pkl to a direct forward of the same collated batches through a
+    model made and loaded the same way, and that forward to the plain path
+    with the same weights (keypoints KP_TOL_MM, volumes REL_TOL, every
+    batch: K1-K4 at the run's own shapes); ``check_metric(metric, results,
+    dataset)`` holds
+    metric.json.  Then the host's rate beside the card's: the loader alone
+    (prefetch off and on) and a second run with cuDNN's default
+    algorithms, each batch's data time and request time from its
+    ``val_batch`` records.  Returns the launches of the first run."""
+    import numpy as np
+    import torch
+
+    from lt_tpu_torch.engine import factory
+    from lt_tpu_torch.engine import train as engine
+    from lt_tpu_torch.ops.kernels import _build
+
+    logdir = Path(tmp) / f"logs_{what}"
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    with count_plain() as plain_calls, deterministic_cudnn():
+        _, lines = _run_captured(what, config_path=yaml, logdir=str(logdir),
+                                 eval_only=True, overrides=overrides,
+                                 seed=DATA_SEED, device=dev)
+        torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+    results, metric, _ = _experiment(logdir)
+    val_bs = config.opt.val_batch_size
+    n = len(results["indexes"])
+    n_batches = -(-n // val_bs)
+    log(f"  {n} samples in {n_batches} batches of {val_bs}; launches "
+        f"{ {k: v for k, v in launches.items() if v} }; plain versions "
+        f"called {sum(plain_calls.values())} times")
+    decoder = [x for x in lines if x.startswith("Image decoder: ")]
+    fallbacks = [int(x.split()[1]) for x in lines if x.startswith("loader: ")]
+    if not decoder or any(fallbacks):
+        raise AssertionError(f"{what}: decoder line {decoder}, native "
+                             f"per-image fallbacks {fallbacks} (want 0)")
+    log(f"  decoder: {decoder[0][len('Image decoder: '):]}; per-image "
+        f"fallbacks of the native batch call: {sum(fallbacks)}")
+    want = {k: per * n_batches for k, per in per_forward.items()}
+    want["split_bf16"] += packing
+    got = {k: launches[k] for k in launches if launches[k] or k in want}
+    plain = {k: v for k, v in plain_calls.items() if v}
+    if got != want or plain:
+        raise AssertionError(f"{what}: launches {got}, want {want} "
+                             f"(the flagship float32 forward's per batch, "
+                             f"and its weights' split once); plain "
+                             f"versions called: {plain}")
+
+    # The direct forward of the same batches through the same weights.
+    model = factory.make_model(config, device=dev, seed=DATA_SEED)
+    report = engine.init_model_state(config, model)
+    for part, r in report.items():
+        log(f"  direct forward's model: {part} weights from "
+            f"{Path(r['path']).name}: {r['loaded']} tensors, unused "
+            f"{r['unused']}")
+        if r["unused"] or (part == "model"
+                           and r["loaded"] != len(model.state_dict())):
+            raise AssertionError(f"{what}: {part} weights left entries over")
+    # The plain path (PyTorch modules, no kernel of the port) with the same
+    # weights holds K1-K4 at this run's own shapes: batch 20, the ragged
+    # tail padded to it, and the config's joint count at the k=1 tail.
+    plain = factory.make_model(config, device=dev, use_kernels=False,
+                               seed=DATA_SEED)
+    plain.load_state_dict(model.state_dict())
+    plain.train(model.training)
+    _, val_ds = engine.make_datasets(config, is_train=False)
+    it = engine.make_iterator(val_ds, config.dataset.val, val_bs, DATA_SEED,
+                              train=False)
+    direct, idx, kp_errs, vol_rels = [], [], [], []
+    with torch.no_grad(), deterministic_cudnn():
+        for batch in it.epoch(0):
+            t, n_real = engine.device_batch(batch, dev, pad_to=val_bs)
+            pelvis = (t["keypoints_3d"] if config.model.get("use_gt_pelvis")
+                      else t["pred_keypoints_3d"])
+            args = (t["images"], t["proj_matrices"], pelvis)
+            out = model(*args, view_mask=t["view_mask"])
+            ref = plain(*args, view_mask=t["view_mask"])
+            kp_errs.append((out.keypoints_3d[:n_real]
+                            - ref.keypoints_3d[:n_real]).abs().max().item())
+            vols = out.volumes[:n_real]
+            vol_rels.append(rel_err(vols, ref.volumes[:n_real])[1]
+                            if bool(vols.isfinite().all()) else math.inf)
+            direct.append(out.keypoints_3d[:n_real].cpu().numpy())
+            idx.append(batch["indexes"])
+            del out, ref
+    direct = np.concatenate(direct)
+    log(f"  kernel path vs the plain path, each batch of "
+        f"{tuple(t['images'].shape[:2])} images (the real rows): keypoints "
+        f"max |diff| {[f'{e:.3e}' for e in kp_errs]} mm (limit {KP_TOL_MM}),"
+        f" volumes rel {[f'{e:.3e}' for e in vol_rels]} (limit {REL_TOL})")
+    if max(kp_errs) > KP_TOL_MM or max(vol_rels) > REL_TOL:
+        raise AssertionError(f"{what}: the kernel path disagrees with the "
+                             f"plain path at the run's shapes")
+    del plain
+    if not np.array_equal(np.concatenate(idx), results["indexes"]):
+        raise AssertionError(f"{what}: the run's order is not the loader's")
+    kp = results["keypoints_3d"]
+    err = float(np.abs(kp - direct).max())
+    finite = bool(np.isfinite(kp).all())
+    exact = "bit for bit" if err == 0 else "not bit for bit"
+    log(f"  results.pkl keypoints {kp.shape} vs the direct forward: max "
+        f"|diff| {err:.3e} mm ({exact}; limit {KP_TOL_MM}), finite {finite}")
+    if err > KP_TOL_MM or not finite or kp.shape != direct.shape:
+        raise AssertionError(f"{what}: run's keypoints differ from the "
+                             f"direct forward by {err:.3e} mm")
+    check_metric(metric, results, val_ds)
+    del model
+    torch.cuda.empty_cache()
+
+    # The host's rate beside the card's.
+    for prefetch in (0, 2):
+        it = engine.make_iterator(val_ds, config.dataset.val, val_bs,
+                                  DATA_SEED, train=False)
+        it.prefetch = prefetch
+        t0 = time.perf_counter()
+        count = sum(b["images"].shape[0] for b in it.epoch(0))
+        secs = time.perf_counter() - t0
+        log(f"  loader alone (decode, crop, resize, normalize, collate; "
+            f"{it.num_workers} threads, prefetch {prefetch}): {count} "
+            f"samples in {secs:.3f} s, {count / secs:.2f} samples/s "
+            f"({4 * count / secs:.1f} images/s)")
+    logdir2 = Path(tmp) / f"logs_{what}_timed"
+    _run_captured(f"{what} (cuDNN defaults)", config_path=yaml,
+                  logdir=str(logdir2), eval_only=True, overrides=overrides,
+                  seed=DATA_SEED, device=dev)
+    for r in (r for r in _experiment(logdir2)[2] if r["tag"] == "val_batch"):
+        req = r["batch_time"] - r["data_time"]
+        log(f"  eval batch of {int(r['batch_size'])} (padded to {val_bs}): "
+            f"{1e3 * r['batch_time']:.1f} ms, data {1e3 * r['data_time']:.1f}"
+            f" ms ({100 * r['data_time'] / r['batch_time']:.1f} %), request "
+            f"{1e3 * req:.1f} ms, {val_bs / req:.2f} frames/s at batch "
+            f"{val_bs}  [{smi}]")
+    return launches
+
+
+def check_h36m_metric(metric, results, ds):
+    """[h36m]: metric.json has the per-subject (S9, S11) and per-action
+    (trials merged) breakdown of both errors, and its relative MPJPE is a
+    numpy recomputation from results.pkl (relative 1e-5)."""
+    import numpy as np
+
+    order = np.argsort(results["indexes"])
+    pred = results["keypoints_3d"][order].astype(np.float64)
+    gt = ds.labels["table"]["keypoints"][:, :17].astype(np.float64)
+    rel = np.sqrt((((gt - gt[:, 6:7]) - (pred - pred[:, 6:7])) ** 2)
+                  .sum(2)).mean(1).mean()
+    got = metric.get("per_pose_error_relative", {})
+    subjects = {"Average", "S9", "S11"}
+    actions = {"Average", "Directions", "Walking"}
+    complete = (set(metric) == {"per_pose_error",
+                                "per_pose_error_relative"}
+                and subjects <= set(got)
+                and all(actions <= set(got[k]) for k in subjects))
+    avg = got.get("Average", {}).get("Average", float("nan"))
+    log(f"  metric.json: relative MPJPE {avg:.4f} mm (numpy from "
+        f"results.pkl {rel:.4f}); per subject "
+        f"{ {k: round(got[k]['Average'], 2) for k in subjects if k in got} }"
+        f"; per action (all) "
+        f"{ {k: round(v, 2) for k, v in got.get('Average', {}).items()} }")
+    if not complete or abs(avg - rel) > 1e-5 * rel:
+        raise AssertionError("[h36m] metric.json lacks its breakdown or "
+                             "disagrees with results.pkl")
+
+
+def check_cmu_metric(metric, results, ds):
+    """[cmu]: metric.json has the per-sequence breakdown, and its relative
+    MPJPE is a numpy recomputation from results.pkl (relative 1e-5)."""
+    import numpy as np
+
+    order = np.argsort(results["indexes"])
+    pred = results["keypoints_3d"][order].astype(np.float64)
+    gt = ds.table["keypoints"][:, :, :3].astype(np.float64)
+    rel = np.sqrt((((gt - gt[:, 2:3]) - (pred - pred[:, 2:3])) ** 2)
+                  .sum(2)).mean(1).mean()
+    got = metric.get("per_pose_error_relative", {}).get("Average", {})
+    avg = got.get("Average", float("nan"))
+    log(f"  metric.json: relative MPJPE {got} mm (numpy from "
+        f"results.pkl {rel:.4f})")
+    if "171204_pose3" not in got or abs(avg - rel) > 1e-5 * rel:
+        raise AssertionError("[cmu] metric.json lacks its breakdown or "
+                             "disagrees with results.pkl")
+
+
+def h36m_phase(dev, smi, per_forward, packing):
+    """[h36m]: human36m_vol_softmax.yaml evaluated at its own width (RN-152,
+    384^2, 4 views, 64^3, softmax, val batch 20, float32) on a
+    Human3.6M tree of :func:`write_h36m_tree` (two full batches and a
+    ragged tail of test rows, one view missing in one row) from a
+    whole-model ``.pth`` the port saves from its seeded model with DDP's
+    ``module.`` names; overrides only for the tree's paths and the weights.
+    Returns the run's launches."""
+    import tempfile
+
+    from lt_tpu_torch.engine import factory
+    from lt_tpu_torch.utils import cfg
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        tree = write_h36m_tree(Path(tmp) / "h36m", seed=0)
+        log(f"  tree: 52 rows x 4 views of 1000^2 JPEGs ({tree['encoder']})"
+            f" written in {time.perf_counter() - t0:.1f} s")
+        pth = str(Path(tmp) / "human36m_vol_softmax.pth")
+        overrides = {**h36m_overrides(tree), "model.checkpoint": pth}
+        config = cfg.load_config(H36M_EVAL_YAML, overrides)
+        save_ddp_pth(factory.make_model(config, device=dev, seed=7), pth)
+        return _dataset_path(config, H36M_EVAL_YAML, overrides, per_forward,
+                             packing, dev, "h36m", smi, tmp,
+                             check_h36m_metric)
+
+
+def cmu_phase(dev, smi, per_forward, packing):
+    """[cmu]: one batch of cmu_vol_softmax.yaml at its width (RN-152, 384^2,
+    19 joints, 4 HD views, use_gt_pelvis, seeded random weights) on a
+    Panoptic tree of :func:`write_panoptic_tree` (200 scenes, every 10th
+    retained and imaged, an empty scene skipped).  Returns the run's
+    launches."""
+    import tempfile
+
+    from lt_tpu_torch.utils import cfg
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        tree = write_panoptic_tree(str(Path(tmp) / "panoptic"), seed=1)
+        log(f"  tree: 201 scenes, 20 x 4 views of 1920x1080 JPEGs "
+            f"({tree['encoder']}) written in {time.perf_counter() - t0:.1f}"
+            f" s")
+        overrides = {"dataset.val.panoptic_root": tree["panoptic_root"]}
+        config = cfg.load_config(CMU_EVAL_YAML, overrides)
+        return _dataset_path(config, CMU_EVAL_YAML, overrides, per_forward,
+                             packing, dev, "cmu", smi, tmp, check_cmu_metric)
+
+
+# ---------------------------------------------------------------------------
 # Main
 # ---------------------------------------------------------------------------
 
@@ -2186,8 +2816,8 @@ def main(argv=None) -> int:
     entry_point_checks(b, geometry, dev)
 
     # Phase 3b: NaN and infinities in the kernels' inputs.
-    log("[nan] NaN, +inf and -inf planted in the inputs of K1-K5 and K7, "
-        "each kernel against its plain version")
+    log("[nan] NaN, +inf and -inf planted in the inputs of K1-K8, each "
+        "kernel against its plain version")
     nan_checks(b, geometry, dev)
 
     # Phase 4: the flagship forward on the kernel path.
@@ -2200,7 +2830,9 @@ def main(argv=None) -> int:
     # A warm-up forward packs (and in float32 splits) the V2V weights, once
     # per weight version; the recorded forward is a later one.  The timed
     # requests run with cuDNN's default algorithms.
+    _build.reset_launches()
     model(images, proj, pelvis)
+    packing = _build.LAUNCHES["split_bf16"] - K2_PER_FORWARD
     calls = record_launches(lambda: model(images, proj, pelvis))
     outs, launches = drive(model, REQUESTS, "eval")
     plain_model = build_model(False, like=model)
@@ -2429,6 +3061,19 @@ def main(argv=None) -> int:
     ransac_flagship(dev, smi, images, proj)
     alg_fixture(dev, smi)
     alg_train(dev, smi)
+
+    # Phase 11: the dataset configs through the CLI's run, at their width.
+    per_forward = {k: launches[k] // REQUESTS
+                   for k in EVAL_KERNELS["float32"]}
+    log(f"  the flagship's float32 forward: {per_forward} launches, and "
+        f"{packing} split_bf16 launches in its first, which packs the "
+        f"weights")
+    log(f"[h36m] {H36M_EVAL_YAML} --eval at its width, on a Human3.6M tree "
+        f"written from seed 0, weights from a whole-model .pth")
+    add_path("h36m", h36m_phase(dev, smi, per_forward, packing))
+    log(f"[cmu] {CMU_EVAL_YAML} --eval at its width, one batch, on a CMU "
+        f"Panoptic tree written from seed 1")
+    add_path("cmu", cmu_phase(dev, smi, per_forward, packing))
 
     log(json.dumps({"kernels": rows}))
     log(smi)

@@ -3,12 +3,15 @@
 The port's own copy of ``lt_tpu/data/batch.py`` (numpy only).  The view
 axis keeps its full length and a ``view_mask`` (B, V) marks missing views
 (zero images, excluded from the aggregation).  :class:`BatchIterator`
-shuffles with ``RandomState(seed + epoch)`` as ``lt_tpu``'s does, so both
-packages see the same batches; it loads on the calling thread.
+shuffles with ``RandomState(seed + epoch)`` and shards as ``lt_tpu``'s
+does, so both packages see the same batches.
 """
 
 from __future__ import annotations
 
+import queue
+import threading
+from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, Iterator, Optional, Sequence
 
 import numpy as np
@@ -78,40 +81,110 @@ def prepare_batch(batch: Dict[str, np.ndarray]):
 
 
 class BatchIterator:
-    """Shuffled (or ordered) batches of a dataset, one epoch at a time."""
+    """Shuffled (or ordered) batches of a dataset, one epoch at a time,
+    assembled ahead of the consumer.
+
+    ``shard_id`` / ``num_shards`` take every ``num_shards``-th sample of
+    the epoch's order, from ``shard_id`` (one shard a process).
+    ``prefetch > 0`` assembles up to that many batches ahead on a worker
+    thread, so that decoding overlaps the device's work.  A dataset whose
+    ``native_batches`` is true (Human3.6M with the native pipeline) loads
+    a batch in one ``get_batch(idxs)`` call; an ``io_bound`` dataset's
+    samples load on a pool of ``num_workers`` threads; any other
+    dataset's on the calling thread.
+    """
 
     def __init__(self, dataset, batch_size: int, shuffle: bool = True,
                  drop_last: bool = True, seed: int = 0,
+                 shard_id: int = 0, num_shards: int = 1,
                  randomize_n_views: bool = False,
                  min_n_views: Optional[int] = None,
-                 max_n_views: Optional[int] = None):
+                 max_n_views: Optional[int] = None,
+                 prefetch: int = 2, num_workers: int = 8):
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
         self.drop_last = drop_last
         self.seed = seed
+        self.shard_id = shard_id
+        self.num_shards = num_shards
         self.randomize_n_views = randomize_n_views
         self.min_n_views = min_n_views
         self.max_n_views = max_n_views
+        self.prefetch = prefetch
+        self.num_workers = num_workers
+        self._pool = None
 
     def __len__(self):
-        n = len(self.dataset)
+        n = len(self.dataset) // self.num_shards
         if self.drop_last:
             return n // self.batch_size
         return (n + self.batch_size - 1) // self.batch_size
 
-    def epoch(self, epoch: int = 0) -> Iterator[Dict]:
-        """One epoch of batches; ``epoch`` reseeds the shuffle."""
+    def _make_batch(self, idxs, rng) -> Optional[Dict]:
+        if getattr(self.dataset, "native_batches", False):
+            items = self.dataset.get_batch(idxs)
+        elif (self.num_workers > 1 and len(idxs) > 1
+              and getattr(self.dataset, "io_bound", False)):
+            if self._pool is None:
+                self._pool = ThreadPoolExecutor(
+                    max_workers=self.num_workers,
+                    thread_name_prefix="lt_tpu_torch_loader")
+            items = list(self._pool.map(lambda i: self.dataset[int(i)],
+                                        idxs))
+        else:
+            items = [self.dataset[int(i)] for i in idxs]
+        return collate(items, self.randomize_n_views, self.min_n_views,
+                       self.max_n_views, rng)
+
+    def _epoch_sync(self, epoch: int) -> Iterator[Dict]:
         rng = np.random.RandomState(self.seed + epoch)
         order = np.arange(len(self.dataset))
         if self.shuffle:
             rng.shuffle(order)
+        order = order[self.shard_id::self.num_shards]
         n_full = len(order) // self.batch_size
         limit = n_full * self.batch_size if self.drop_last else len(order)
         for start in range(0, limit, self.batch_size):
-            items = [self.dataset[int(i)]
-                     for i in order[start:start + self.batch_size]]
-            out = collate(items, self.randomize_n_views, self.min_n_views,
-                          self.max_n_views, rng)
+            out = self._make_batch(order[start:start + self.batch_size], rng)
             if out is not None:
                 yield out
+
+    def epoch(self, epoch: int = 0) -> Iterator[Dict]:
+        """One epoch of batches; ``epoch`` reseeds the shuffle."""
+        if self.prefetch <= 0:
+            yield from self._epoch_sync(epoch)
+            return
+        q: queue.Queue = queue.Queue(maxsize=self.prefetch)
+        end = object()
+        stop = threading.Event()
+
+        def producer():
+            try:
+                for batch in self._epoch_sync(epoch):
+                    if stop.is_set():
+                        return
+                    q.put(batch)
+                q.put(end)
+            except BaseException as e:  # raised again on the consumer side
+                q.put(e)
+
+        worker = threading.Thread(target=producer, daemon=True)
+        worker.start()
+        try:
+            while True:
+                item = q.get()
+                if item is end:
+                    break
+                if isinstance(item, BaseException):
+                    raise item
+                yield item
+        finally:
+            # A consumer that stops early (n_iters_per_epoch) stops the
+            # producer, which may be blocked on a full queue: drain it.
+            stop.set()
+            while worker.is_alive():
+                try:
+                    q.get_nowait()
+                except queue.Empty:
+                    worker.join(timeout=0.1)

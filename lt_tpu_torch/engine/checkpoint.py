@@ -29,12 +29,22 @@ def save_checkpoint(directory: str, model, optimizer, step: int,
     return path
 
 
+def _load_state(directory: str) -> dict:
+    return torch.load(os.path.join(directory, STATE_FILE),
+                      map_location="cpu", weights_only=True)
+
+
+def load_model_state(directory: str) -> dict:
+    """The model's state_dict of a state written by
+    :func:`save_checkpoint`."""
+    return _load_state(directory)["model"]
+
+
 def restore_checkpoint(directory: str, model, optimizer,
                        generator: torch.Generator) -> int:
     """Load a state written by :func:`save_checkpoint` into ``model``,
     ``optimizer`` and ``generator``; returns the step."""
-    state = torch.load(os.path.join(directory, STATE_FILE),
-                       map_location="cpu", weights_only=True)
+    state = _load_state(directory)
     model.load_state_dict(state["model"])
     optimizer.load_state_dict(state["optimizer"])
     generator.set_state(state["generator"])

@@ -1,14 +1,16 @@
 """Training and evaluation driver: experiment directory, epoch loops,
 metrics, checkpoints and resume.
 
-Port of ``lt_tpu/engine/train.py``'s ``run`` for the synthetic dataset
-(Human3.6M and CMU data are not in the repository) and the three model
-families of ``config.model.name`` ('alg', 'vol', 'ransac'; each trains, as
-in ``lt_tpu``): per-step ``train`` and per-epoch ``val_epoch`` records in
-``metrics.jsonl``, a full train-state checkpoint per epoch under
-``checkpoints/{epoch:04d}`` and ``--resume``.  Weights can start from an
-``lt_tpu`` ``.npz`` fixture, whole-model or backbone-only, merged where
-names and shapes match.
+Port of ``lt_tpu/engine/train.py``'s ``run`` for the Human3.6M, CMU
+Panoptic and synthetic datasets and the three model families of
+``config.model.name`` ('alg', 'vol', 'ransac'; each trains, as in
+``lt_tpu``): per-step ``train``, per-batch ``val_batch`` and per-epoch
+``val_epoch`` records in ``metrics.jsonl``, the dataset's evaluation in
+``metric.json``, a full train-state checkpoint per epoch under
+``checkpoints/{epoch:04d}`` and ``--resume``.  Weights start from a
+reference ``.pth`` (whole-model or backbone), an ``lt_tpu`` ``.npz``
+fixture or one of the port's checkpoint directories
+(:func:`init_model_state`).
 """
 
 from __future__ import annotations
@@ -66,25 +68,79 @@ class MetricLogger:
 
 
 def make_datasets(config, is_train: bool = True):
-    """(train, val) synthetic datasets; both share the visual domain
-    (seed 0) and draw disjoint poses (``sample_offset``)."""
-    if config.dataset.kind != "synthetic":
-        raise NotImplementedError(
-            f"the port reads the synthetic dataset only, not "
-            f"{config.dataset.kind!r}")
-    from lt_tpu_torch.data.synthetic import SyntheticMultiViewDataset
+    """(train, val) datasets of ``dataset.kind``: 'human36m', 'cmu' /
+    'cmu_panoptic' or 'synthetic', with ``lt_tpu``'s config keys and
+    defaults.  The synthetic splits share the visual domain (seed 0) and
+    draw disjoint poses (``sample_offset``)."""
+    kind = config.dataset.kind
+    image_shape = config.get("image_shape", (256, 256))
+    if kind == "human36m":
+        from lt_tpu_torch.data.human36m import Human36MMultiViewDataset
 
-    def build(split_cfg, sample_offset):
-        return SyntheticMultiViewDataset(
-            n_samples=split_cfg.get("n_samples", 128),
-            n_views=config.dataset.get("n_views", 4),
-            num_joints=config.model.backbone.num_joints,
-            image_size=config.get("image_shape", (128, 128))[0],
-            seed=0, sample_offset=sample_offset,
-            cache_images=split_cfg.get("cache_images", True))
+        def build(split_cfg, train):
+            return Human36MMultiViewDataset(
+                h36m_root=split_cfg.h36m_root,
+                labels_path=split_cfg.labels_path,
+                pred_results_path=split_cfg.get("pred_results_path"),
+                image_shape=image_shape, train=train, test=not train,
+                retain_every_n_frames_in_test=split_cfg.get(
+                    "retain_every_n_frames_in_test", 1),
+                with_damaged_actions=split_cfg.get("with_damaged_actions",
+                                                   False),
+                scale_bbox=split_cfg.get("scale_bbox", 1.5),
+                kind=config.kind,
+                undistort_images=split_cfg.get("undistort_images", False),
+                ignore_cameras=split_cfg.get("ignore_cameras", ()),
+                crop=split_cfg.get("crop", True))
+    elif kind in ("cmu", "cmu_panoptic"):
+        from lt_tpu_torch.data.cmu_panoptic import CMUPanopticMultiViewDataset
 
-    train_ds = build(config.dataset.train, 0) if is_train else None
-    return train_ds, build(config.dataset.val, 1_000_000)
+        def build(split_cfg, train):
+            return CMUPanopticMultiViewDataset(
+                panoptic_root=split_cfg.panoptic_root,
+                sequences=split_cfg.sequences,
+                camera_names=split_cfg.get("camera_names"),
+                n_views=config.dataset.get("n_views", 4),
+                train=train, test=not train,
+                retain_every_n_frames=split_cfg.get("retain_every_n_frames",
+                                                    1),
+                image_shape=image_shape,
+                scale_bbox=split_cfg.get("scale_bbox", 1.2),
+                crop=split_cfg.get("crop", True))
+    elif kind == "synthetic":
+        from lt_tpu_torch.data.synthetic import SyntheticMultiViewDataset
+
+        def build(split_cfg, train):
+            return SyntheticMultiViewDataset(
+                n_samples=split_cfg.get("n_samples", 128),
+                n_views=config.dataset.get("n_views", 4),
+                num_joints=config.model.backbone.num_joints,
+                image_size=config.get("image_shape", (128, 128))[0],
+                seed=0, sample_offset=0 if train else 1_000_000,
+                cache_images=split_cfg.get("cache_images", True))
+    else:
+        raise NotImplementedError(f"Unknown dataset kind: {kind}")
+    train_ds = build(config.dataset.train, True) if is_train else None
+    return train_ds, build(config.dataset.val, False)
+
+
+def make_iterator(dataset, split_cfg, batch_size: int, seed: int,
+                  train: bool) -> BatchIterator:
+    """The split's iterator: training shuffles (``shuffle``, default on),
+    drops the ragged tail and masks views (``randomize_n_views``,
+    ``min_n_views``, ``max_n_views``); evaluation keeps the order and the
+    tail.  ``num_workers`` sizes the loading pool of a dataset that reads
+    files (default 8)."""
+    workers = split_cfg.get("num_workers") or 8
+    if not train:
+        return BatchIterator(dataset, batch_size, shuffle=False,
+                             drop_last=False, seed=seed, num_workers=workers)
+    return BatchIterator(
+        dataset, batch_size, shuffle=split_cfg.get("shuffle", True),
+        seed=seed, randomize_n_views=split_cfg.get("randomize_n_views",
+                                                   False),
+        min_n_views=split_cfg.get("min_n_views"),
+        max_n_views=split_cfg.get("max_n_views"), num_workers=workers)
 
 
 def _load_matching(model: torch.nn.Module, src: dict) -> int:
@@ -103,25 +159,56 @@ _WHOLE_MODEL = {"alg": weights.algebraic_state_dict,
                 "vol": weights.volumetric_state_dict}
 
 
-def init_model_state(config, model: torch.nn.Module) -> None:
-    """Load the configured ``.npz`` weights into ``model``: the backbone
-    fixture of ``model.backbone.checkpoint``, then the whole-model fixture
-    of ``model.checkpoint`` (an ``lt_tpu`` model of the configured
-    family), each where its ``init_weights`` is set."""
+def init_model_state(config, model: torch.nn.Module) -> dict:
+    """Load the configured weights into ``model``, each where its
+    ``init_weights`` is set, and report what was loaded.
+
+    ``model.backbone.checkpoint``: a reference ``.pth`` of the pose
+    network, with or without ``backbone.`` in its names (every entry but
+    the confidence heads required, the final layer adapted to the joint
+    count); or an ``lt_tpu`` ``.npz`` fixture or one of the port's
+    experiment or checkpoint directories, merged where names and shapes
+    match.  Then ``model.checkpoint``: a reference whole-model ``.pth``
+    (every entry of the model required with its shape) or an ``lt_tpu``
+    ``.npz`` of the configured family, merged where names and shapes
+    match.  A directory there is a train state, which :func:`run`
+    restores with its optimizer and step.
+
+    Returns ``{"backbone": ..., "model": ...}``: for each source loaded,
+    its path, the tensors loaded and the names it had that the model has
+    not (``unused``)."""
+    report = {}
     bb = config.model.backbone
-    layers = bb.num_layers
     if bb.get("init_weights") and bb.get("checkpoint"):
-        if not bb.checkpoint.endswith(".npz"):
-            raise NotImplementedError(f"backbone weights from .npz only: "
-                                      f"{bb.checkpoint}")
-        _load_matching(model, weights.backbone_state_dict(
-            weights.load_npz_variables(bb.checkpoint), layers))
+        path = bb.checkpoint
+        if path.endswith(".pth"):
+            unused = weights.load_backbone_pth(model, weights.load_pth(path),
+                                               bb.num_joints)
+            n = len(model.backbone.state_dict())
+        else:
+            if path.endswith(".npz"):
+                src = weights.backbone_state_dict(
+                    weights.load_npz_variables(path), bb.num_layers)
+            else:
+                state = ckpt.load_model_state(ckpt.resolve_checkpoint_dir(
+                    path))
+                src = {k: v for k, v in state.items()
+                       if k.startswith("backbone.")}
+            n = _load_matching(model, src)
+            unused = []
+        report["backbone"] = {"path": path, "loaded": n, "unused": unused}
     path = config.model.get("checkpoint")
     if config.model.get("init_weights") and path:
-        if not path.endswith(".npz"):
-            raise NotImplementedError(f"model weights from .npz only: {path}")
-        _load_matching(model, _WHOLE_MODEL[config.model.name](
-            weights.load_npz_variables(path), layers))
+        if path.endswith(".pth"):
+            unused = weights.load_strict(model, weights.load_pth(path),
+                                         f"model weights {path}")
+            report["model"] = {"path": path, "unused": unused,
+                               "loaded": len(model.state_dict())}
+        elif path.endswith(".npz"):
+            n = _load_matching(model, _WHOLE_MODEL[config.model.name](
+                weights.load_npz_variables(path), bb.num_layers))
+            report["model"] = {"path": path, "loaded": n, "unused": []}
+    return report
 
 
 def device_batch(batch: dict, device, pad_to: Optional[int] = None):
@@ -167,17 +254,25 @@ def train_epoch(model, optimizer, criterion, config, iterator, epoch: int,
                    n_iters_total)
         end = time.time()
         n_iters_total += 1
+    _print_fallbacks(iterator.dataset)
     return n_iters_total
 
 
 def eval_epoch(model, criterion, config, iterator, dataset, epoch: int,
                experiment_dir: str, logger: MetricLogger, device):
-    """One eval pass over ``iterator``: the dataset's MPJPE, the per-batch
-    metrics weighted by real samples, and ``results.pkl`` /
-    ``metric.json`` under ``checkpoints/{epoch:04d}``."""
+    """One eval pass over ``iterator``: the dataset's evaluation of the
+    predictions in the dataset's order (``_partial_evaluate`` where the
+    pass covers a subset), the per-batch metrics weighted by real samples,
+    and ``results.pkl`` / ``metric.json`` under ``checkpoints/{epoch:04d}``.
+    Each batch's ``data_time`` (waiting on the loader) and ``batch_time``
+    go to ``metrics.jsonl`` as a ``val_batch`` record.  Where the
+    evaluation fails it prints why and carries on with a metric of 0 and
+    an empty ``metric.json``, as the reference does."""
     results = defaultdict(list)
     metric_means = defaultdict(list)
+    end = time.time()
     for batch in iterator.epoch(0):
+        data_time = time.time() - end
         tensors, n_real = device_batch(batch, device,
                                        pad_to=iterator.batch_size)
         keypoints, metrics = eval_step(model, criterion, config, tensors)
@@ -185,9 +280,25 @@ def eval_epoch(model, criterion, config, iterator, dataset, epoch: int,
         results["indexes"].append(np.asarray(batch["indexes"]))
         for k, v in metrics.items():
             metric_means[k].append((v, n_real))
+        logger.log("val_batch", {"data_time": data_time,
+                                 "batch_time": time.time() - end,
+                                 "batch_size": n_real}, epoch)
+        end = time.time()
     results = {k: np.concatenate(v) for k, v in results.items()}
-    order = np.argsort(results["indexes"])
-    scalar, full = dataset.evaluate(results["keypoints_3d"][order])
+    _print_fallbacks(dataset)
+
+    scalar, full = 0.0, {}
+    try:
+        order = np.argsort(results["indexes"])
+        preds = results["keypoints_3d"][order]
+        if len(preds) == len(dataset):
+            scalar, full = dataset.evaluate(preds)
+        else:
+            scalar, full = _partial_evaluate(
+                dataset, preds, results["indexes"][order],
+                kind=config.get("kind", "human36m"))
+    except Exception as e:  # the reference's behaviour (train.py:342-346)
+        print("Failed to evaluate. Reason:", e)
 
     checkpoint_dir = os.path.join(experiment_dir, "checkpoints",
                                   f"{epoch:04}")
@@ -204,6 +315,34 @@ def eval_epoch(model, criterion, config, iterator, dataset, epoch: int,
     return scalar, full
 
 
+def _partial_evaluate(dataset, preds, indexes, kind: str = "human36m"):
+    """MPJPE over a subset of the dataset's samples, absolute and relative
+    to the root joint of ``kind`` ('coco': the hips' midpoint; 'cmu': joint
+    2; else joint 6).  The ground truth comes from
+    ``dataset.keypoints_world``, so that no image is decoded again."""
+    gt = np.stack([dataset.keypoints_world(int(i)) for i in indexes])
+    per_pose = np.sqrt(((gt - preds) ** 2).sum(2)).mean(1)
+    if kind == "coco":
+        gt_root = (gt[:, 11:12] + gt[:, 12:13]) / 2.0
+        pr_root = (preds[:, 11:12] + preds[:, 12:13]) / 2.0
+    elif kind == "cmu":
+        gt_root, pr_root = gt[:, 2:3], preds[:, 2:3]
+    else:
+        gt_root, pr_root = gt[:, 6:7], preds[:, 6:7]
+    per_pose_rel = np.sqrt((((gt - gt_root) - (preds - pr_root)) ** 2)
+                           .sum(2)).mean(1)
+    scalar = float(per_pose_rel.mean())
+    return scalar, {"per_pose_error": {"Average": {
+        "Average": float(per_pose.mean())}},
+        "per_pose_error_relative": {"Average": {"Average": scalar}}}
+
+
+def _print_fallbacks(dataset) -> None:
+    if getattr(dataset, "native_batches", False):
+        print(f"loader: {dataset.fallbacks} JPEGs the native batch call "
+              f"could not decode were read with cv2")
+
+
 def run(config_path: str, logdir: str, eval_only: bool = False,
         eval_dataset: str = "val", seed: int = 42,
         max_epochs: Optional[int] = None, resume_dir: Optional[str] = None,
@@ -217,27 +356,34 @@ def run(config_path: str, logdir: str, eval_only: bool = False,
                                         // config.opt.batch_size)
 
     model = factory.make_model(config, device=dev, seed=seed)
-    init_model_state(config, model)
+    for part, r in init_model_state(config, model).items():
+        print(f"Loaded {part} weights from {r['path']}: {r['loaded']} "
+              f"tensors, {len(r['unused'])} of its entries unused")
     criterion = factory.make_criterion(config)
     optimizer = factory.make_optimizer(config, model)
     generator = torch.Generator().manual_seed(seed + 1)
 
     need_train = (not eval_only) or eval_dataset == "train"
     train_ds, val_ds = make_datasets(config, is_train=need_train)
+    decoder = getattr(val_ds, "decoder", None)
+    if decoder:
+        print(f"Image decoder: {decoder}")
     train_it = None
     if train_ds is not None:
-        tcfg = config.dataset.train
-        train_it = BatchIterator(
-            train_ds, config.opt.batch_size, shuffle=tcfg.get("shuffle", True),
-            seed=seed, randomize_n_views=tcfg.get("randomize_n_views", False),
-            min_n_views=tcfg.get("min_n_views"),
-            max_n_views=tcfg.get("max_n_views"))
-    val_it = BatchIterator(val_ds,
+        train_it = make_iterator(train_ds, config.dataset.train,
+                                 config.opt.batch_size, seed, train=True)
+    val_it = make_iterator(val_ds, config.dataset.val,
                            config.opt.get("val_batch_size",
                                           config.opt.batch_size),
-                           shuffle=False, drop_last=False, seed=seed)
+                           seed, train=False)
 
     step, start_epoch = 0, 0
+    path = config.model.get("checkpoint")
+    if (config.model.get("init_weights") and path
+            and not path.endswith((".pth", ".npz"))):
+        latest = ckpt.resolve_checkpoint_dir(path)
+        step = ckpt.restore_checkpoint(latest, model, optimizer, generator)
+        print(f"Restored the train state of {latest} (step {step})")
     if resume_dir:
         latest = ckpt.resolve_checkpoint_dir(resume_dir)
         step = ckpt.restore_checkpoint(latest, model, optimizer, generator)

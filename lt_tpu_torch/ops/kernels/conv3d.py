@@ -173,9 +173,15 @@ def split_parts(k: int) -> int:
 def split_bf16_plain(v: torch.Tensor, parts: int = 2) -> torch.Tensor:
     """Plain version of split_bf16: (parts, *v.shape) bfloat16, v1 =
     bf16(v), v2 = bf16(v - v1), v3 = bf16(v - v1 - v2), each rounded to
-    nearest even (the differences are exact in float32)."""
-    out, r = [], v
-    for _ in range(parts):
+    nearest even (the differences are exact in float32); an infinity's
+    parts are (0, ..., 0, +-inf), so that in :func:`conv3d_split_plain`
+    and the kernel an infinite x meets only w's first part (true
+    float32's inf * w); NaN's are all NaN."""
+    big = v.isinf()
+    out, r = [], v.masked_fill(big, 0.0)
+    for p in range(parts):
+        if p == parts - 1:
+            r = torch.where(big, v, r)
         out.append(r.to(torch.bfloat16))
         r = r - out[-1].float()
     return torch.stack(out)

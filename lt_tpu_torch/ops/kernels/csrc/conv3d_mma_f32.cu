@@ -13,7 +13,15 @@
 // bits: |v - v1| <= 2^-8 |v|, |v - v1 - v2| <= 2^-8 |v - v1|), v1 + v2 +
 // v3 within 2^-24; bfloat16 has float32's exponent range, so the split is
 // finite for every finite v up to bfloat16's largest finite value
-// (3.39e38).  With two parts the products drop only x2 * w2 and the
+// (3.39e38).  An infinity's parts are (0, ..., 0, +-inf) and NaN's all
+// NaN: of the products x_i * w_j with i + j < parts, x's last part meets
+// only w's first, so an infinite x gives inf * w_1 alone, true float32's
+// inf * w: w_1 = bf16(w) has w's sign and is 0 only where w is (or is
+// below bfloat16's least subnormal), where float32 gives NaN too.  (Parts
+// (inf, NaN, NaN), from inf - inf, made every output an infinity reaches
+// NaN; (inf, 0, 0) would meet the lower weight parts, of either sign.)
+// The convolution's body is unchanged by this: no test in its MMA loop.
+// With two parts the products drop only x2 * w2 and the
 // rounding of x2 and w2, about 2^-16 relative each, with three about
 // 2^-24: K2's float32 contract of relative 1e-4 of max |output| holds
 // either way (the CPU tests emulate the terms with F.conv3d), and the six
@@ -46,12 +54,19 @@ __global__ void split_bf16_kernel(const float* __restrict__ v,
   for (int64_t i = i0; vec && i < n / 8; i += stride) {
     const float4* src = reinterpret_cast<const float4*>(v) + 2 * i;
     const float4 a = src[0], b = src[1];
-    float r[8] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
+    const float v8[8] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
+    float r[8];
+#pragma unroll
+    for (int k = 0; k < 8; ++k) r[k] = isinf(v8[k]) ? 0.f : v8[k];
 #pragma unroll
     for (int p = 0; p < PARTS; ++p) {
       unsigned u[4];
 #pragma unroll
       for (int q = 0; q < 4; ++q) {
+        if (p == PARTS - 1) {
+          r[2 * q] = isinf(v8[2 * q]) ? v8[2 * q] : r[2 * q];
+          r[2 * q + 1] = isinf(v8[2 * q + 1]) ? v8[2 * q + 1] : r[2 * q + 1];
+        }
         const __nv_bfloat162 h = __floats2bfloat162_rn(r[2 * q], r[2 * q + 1]);
         const float2 hf = __bfloat1622float2(h);
         r[2 * q] -= hf.x;
@@ -63,9 +78,11 @@ __global__ void split_bf16_kernel(const float* __restrict__ v,
     }
   }
   for (int64_t i = vec ? n : i0; i < n; i += stride) {
-    float r = v[i];
+    const float vi = v[i];
+    float r = isinf(vi) ? 0.f : vi;
 #pragma unroll
     for (int p = 0; p < PARTS; ++p) {
+      if (p == PARTS - 1 && isinf(vi)) r = vi;
       const __nv_bfloat16 h = __float2bfloat16_rn(r);
       out[p * n + i] = h;
       r -= __bfloat162float(h);

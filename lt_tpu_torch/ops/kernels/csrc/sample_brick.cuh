@@ -313,6 +313,38 @@ __device__ __forceinline__ Box brick_taps(const Args& p, const Smem& sm,
   return b;
 }
 
+// The scatters' rule for a gradient that is not finite, as the plain
+// versions and lt_tpu's autodiff have it: a tap off the map of a voxel in
+// front of the camera adds 0 * g at its pixel clamped to the map, NaN
+// where g is NaN or infinite (0 * g is 0 for a finite g, which the finite
+// path leaves out).  Called after brick_taps (the tile is visible) only
+// where a loaded g is not finite, which the kernels find as an FMA chain,
+// z = g * 0 + z over the g they load, NaN exactly where one is not finite
+// (one instruction a value): K6, whose thread loads its own voxel's
+// column, where that thread's z is NaN; K8, whose tile is loaded across
+// the block, where any thread's is (__syncthreads_or).  This thread's
+// voxel, each channel of its tile column that is not finite.  (A flag
+// reduced at brick_taps' barrier for both cost K6 about 4 %; this way K6
+// is unchanged and K8 within 2 % on an H100: PERF.md.)
+__device__ __forceinline__ void edge_taps(const Args& p, const Smem& sm,
+                                          const float* __restrict__ mm,
+                                          bool mine, int gx, int gy, int gz,
+                                          int bv, int c0, int CH) {
+  const LtkTaps tp = voxel_taps(p, mm, mine, gx, gy, gz);
+  if (!tp.front || tp.in == 0xfu) return;
+  float* map = static_cast<float*>(p.dst) +
+               static_cast<int64_t>(bv) * p.H * p.W * p.C + c0;
+  for (int c = 0; c < CH; ++c) {
+    const float g = sm.tile[c * kPitch + threadIdx.x];
+    if (isfinite(g)) continue;
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+      if (!(tp.in >> k & 1u))
+        atomicAdd(map + (tp.cy[k >> 1] * p.W + tp.cx[k & 1]) * p.C + c,
+                  0.f * g);
+  }
+}
+
 // Exclusive prefix sums of a[0..n) in place and the total in a[n], by all
 // threads of the block; wsum holds kNW ints.
 __device__ __forceinline__ void block_scan(int* a, int n, int* wsum) {

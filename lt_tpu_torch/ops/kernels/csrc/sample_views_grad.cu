@@ -48,6 +48,7 @@ __global__ void __launch_bounds__(kNT) sample_views_grad_kernel(const Args p) {
                  static_cast<int64_t>(bv) * p.S * p.S * p.S * p.C + c0;
   // Items: channels cc..cc+3 of voxels it * 32 + (tid >> 3).
   const int cc = (tid & 7) * 4;
+  float nan_if_bad = 0.f;  // NaN where a loaded g is NaN or infinite
 #pragma unroll
   for (int it = 0; it < kNT / 32; ++it) {
     const int j = it * 32 + (tid >> 3);
@@ -57,12 +58,17 @@ __global__ void __launch_bounds__(kNT) sample_views_grad_kernel(const Args p) {
       ld4<true>(gs + static_cast<int64_t>((x * p.S + y) * p.S + z) * p.C + cc,
                 v, CH - cc, p.vec != 0);
 #pragma unroll
-    for (int g = 0; g < 4; ++g) sm.tile[(cc + g) * kPitch + j] = v[g];
+    for (int g = 0; g < 4; ++g) {
+      nan_if_bad = __fmaf_rn(v[g], 0.f, nan_if_bad);
+      sm.tile[(cc + g) * kPitch + j] = v[g];
+    }
   }
   int gx, gy, gz;
   const bool mine = brick_voxel<K6Brick>(p, tid, gx, gy, gz);
   const Box box =
       brick_taps(p, sm, p.m + bv * 12, mine, gx, gy, gz);
+  if (__syncthreads_or(isnan(nan_if_bad)))
+    edge_taps(p, sm, p.m + bv * 12, mine, gx, gy, gz, bv, c0, CH);
   brick_scatter(p, sm, box, bv, c0, CH);
 }
 

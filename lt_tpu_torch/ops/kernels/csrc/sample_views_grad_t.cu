@@ -2,11 +2,13 @@
 //
 //   dF[bv, y, x, c] = sum over voxels n of g[bv, c, n] * (the bilinear weight
 //                     of tap (y, x) in voxel n's sample)
-// with voxels at w <= 0 and taps outside the map contributing nothing.  The
-// taps come from common.cuh's ltk_voxel_taps, as in K1 and K5.  dF must be
-// zeroed by the caller.  Everything is float32: the function is computed
-// exactly, where the TPU kernel rounded the weights and the product to
-// bfloat16 (unproject.py:961, :970).
+// with voxels at w <= 0 and taps outside the map contributing nothing
+// (but a tap off the map of a voxel in front of the camera adds 0 * g at
+// its clamped pixel where g is not finite: sample_brick.cuh's
+// edge_taps).  The taps come from common.cuh's ltk_voxel_taps, as in K1
+// and K5.  dF must be zeroed by the caller.  Everything is float32: the
+// function is computed exactly, where the TPU kernel rounded the weights
+// and the product to bfloat16 (unproject.py:961, :970).
 //
 // Replaces lt_tpu/ops/pallas/unproject.py:_sample_views_grad_features_t
 // (pallas_call :1029; kernel body _unproject_bwd_kernel_t :921).
@@ -53,10 +55,16 @@ sample_views_grad_t_kernel(const Args p) {
   const float* gs = static_cast<const float*>(p.src) +
                     (static_cast<int64_t>(bv) * p.C + c0) * N +
                     (gx * p.S + gy) * p.S + gz;
-  for (int c = 0; c < CH; ++c)
-    sm.tile[c * kPitch + tid] = mine ? __ldcs(gs + c * N) : 0.f;
+  float nan_if_bad = 0.f;  // NaN where a loaded g is NaN or infinite
+  for (int c = 0; c < CH; ++c) {
+    const float g = mine ? __ldcs(gs + c * N) : 0.f;
+    nan_if_bad = __fmaf_rn(g, 0.f, nan_if_bad);
+    sm.tile[c * kPitch + tid] = g;
+  }
   const Box box =
       brick_taps(p, sm, p.m + bv * 12, mine, gx, gy, gz);
+  if (isnan(nan_if_bad))
+    edge_taps(p, sm, p.m + bv * 12, mine, gx, gy, gz, bv, c0, CH);
   brick_scatter(p, sm, box, bv, c0, CH);
 }
 

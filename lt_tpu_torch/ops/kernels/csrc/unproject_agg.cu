@@ -170,9 +170,11 @@ unproject_agg_kernel(const AggArgs p) {
 
   // Sample view u of this thread's items from `base` (its staged window
   // or its map in device memory: two copies of the loop, so that the
-  // window's reads are shared-memory loads) and aggregate.
+  // window's reads are shared-memory loads) and aggregate; `unmasked`:
+  // the view's mask is set ('conf' samples a masked view too, `keep`, and
+  // weighs it by 0; the other methods skip it).
   auto sample_view = [&](const T* __restrict__ base, int su, int bu,
-                         bool keep) {
+                         bool keep, bool unmasked) {
 #pragma unroll
     for (int it = 0; it < IPT; ++it) {
       // Items past nit (a chunk of fewer than 32 channels) repeat voxels
@@ -226,8 +228,10 @@ unproject_agg_kernel(const AggArgs p) {
           if (keep) a += val[g];
         } else if (METHOD == kMax) {
           a = ltk_max_nan(a, keep ? val[g] : -INFINITY);
-        } else if (keep && cc + g < CH) {  // kConf
-          a += val[g] * p.conf[static_cast<int64_t>(bu) * p.C + c0 + cc + g];
+        } else if (cc + g < CH) {  // kConf
+          const float w =
+              p.conf[static_cast<int64_t>(bu) * p.C + c0 + cc + g];
+          a += val[g] * (unmasked ? w : 0.f);
         }
       }
     }
@@ -240,7 +244,7 @@ unproject_agg_kernel(const AggArgs p) {
       // View v: this thread's voxel's taps, the brick's window, its copy.
       const int bv = b * p.V + v;
       LtkTaps tp{};
-      if (mine && p.mask[bv] > 0.f)
+      if (mine && (METHOD == kConf || p.mask[bv] > 0.f))
         tp = ltk_voxel_taps(p.m + bv * 12, static_cast<float>(gx),
                             static_cast<float>(gy), static_cast<float>(gz),
                             p.H, p.W, p.sx, p.sy);
@@ -301,12 +305,15 @@ unproject_agg_kernel(const AggArgs p) {
     const int u = v - 1, su = u & 1, bu = b * p.V + u;
     cp_async_wait<1>();
     __syncthreads();
-    const bool keep = p.mask[bu] > 0.f;
+    // 'conf' samples a masked view too and weighs it by 0, as lt_tpu's
+    // aggregation does (a NaN there reaches the voxel); the others skip it.
+    const bool unmasked = p.mask[bu] > 0.f;
+    const bool keep = METHOD == kConf || unmasked;
     if (staged >> su & 1u)
-      sample_view(win + su * winelems, su, bu, keep);
+      sample_view(win + su * winelems, su, bu, keep, unmasked);
     else
       sample_view(static_cast<const T*>(p.feats) + bu * map + c0, su, bu,
-                  keep);
+                  keep, unmasked);
     __syncthreads();  // buffers su are refilled by view u + 2
   }
 

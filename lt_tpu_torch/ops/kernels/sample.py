@@ -168,7 +168,10 @@ def sample_views_grad_t_plain(g: torch.Tensor, affine: torch.Tensor,
 def _scatter_taps(gt: torch.Tensor, affine: torch.Tensor, feat_shape,
                   grid_size: int) -> torch.Tensor:
     """gt (BV, S^3, C) -> dF (BV, H, W, C): every voxel's gradient row added
-    to its four taps with their bilinear weights."""
+    to its four taps with their bilinear weights, a tap off the map at its
+    clamped pixel with weight 0 (NaN there where g is not finite, as in
+    lt_tpu's autodiff); a voxel behind the camera, whose sample is a
+    select's 0, adds nothing."""
     bv, h, w, c = feat_shape
     uvw = _project(affine, grid_size)                      # (BV, N, 3)
     z = uvw[..., 2]
@@ -187,7 +190,8 @@ def _scatter_taps(gt: torch.Tensor, affine: torch.Tensor, feat_shape,
         keep = valid & (xi >= 0) & (xi <= w - 1) & (yi >= 0) & (yi <= h - 1)
         wt = torch.where(keep, wt, torch.zeros_like(wt))
         idx = base + (yi.clamp(0, h - 1) * w + xi.clamp(0, w - 1)).long()
-        df.index_add_(0, idx.reshape(-1), (gt * wt[..., None]).reshape(-1, c))
+        terms = torch.where(valid[..., None], gt * wt[..., None], 0.0)
+        df.index_add_(0, idx.reshape(-1), terms.reshape(-1, c))
     return df.reshape(bv, h, w, c)
 
 

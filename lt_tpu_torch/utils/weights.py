@@ -5,7 +5,9 @@ The inverse of ``lt_tpu/utils/torch_import.py``: it un-stacks the scanned
 flax HWIO / DHWIO kernels back to PyTorch layouts and unwraps the
 ``BatchNorm_0`` nesting.  It also reads the flat ``params/...`` /
 ``batch_stats/...`` ``.npz`` fixtures (its own copy of the format of
-``lt_tpu/utils/fixture.py``), casting their float16 weights to float32.
+``lt_tpu/utils/fixture.py``), casting their float16 weights to float32,
+and the reference's ``.pth`` state dicts, whose names are the port's
+(:func:`load_pth`, :func:`load_strict`, :func:`load_backbone_pth`).
 
 Layouts (flax -> PyTorch):
   Conv2d          (kH, kW, I, O)     -> (O, I, kH, kW)
@@ -17,7 +19,7 @@ Layouts (flax -> PyTorch):
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, List
 
 import numpy as np
 import torch
@@ -235,3 +237,80 @@ def load_backbone_npz(model: torch.nn.Module, path: str,
     model without confidences or a RANSAC model: every entry must match."""
     model.load_state_dict(backbone_state_dict(load_npz_variables(path),
                                               num_layers))
+
+
+# -- reference ``.pth`` state dicts ------------------------------------------
+
+#: Entries a state dict may lack: PyTorch's BatchNorm counters (absent from
+#: older reference checkpoints, never read in eval) and, for a backbone
+#: alone, the confidence heads (absent from a pretrained pose network).
+OPTIONAL_SUFFIX = "num_batches_tracked"
+HEADS = ("alg_confidences.", "vol_confidences.")
+
+
+def load_pth(path: str) -> Dict[str, torch.Tensor]:
+    """A reference ``.pth`` state dict on the CPU: a ``state_dict`` entry
+    unwrapped, DDP's ``module.`` stripped from every name."""
+    state = torch.load(path, map_location="cpu", weights_only=True)
+    if "state_dict" in state:
+        state = state["state_dict"]
+    return {k.replace("module.", ""): v for k, v in state.items()}
+
+
+def load_strict(module: torch.nn.Module, src: Dict[str, torch.Tensor],
+                what: str, optional=()) -> List[str]:
+    """Load ``src`` into ``module``: every entry of its state_dict must be
+    in ``src`` with its shape, except BatchNorm counters and names that
+    start with one of ``optional`` (those keep their values where absent).
+    Raises naming what is missing or misshapen; returns the names of
+    ``src`` that the module has no entry for."""
+    state = module.state_dict()
+    missing = [k for k in state if k not in src
+               and not k.endswith(OPTIONAL_SUFFIX)
+               and not k.startswith(tuple(optional))]
+    bad = [f"{k} {tuple(src[k].shape)} != {tuple(v.shape)}"
+           for k, v in state.items() if k in src and src[k].shape != v.shape]
+    if missing or bad:
+        raise ValueError(f"{what}: {len(missing)} entries missing "
+                         f"{missing[:5]}, {len(bad)} of another shape "
+                         f"{bad[:5]}")
+    state.update({k: src[k].to(state[k].dtype) for k in state if k in src})
+    module.load_state_dict(state)
+    return sorted(set(src) - set(state))
+
+
+def final_layer_for_joints(weight: torch.Tensor, bias: torch.Tensor,
+                           num_joints: int):
+    """A pretrained backbone's final layer for ``num_joints`` joints, as
+    ``lt_tpu``'s ``import_pose_resnet`` (and the reference's pose_resnet)
+    makes it: where the counts differ, Xavier-uniform filters from
+    ``RandomState(0)`` with the first min(n) filters and biases copied."""
+    if weight.shape[0] == num_joints:
+        return weight, bias
+    fan_in = weight.shape[1] * weight.shape[2] * weight.shape[3]
+    fan_out = num_joints * weight.shape[2] * weight.shape[3]
+    limit = np.sqrt(6.0 / (fan_in + fan_out))
+    new_w = np.random.RandomState(0).uniform(
+        -limit, limit, (num_joints,) + tuple(weight.shape[1:]))
+    new_w = torch.from_numpy(new_w.astype(np.float32)).to(weight.dtype)
+    new_b = torch.zeros(num_joints, dtype=bias.dtype)
+    n = min(num_joints, weight.shape[0])
+    new_w[:n], new_b[:n] = weight[:n], bias[:n]
+    return new_w, new_b
+
+
+def load_backbone_pth(model: torch.nn.Module, sd: Dict[str, torch.Tensor],
+                      num_joints: int) -> List[str]:
+    """A pretrained pose network's state dict (names with or without
+    ``backbone.``) into ``model.backbone``: every entry but the confidence
+    heads must be there (:func:`load_strict`), the final layer adapted to
+    ``num_joints`` (:func:`final_layer_for_joints`).  Returns the names
+    left over."""
+    prefix = ("backbone."
+              if any(k.startswith("backbone.") for k in sd) else "")
+    src = {k[len(prefix):]: v for k, v in sd.items() if k.startswith(prefix)}
+    if "final_layer.weight" in src:
+        src["final_layer.weight"], src["final_layer.bias"] = (
+            final_layer_for_joints(src["final_layer.weight"],
+                                   src["final_layer.bias"], num_joints))
+    return load_strict(model.backbone, src, "backbone weights", HEADS)

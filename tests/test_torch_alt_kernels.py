@@ -25,6 +25,7 @@ from lt_tpu_torch.ops.kernels import conv_mp as t_conv_mp
 from lt_tpu_torch.ops.kernels import res3d_folded as t_folded
 from lt_tpu_torch.ops.kernels import res3d_q4 as t_q4
 from lt_tpu_torch.ops.kernels import sample as t_sample
+from tests.test_torch_kernels import _nonfinite_cotangent
 from tests.test_torch_kernels import _views as _scene
 
 REL = 1e-4
@@ -342,6 +343,32 @@ def test_sample_views_grad_matches_xla_autodiff():
     # ... and the forward against the same plain sampling.
     _close(t_sample.sample_views(_t(feats), m, s),
            np.asarray(out).reshape(bv, c, s ** 3).transpose(0, 2, 1))
+
+
+def test_sample_views_grad_nonfinite_g_matches_xla_autodiff():
+    """K8's plain version vs jax.vjp of lt_tpu's plain sampling (as above)
+    with NaN and +-inf in g at voxels behind their camera (they add
+    nothing), at voxels in front with a tap off the map (0 * g at its
+    clamped pixel) and at voxels with every tap on the map.  The NaN mask
+    and the infinities equal, the finite values within 1e-4.  (The scene
+    of seed 3 has voxels of all three kinds; seed 4's has none off the
+    map.)"""
+    feats, proj, base, side, s, m = _views(3)
+    bv, h, w, c = feats.shape
+    g, (behind, _, _) = _nonfinite_cotangent(m, s, h, w, c, 7)
+    cv = j_vol.build_coord_volumes(jnp.asarray(np.repeat(base, 3, axis=0)),
+                                   side, s)
+
+    def f(x):
+        return j_vol.unproject_heatmaps(
+            x, jnp.asarray(proj.reshape(bv, 1, 3, 4)), cv, "sum", None, None)
+
+    _, pull = jax.vjp(f, jnp.asarray(feats.reshape(bv, 1, h, w, c)))
+    cot = g.transpose(0, 2, 1).reshape(bv, c, s, s, s)
+    ref = np.asarray(pull(jnp.asarray(cot))[0]).reshape(bv, h, w, c)
+    assert behind[5].all() and (ref[5] == 0).all()
+    assert np.isnan(ref).any() and np.isinf(ref).any()
+    _close(t_sample.sample_views_grad(_t(g), m, feats.shape, s), ref)
 
 
 @pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])

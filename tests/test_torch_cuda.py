@@ -158,14 +158,13 @@ def test_max_pool3d_2x_refuses_wrong_plans(dev, monkeypatch, wrong):
     assert _build.LAUNCHES["max_pool3d_2x"] == before
 
 
-def _nan_close(got, ref, rel, nan_ref=None):
-    """NaN exactly where ``ref`` (or ``nan_ref``) has it, ref's infinities
-    elsewhere, the finite values within ``rel`` of the largest finite
-    |ref|."""
+def _nan_close(got, ref, rel):
+    """NaN exactly where ``ref`` has it, ref's infinities elsewhere, the
+    finite values within ``rel`` of the largest finite |ref|."""
     torch.cuda.synchronize()
     assert got.shape == ref.shape and got.dtype == ref.dtype
     g, r = got.float(), ref.float()
-    want = (ref if nan_ref is None else nan_ref).float().isnan()
+    want = r.isnan()
     assert want.any()
     assert torch.equal(g.isnan(), want)
     inf = r.isinf() & ~want
@@ -193,18 +192,21 @@ def _plant_edges(feats):
                                     "unproject_agg softmax edges",
                                     "unproject_agg sum edges",
                                     "unproject_agg softmax +inf",
+                                    "unproject_agg conf masked edges",
                                     "sample_views_t edges",
                                     "sample_views edges"])
 def test_kernels_keep_nan(dev, kernel, dt):
     """NaN, +inf and -inf in K2's and K3's inputs, NaN in K1's features:
-    the ReLU epilogues and K1's 'max' keep NaN as their plain versions do.
-    The float32 K2 sums products of bfloat16 parts, where an infinity's
-    lower parts are NaN: it gives NaN wherever an infinity of x reaches.
-    'edges': NaN and infinities on the maps' edges, which the flagship's
-    taps off the map read at their clamped pixels with weight 0 (K1, K5 and
-    K7 as lt_tpu's sampler: inf * 0 = NaN; K5 reads float32 features, the
-    bfloat16 case's rounded ones widened).  '+inf': +inf features inside
-    the maps, whose softmax over the views is NaN."""
+    the ReLU epilogues and K1's 'max' keep NaN as their plain versions do,
+    and the float32 K2 has true float32's NaN and infinities (an
+    infinity's bfloat16 parts are (0, ..., 0, inf), whose last part meets
+    only w's first).  'edges': NaN and
+    infinities on the maps' edges, which the flagship's taps off the map
+    read at their clamped pixels with weight 0 (K1, K5 and K7 as lt_tpu's
+    sampler: inf * 0 = NaN; K5 reads float32 features, the bfloat16 case's
+    rounded ones widened).  '+inf': +inf features inside the maps, whose
+    softmax over the views is NaN.  'masked': one view masked, which 'conf'
+    samples and weighs by 0, as lt_tpu does."""
     from lt_tpu_torch.ops.kernels import conv3d, sample, unproject, updown
 
     rel = REL if dt == torch.float32 else REL_BF16
@@ -212,12 +214,8 @@ def test_kernels_keep_nan(dev, kernel, dt):
         x, w, b, r = _conv_inputs(dev, (2, 6, 7, 8, 32), 3, 24, True, dt)
         _plant(x)
         _plant(r, seed=8)
-        nan_ref = None
-        if dt == torch.float32:
-            nan_ref = conv3d.conv3d_fused_plain(
-                x.masked_fill(x.isinf(), float("nan")), w, b, r, True)
         _nan_close(conv3d.conv3d_fused(x, w, b, r, True),
-                   conv3d.conv3d_fused_plain(x, w, b, r, True), rel, nan_ref)
+                   conv3d.conv3d_fused_plain(x, w, b, r, True), rel)
     elif kernel == "upsample3d_2x":
         x = _plant(_randn(dev, 2, 3, 4, 5, 64).to(dt))
         w8 = _randn(dev, 64, 8 * 32, scale=0.125, seed=1).to(dt)
@@ -241,16 +239,55 @@ def test_kernels_keep_nan(dev, kernel, dt):
         _, method, *where = kernel.split()
         feats, m = _flagship_k1_inputs(dev)
         feats = feats.to(dt)
-        if where == ["edges"]:
+        mask = torch.ones(feats.shape[:2], device=dev)
+        conf = None
+        if where[-1:] == ["edges"]:
             _plant_edges(feats)
         elif where == ["+inf"]:
             feats[:, :, 40:56, 40:56, 1::3] = float("inf")
         else:
             feats[:, :, 44:52, 44:52, ::3] = float("nan")  # inside every map
-        mask = torch.ones(feats.shape[:2], device=dev)
-        _nan_close(unproject.unproject_agg(feats, m, mask, None, method, FLAG),
-                   unproject.unproject_agg_plain(feats, m, mask, None, method,
+        if where[:1] == ["masked"]:
+            mask[1, 2] = 0.0
+            conf = _randn(dev, *feats.shape[:2], feats.shape[-1],
+                          seed=2).abs()
+        _nan_close(unproject.unproject_agg(feats, m, mask, conf, method,
+                                           FLAG),
+                   unproject.unproject_agg_plain(feats, m, mask, conf, method,
                                                  FLAG), rel)
+
+
+@pytest.mark.parametrize("kernel", ["sample_views_grad_t",
+                                    "sample_views_grad float32",
+                                    "sample_views_grad bfloat16"])
+def test_scatters_carry_nonfinite_g_off_the_map(dev, kernel):
+    """NaN, +inf and -inf in g at voxels with a tap off the map reach dF
+    at the taps' clamped pixels (0 * g), as in the plain versions."""
+    from lt_tpu_torch.ops.kernels import sample
+
+    feats, m = _flagship_k1_inputs(dev)
+    b, v, h, w, c = feats.shape
+    m = m.reshape(b * v, 3, 4)
+    shape = (b * v, h, w, c)
+    g = _randn(dev, b * v, FLAG ** 3, c, seed=5)
+    uvw = sample._project(m, FLAG)
+    z = uvw[..., 2]
+    x0 = torch.floor(uvw[..., 0] / z * ((w - 1) / w))
+    off = (z > 0) & ((x0 < 0) | (x0 + 1 > w - 1))
+    for vi in range(b * v):
+        idx = torch.nonzero(off[vi])[:, 0]
+        for i, val in enumerate((float("nan"), float("inf"),
+                                 -float("inf"))):
+            g[vi, idx[i::97][:8], i::3] = val
+    assert bool(off.any())
+    if kernel == "sample_views_grad_t":
+        gt = g.transpose(1, 2).contiguous()
+        _nan_close(sample.sample_views_grad_t(gt, m, shape, FLAG),
+                   sample.sample_views_grad_t_plain(gt, m, shape, FLAG), REL)
+    else:
+        gd = g.to(BF16) if kernel.endswith("bfloat16") else g
+        _nan_close(sample.sample_views_grad(gd, m, shape, FLAG),
+                   sample.sample_views_grad_plain(gd, m, shape, FLAG), REL)
 
 
 @pytest.mark.parametrize("method", ["softmax", "sum", "max", "conf"])

@@ -83,6 +83,18 @@ def test_new_kernel_modules_are_part_of_the_port():
     assert csrc == set(_build.SOURCES)
 
 
+def test_data_modules_are_part_of_the_port():
+    """The data layer's modules (datasets, batching, images, the native
+    pipeline's bindings) are in the scan above, and the native library is
+    built outside the package."""
+    port = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    assert {f"lt_tpu_torch/{m}" for m in (
+        "data/human36m.py", "data/cmu_panoptic.py", "data/batch.py",
+        "utils/img.py", "native/__init__.py")} <= port
+    from lt_tpu_torch import native
+    assert native.lib_path().parent == ROOT / "build" / "native"
+
+
 def test_default_device_raises_without_cuda(monkeypatch, tmp_path):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="cuda"):

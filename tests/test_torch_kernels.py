@@ -316,6 +316,56 @@ def test_sample_views_grad_t_matches_xla_autodiff():
     _close(got, ref.reshape(b * v, h, w, c), rel=1e-5)
 
 
+def _nonfinite_cotangent(m, s, h, w, c, seed):
+    """A gradient (BV, S^3, C) of the sampling, seeded, with NaN, +inf and
+    -inf (one channel each) planted at a few voxels of each kind: behind
+    the camera (w <= 0), in front with a tap off the map, and in front
+    with every tap on it.  Returns g and the per-voxel masks of the three
+    kinds (BV, S^3)."""
+    rng = np.random.RandomState(seed)
+    g = rng.randn(m.shape[0], s ** 3, c).astype(np.float32)
+    uvw = t_sample._project(m, s).numpy()
+    z = uvw[..., 2]
+    z_safe = np.where(z == 0.0, 1.0, z)
+    x0 = np.floor(uvw[..., 0] / z_safe * ((w - 1) / w))
+    y0 = np.floor(uvw[..., 1] / z_safe * ((h - 1) / h))
+    behind = z <= 0.0
+    on_map = (x0 >= 0) & (x0 + 1 <= w - 1) & (y0 >= 0) & (y0 + 1 <= h - 1)
+    kinds = (behind, ~behind & ~on_map, ~behind & on_map)
+    for kind in kinds:
+        flat = np.flatnonzero(kind)
+        assert len(flat) >= 9, "the scene lacks voxels of a kind"
+        for i, val in enumerate((np.nan, np.inf, -np.inf)):
+            pick = flat[rng.choice(len(flat), 3, replace=False)]
+            g.reshape(-1, c)[pick, i] = val
+    return g, kinds
+
+
+def test_sample_views_grad_t_nonfinite_g_matches_xla_autodiff():
+    """K6 plain vs XLA autodiff of unproject_heatmaps (as above) with NaN
+    and +-inf in g: a voxel behind its camera adds nothing (lt_tpu's
+    select), an off-map tap of a voxel in front adds 0 * g at its clamped
+    pixel (NaN), a tap on the map g times its weight.  The NaN mask and
+    the infinities equal, the finite values within rel 1e-5."""
+    feats, proj, base, side, s, m = _views(3)
+    b, v, h, w, c = feats.shape
+    mm = m.reshape(b * v, 3, 4)
+    g, (behind, _, _) = _nonfinite_cotangent(mm, s, h, w, c, 6)
+    g_t = np.ascontiguousarray(g.transpose(0, 2, 1))
+    _, ref = _xla_unproject_vjp(
+        feats.reshape(b * v, 1, h, w, c), proj.reshape(b * v, 1, 3, 4),
+        np.repeat(base, v, axis=0), side, s, "sum", None,
+        g_t.reshape(b * v, c, s, s, s))
+    ref = ref.reshape(b * v, h, w, c)
+    # Both kinds reach the reference as the docstring says: the view wholly
+    # behind its camera (1, 2) gets zeros, NaN reaches the views that have
+    # off-map taps.
+    assert behind[5].all() and (ref[5] == 0).all()
+    assert np.isnan(ref).any() and np.isinf(ref).any()
+    got = t_sample.sample_views_grad_t(_t(g_t), mm, (b * v, h, w, c), s)
+    _close(got, ref, rel=1e-5)
+
+
 def test_sample_views_affine_t_backward_is_grad_kernel():
     """The autograd Function: backward = K6 on the cotangent; no gradient
     for the matrices."""

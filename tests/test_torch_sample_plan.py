@@ -22,7 +22,9 @@ memory never runs, so the guard is here, where no card is needed:
   into a window of its box, then the window added to dF; direct path: the
   taps added to dF; K8's tile loaded from whole voxels-major rows, bfloat16
   widened) equal the plain versions for budgets that take every brick down
-  either path or some down each; K5 and K7 modelled brick by brick (taps
+  either path or some down each, NaN and infinities in the gradient at
+  voxels whose taps fall off the map included; K5 and K7 modelled brick
+  by brick (taps
   read from the map, a tap off the map at its pixel clamped to the map
   with weight 0, a voxel behind the camera reading pixel 0 and dropped by
   a select; K7 reading bfloat16 features widened and writing rows, a
@@ -259,16 +261,28 @@ def _scatter_model(tile, m, shape, s, budget):
     brick's gradient tile (C, voxels) as the kernel loads it.  Window path:
     the brick's taps summed by pixel of its box (the kernel's counting sort
     and per-pixel sums), each pixel's sum added to dF; direct path: each
-    tap added to dF."""
+    tap added to dF.  Where a voxel's gradients are not all finite, each
+    such g first adds 0 * g at the clamped pixel of each of the voxel's
+    taps off the map, if the voxel is in front of the camera (edge_taps)."""
     bv, h, w, c = shape
     xs, ys, wts, inside = _taps(m, s, h, w)
+    front = _project(m, s)[..., 2] > 0
     boxes, pixels, fits = _windows(m, s, h, w, budget)
     df = torch.zeros(bv, h * w, c)
     for v in range(bv):
         for bi, vox in enumerate(_bricks(s, AGG_BRICK)):
             keep = inside[v, vox]                            # (n, 4)
-            terms = (tile(v, vox).T[:, None, :]
-                     * wts[v, vox][..., None])[keep]         # (taps, C)
+            g = tile(v, vox).T                               # (n, C)
+            if not bool(g.isfinite().all()):
+                off = front[v, vox][:, None] & ~keep
+                cx = xs[v, vox].clamp(0, w - 1)
+                cy = ys[v, vox].clamp(0, h - 1)
+                for k in range(4):
+                    sel = off[:, k]
+                    df[v].index_add_(0, cy[sel, k] * w + cx[sel, k],
+                                     torch.where(g[sel].isfinite(), 0.0,
+                                                 0.0 * g[sel]))
+            terms = (g[:, None, :] * wts[v, vox][..., None])[keep]
             x, y = xs[v, vox][keep], ys[v, vox][keep]
             if fits[v, bi]:
                 x0, _, y0, _ = boxes[v, bi].tolist()
@@ -419,6 +433,54 @@ def test_k8_model_of_both_paths_is_the_plain_scatter(s, c, budget, g_dtype):
     torch.testing.assert_close(got, ref, rtol=0, atol=atol)
     k6 = _k6_model(g.float().transpose(1, 2), m, shape, s, budget)
     torch.testing.assert_close(got, k6, rtol=0, atol=atol)
+
+
+def _nonfinite_g(shape_g, s, m, h, w, seed):
+    """A cotangent (BV, S^3, C) with NaN, +inf and -inf at voxels that
+    have a tap off the map (views 0, 3, 4: partly, wholly and across the
+    edge), a few inside, and NaN over view 1, behind its camera."""
+    rng = np.random.RandomState(seed)
+    g = torch.from_numpy(rng.randn(*shape_g).astype(np.float32))
+    _, _, _, inside = _taps(m, s, h, w)
+    front = _project(m, s)[..., 2] > 0
+    for v in (0, 3, 4):
+        off = torch.nonzero(front[v] & ~inside[v].all(-1))[:, 0]
+        ins = torch.nonzero(inside[v].all(-1))[:, 0]
+        for i, val in enumerate((math.nan, math.inf, -math.inf)):
+            g[v, off[i::7][:3], i::3] = val
+            if len(ins):
+                g[v, ins[i::11][:1], i] = val
+    g[1] = math.nan
+    return g
+
+
+@pytest.mark.parametrize("kernel", ["K6", "K8"])
+@pytest.mark.parametrize("budget", [0, 40, K6_WINDOW])
+@pytest.mark.parametrize("s, c", [(7, 40), (10, 17)])
+def test_scatter_models_carry_nonfinite_g_as_the_plain_scatter(s, c, budget,
+                                                               kernel):
+    """NaN and infinities in g at voxels with taps off the map reach dF at
+    those taps' clamped pixels (0 * g, as the plain version and lt_tpu's
+    autodiff), those inside at their pixels; view 1, behind its camera,
+    gets nothing; every finite value within 1e-5 of the largest."""
+    feats, m = _scene(s, seed=s, c=c)
+    shape = tuple(feats.shape)
+    g = _nonfinite_g((shape[0], s ** 3, c), s, m, shape[1], shape[2], s)
+    if kernel == "K6":
+        got = _k6_model(g.transpose(1, 2), m, shape, s, budget)
+        ref = sample.sample_views_grad_t_plain(g.transpose(1, 2), m, shape,
+                                               s)
+    else:
+        got = _k8_model(g, m, shape, s, budget)
+        ref = sample.sample_views_grad_plain(g, m, shape, s)
+    nan = ref.isnan()
+    assert bool(nan[[0, 3, 4]].flatten(1).any(1).all())
+    assert bool((ref[1] == 0).all())
+    assert torch.equal(got.isnan(), nan)
+    assert torch.equal(got[ref.isinf()], ref[ref.isinf()])
+    fin = ref.isfinite()
+    torch.testing.assert_close(got[fin], ref[fin], rtol=0,
+                               atol=1e-5 * ref[fin].abs().max().item())
 
 
 def _edges_nonfinite(feats, m, s, model, plain):

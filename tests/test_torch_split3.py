@@ -94,6 +94,53 @@ def test_three_term_conv_holds_the_float32_contract(k, cin, cout):
         assert jerr <= REL, jerr
 
 
+def _nonfinite_match(got, ref, limit):
+    """NaN where ``ref`` has NaN, its infinities, and its finite values
+    within ``limit`` of the largest finite |ref|."""
+    got, ref = np.asarray(got, np.float64), np.asarray(ref, np.float64)
+    np.testing.assert_array_equal(np.isnan(got), np.isnan(ref))
+    inf = np.isinf(ref)
+    np.testing.assert_array_equal(got[inf], ref[inf])
+    fin = np.isfinite(ref)
+    assert np.isfinite(got[fin]).all()
+    err = np.abs(got[fin] - ref[fin]).max() / np.abs(ref[fin]).max()
+    assert err <= limit, err
+
+
+@pytest.mark.parametrize("relu", [True, False])
+@pytest.mark.parametrize("k, cin, cout", [(3, 16, 32), (3, 32, 32),
+                                          (7, 32, 16), (1, 32, 17)])
+def test_split_conv_keeps_infinities_as_float32(k, cin, cout, relu):
+    """+inf and -inf (and a NaN) planted in x: split_bf16 gives an
+    infinity the parts (0, ..., 0, inf), and the last part of x meets only
+    the first part of w among the products x_i * w_j, i + j < parts, so
+    that the split convolution has true float32's NaN (where +inf and -inf
+    meet, or the NaN reaches), infinities and finite values, as lt_tpu's
+    float32 conv3d_same (k = 3, interpret mode) has them; a ReLU maps -inf
+    to 0."""
+    x, w, b, r = _inputs(k, cin, cout, seed=k + cin)
+    x[0, 1, 2, 3, :4] = np.inf
+    x[1, 4, 1, 2, 2:6] = -np.inf
+    x[0, 3, 3, 5, 1] = -np.inf
+    x[1, 1, 4, 6, 0] = np.nan
+    tx, tw, tb, tr = map(torch.from_numpy, (x, w, b, r))
+    parts = split_parts(k)
+    xs = split_bf16(tx, parts)
+    big = tx.isinf()
+    assert bool((xs[-1].float()[big] == tx[big]).all())
+    assert bool((xs[:-1].float()[:, big] == 0).all())
+    got = conv3d_split(xs, split_bf16(tw, parts), tb, tr, relu=relu)
+    ref = conv3d_fused_plain(tx, tw, tb, tr, relu=relu)
+    assert bool(ref.isnan().any()) and bool(ref.isinf().any())
+    limit = REL if parts == 2 else SIX_TERMS
+    _nonfinite_match(got, ref, limit)
+    if k == 3:
+        jref = j_conv3d.conv3d_same(jnp.asarray(x), jnp.asarray(w),
+                                    jnp.asarray(b), relu=relu,
+                                    residual=jnp.asarray(r), interpret=True)
+        _nonfinite_match(got, jref, REL)
+
+
 @pytest.mark.parametrize("out_dtype", [torch.float32, BF16])
 def test_three_term_conv_without_residual_and_relu(out_dtype):
     x, w, b, _ = _inputs(3, 32, 32, seed=1)

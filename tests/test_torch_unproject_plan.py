@@ -295,7 +295,8 @@ def _k1_model(feats, m, mask, conf, method, s, budget):
     k = 0..3 (a voxel behind the camera reads pixel 0, dropped by a
     select), and aggregates across views as the kernel does, the online
     softmax included (its sum plus the sum minus itself at the store: NaN
-    after a +inf logit)."""
+    after a +inf logit); 'conf' samples a masked view too and weighs it by
+    0."""
     b, v, h, w, c = feats.shape
     pix, cx, cy, wts = _k1_taps(m, s, h, w)
     pix, cx, cy, wts = (t.reshape(b, v, s ** 3, 4) for t in
@@ -309,7 +310,7 @@ def _k1_model(feats, m, mask, conf, method, s, budget):
             rm = torch.full((len(vox), c), -math.inf)
             dn = torch.zeros(len(vox), c)
             for u in range(v):
-                keep = bool(mask[i, u] > 0)
+                keep = bool(mask[i, u] > 0) or method == "conf"
                 off = pix[i, u, vox]
                 src = feats[i, u].reshape(h * w, c)
                 if keep and 0 < pixels[i, u, bi] <= budget:
@@ -339,8 +340,9 @@ def _k1_model(feats, m, mask, conf, method, s, budget):
                 elif method == "max":
                     acc = torch.maximum(acc, val if keep
                                         else torch.full_like(val, -math.inf))
-                elif keep:
-                    acc = acc + val * conf[i, u]
+                elif method == "conf":
+                    acc = acc + val * (conf[i, u] if mask[i, u] > 0
+                                       else torch.zeros_like(conf[i, u]))
             if method == "softmax":
                 acc = acc / dn + (acc - acc)
             if method == "max":
@@ -388,15 +390,14 @@ def test_k1_model_keeps_nonfinite_as_the_plain_version(s, method, budget):
     none, has NaN exactly where unproject_agg_plain has it (off-map taps
     read the edge with weight 0: inf * 0 = NaN; a +inf logit makes the
     softmax NaN), its infinities, and its finite values within 1e-5 of
-    the largest.  One view of sample 1 is masked ('conf' keeps every view:
-    the plain version multiplies a masked view's sample by a confidence of
-    0, which K1 does not sample)."""
+    the largest.  One view of sample 1 is masked: 'conf' samples it and
+    multiplies by a confidence of 0, as the plain version and lt_tpu do,
+    so its NaN and infinities make NaN."""
     m, h, w = _scene(s, seed=s)
     c = 9
     feats = _edge_features(2, 3, h, w, c, seed=s)
     mask = torch.ones(2, 3)
-    if method != "conf":
-        mask[1, 2] = 0.0
+    mask[1, 2] = 0.0
     conf = (torch.rand((2, 3, c), generator=torch.Generator().manual_seed(1))
             if method == "conf" else None)
     got = _k1_model(feats, m, mask, conf, method, s, budget)
