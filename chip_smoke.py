@@ -33,7 +33,11 @@ rounded); and the training step of
 experiments/human36m/train/human36m_vol_softmax.yaml (batch 5, float32)
 through K1 and, in its backward, K5 and K6; before it, K5 and K6 at its
 shapes (K6 also with direct atomics only), K5 held to K7 and to K1's 'sum'
-of each view bit for bit.  It also runs the committed trained RN-18
+of each view bit for bit; then K5's and K6's bfloat16 instances at those
+shapes (K5 bfloat16 -> bfloat16 and float32 -> bfloat16, bit for bit K7's;
+K6 on a bfloat16 g) and the same step with ``bf16: true``, its kernel and
+plain paths each held to the plain float32 step, K1, K5 and K6 once a
+step in bfloat16.  It also runs the committed trained RN-18
 fixture in float32 and bfloat16, and trains the synthetic config for one
 epoch through the CLI's ``run``, then resumes it.  Then the algebraic and
 RANSAC families, which launch no kernel of the port (``lt_tpu`` computes
@@ -42,8 +46,9 @@ float32 and bfloat16 and RANSACTriangulationNet in float32 (batch 8,
 seeded random weights; the DLT's and RANSAC's launches and device time),
 both on the trained RN-18 backbone fixture (card vs CPU, bfloat16 vs
 float32), the training step of
-experiments/human36m/train/human36m_alg.yaml (batch 8) and one CLI epoch
-of experiments/synthetic/alg_tiny.yaml with its resume.  Last, the
+experiments/human36m/train/human36m_alg.yaml (batch 8, float32 and
+``bf16: true``) and one CLI epoch of experiments/synthetic/alg_tiny.yaml
+with its resume.  Last, the
 dataset configs through the CLI's ``run``: human36m_vol_softmax.yaml
 --eval at its width (val batch 20, float32) on a Human3.6M tree it
 writes from a seed (1000^2 JPEGs, the reference's labels ``.npy``, a
@@ -152,6 +157,10 @@ FIX_ALG_BF16_MAX_MM = 100.0
 SYNTH_YAML = "experiments/synthetic/vol_tiny_2stage.yaml"
 TRAIN_BATCH = 5         # the flagship training config's batch
 TRAIN_STEPS = 3         # timed flagship training steps
+# Timed bfloat16 training steps (flagship and algebraic): a step takes a
+# fifth to a half of the float32 one's time and varies more between
+# steps (host launch gaps under autocast).
+BF16_TRAIN_STEPS = 7
 LOSS_TOL = 1e-5         # kernel-path vs plain-path training loss, relative
 # Kernel-path vs plain-path gradients of the training step: max |diff| over
 # each tensor's max.  The two paths differ only in the unprojection's
@@ -176,6 +185,15 @@ K3 = {"float32": "upsample3d_2x", "bfloat16": "upsample3d_2x_mma"}
 K2_PER_FORWARD = 47     # K2 launches per flagship V2V forward, both configs
 K3_PER_FORWARD = 5      # K3 launches per flagship V2V forward
 TRAIN_KERNELS = ("unproject_agg", "sample_views_t", "sample_views_grad_t")
+# [train fixture bf16]: the bfloat16 kernel path's mean distance from the
+# plain float32 step (loss; relative L2 of each of GRAD_MODULES' gradients)
+# over the plain bfloat16 path's, at most (tests/test_torch_bf16_train.py's
+# rule for the port against lt_tpu), over FIX_BF16_ROTATIONS rotations.
+BF16_STEP_RATIO = 1.5
+FIX_BF16_ROTATIONS = 16
+# The C arguments that carry each training kernel's element types.
+TRAIN_DTYPE_ARGS = {"unproject_agg": (14,), "sample_views_t": (10, 11),
+                    "sample_views_grad_t": (10,)}
 ALT_KERNELS = ("split_bf16", "conv3d_mma_f32", "conv3d_mma", "sample_views",
                "sample_views_grad")
 # The peak each kernel's bound is taken against (default PEAK_F32_FLOPS).
@@ -948,8 +966,9 @@ def nan_checks(batch, geometry, dev):
     ``res3d_block_fused``) in both types, float32 K2 to true float32; K1's
     four aggregations with NaN features inside the maps and with NaN and
     infinities on their edges, also with a masked view, and its softmax of
-    +inf features; K5 and K7 with NaN and infinities on the edges; K6 and
-    K8 with NaN and infinities in g at voxels with taps off the map.
+    +inf features; K5 and K7 with NaN and infinities on the edges (K5 also
+    bfloat16 -> bfloat16); K6 and K8 with NaN and infinities in g at voxels
+    with taps off the map, for float32 and bfloat16 g.
     Raises after the phase, naming every case that failed."""
     import torch
 
@@ -1080,6 +1099,11 @@ def nan_checks(batch, geometry, dev):
             f"edges widened to float32)",
             lambda: sample.sample_views_t(f32v, mv, s),
             lambda: sample.sample_views_t_plain(f32v, mv, s), REL_TOL)
+        if not f32:
+            run(f"sample_views_t NaN / +-inf on the map edges {name} -> "
+                f"{name}",
+                lambda: sample.sample_views_t(fv, mv, s, out_dtype=dt),
+                lambda: sample.sample_views_t_plain(fv, mv, s, dt), tol)
         del interior, edges, pos_inf, fv, f32v
         torch.cuda.empty_cache()
     # K6 and K8: NaN, +inf and -inf in g at voxels with a tap off the map
@@ -1102,9 +1126,11 @@ def nan_checks(batch, geometry, dev):
             lambda: sample.sample_views_grad(gv, mt, shape, s),
             lambda: sample.sample_views_grad_plain(gv, mt, shape, s), REL_TOL)
     gt = g.transpose(1, 2).contiguous()
-    run("sample_views_grad_t NaN / +-inf g off the map",
-        lambda: sample.sample_views_grad_t(gt, mt, shape, s),
-        lambda: sample.sample_views_grad_t_plain(gt, mt, shape, s), REL_TOL)
+    for label, gv in (("float32", gt), ("bfloat16", gt.to(torch.bfloat16))):
+        run(f"sample_views_grad_t NaN / +-inf g off the map ({label} g)",
+            lambda: sample.sample_views_grad_t(gv, mt, shape, s),
+            lambda: sample.sample_views_grad_t_plain(gv, mt, shape, s),
+            REL_TOL)
     del g, gt, gv, off
     torch.cuda.empty_cache()
     failed = [f for f in failed if f]
@@ -1172,27 +1198,76 @@ def scatter_plans(kernel, c, s):
             "direct atomics (0 px)": sample.sample_plan(kernel, c, s, 0)}
 
 
-def train_entry_points(geometry, dev):
-    """K5 and K6 vs plain (rel REL_TOL) at the flagship training shapes, with
-    kernel, plain and library times and the bound, K6 beside its other
-    launch plan (direct atomics only); K5 against K7 and K1 'sum' of one
-    view bit for bit; returns their rows."""
+def _agg_gradient_check(x5, m5, gen, dtype, tol):
+    """The fused aggregation's backward (K5, the softmax VJP, K6; in
+    bfloat16 as lt_tpu's _agg_bwd) against autograd of the plain
+    aggregation on the same ``dtype`` features and cotangent."""
     import torch
+
+    from lt_tpu_torch.ops.kernels import unproject
+
+    b, _, _, _, c = x5.shape
+    s = FLAGSHIP["volume"]
+    mask = torch.ones(b, 4, device=x5.device)
+    cot = torch.randn((b, s ** 3, c), generator=gen,
+                      device=x5.device).to(dtype)
+    grads = []
+    for kernel in (True, False):
+        x = x5.detach().to(dtype).clone().requires_grad_()
+        out = (unproject.sample_views_agg(x, m5, mask, "softmax", s) if kernel
+               else unproject.unproject_agg_plain(x, m5, mask, None,
+                                                  "softmax", s))
+        (out.float() * cot.float()).sum().backward()
+        grads.append(x.grad)
+    err, rel = check(f"sample_views_agg {dtype} gradient", *grads, tol)
+    log(f"  sample_views_agg softmax gradient in {str(dtype)[6:]} (K1, K5, "
+        f"VJP, K6) vs plain autograd: max_abs_err {err:.3e} rel {rel:.3e} "
+        f"(limit {tol})")
+
+
+def train_entry_points(geometry, dev):
+    """[train entry points] and [train entry points bf16]: K5 and K6 at the
+    flagship training shapes against their plain versions, in float32 at
+    REL_TOL and in their bfloat16 instances at [alt entry points]'
+    tolerances for K7 / K8 in the same types (K5 into bfloat16, from
+    bfloat16 and from float32 features, REL_TOL_BF16; K6 on a bfloat16 g,
+    whose dF is float32, REL_TOL and within 1e-5 of K6 on the widened g).
+    K6 beside its other launch plan (direct atomics only).  Bit for bit:
+    K5 = K7 transposed in each type pair, and = each view's K1 'sum' in
+    float32.  The fused aggregation's backward against plain autograd in
+    both types.  Kernel, plain and library times (F.grid_sample and its
+    input gradient; in bfloat16 on bfloat16 features) and the bound.
+    Returns {kernel: {types: row}}."""
+    import torch
+    import torch.nn.functional as F
 
     from lt_tpu_torch.ops.kernels import sample, unproject
 
+    t0 = time.perf_counter()
     b, s, hm, c = TRAIN_BATCH, FLAGSHIP["volume"], FLAGSHIP["heatmap"], 32
-    bv, n = b * 4, FLAGSHIP["volume"] ** 3
+    bv, n = b * 4, s ** 3
+    bf16 = torch.bfloat16
+    log(f"[train entry points] K5 / K6 at batch {b}, 4 views, {hm}^2 x {c} "
+        f"-> {s}^3, tolerance rel {REL_TOL}")
     feats, m, gen, lib_fwd, lib_grad = _sampling_inputs(geometry, dev, 3)
-    g = torch.randn((bv, c, n), generator=gen, device=dev)
-    g_lib = g[:, :, None, :]
     shape = tuple(feats.shape)
+    f16 = feats.to(bf16)
+    f16_nchw = f16.permute(0, 3, 1, 2).contiguous().requires_grad_()
+    grid16 = _library_grid(m, s, hm).to(bf16)
+    lib16 = F.grid_sample(f16_nchw, grid16, align_corners=True)
+    g = torch.randn((bv, c, n), generator=gen, device=dev)
+    g16 = g.to(bf16)
 
-    # K5's sample equals K7's (float32) transposed and each view's K1 'sum'
-    # bit for bit: one function of taps, one ltk_tap order.
+    # K5's sample equals K7's transposed, in each type pair, and each
+    # view's K1 'sum' in float32, bit for bit: one function of taps, one
+    # ltk_tap order.
+    for x, out in ((feats, torch.float32), (f16, bf16), (feats, bf16)):
+        if not torch.equal(sample.sample_views_t(x, m, s, out_dtype=out),
+                           sample.sample_views(x, m, s, out)
+                           .transpose(1, 2)):
+            raise AssertionError(f"sample_views_t {x.dtype} -> {out} != "
+                                 f"sample_views transposed")
     k5 = sample.sample_views_t(feats, m, s)
-    if not torch.equal(sample.sample_views(feats, m, s).transpose(1, 2), k5):
-        raise AssertionError("sample_views_t != sample_views transposed")
     x5, m5 = feats.reshape(b, 4, hm, hm, c), m.reshape(b, 4, 3, 4)
     for view in range(4):
         mask = torch.zeros(b, 4, device=dev)
@@ -1202,64 +1277,88 @@ def train_entry_points(geometry, dev):
                            .transpose(1, 2)):
             raise AssertionError(f"unproject_agg 'sum' of view {view} != "
                                  f"sample_views_t")
-    log("  sample_views_t == sample_views transposed and == unproject_agg "
-        "'sum' of each view: bit for bit")
+    log("  sample_views_t == sample_views transposed (float32, bfloat16 -> "
+        "bfloat16, float32 -> bfloat16) and == unproject_agg 'sum' of each "
+        "view: bit for bit")
     del k5, one
-    # The fused aggregation's backward (K5, the softmax VJP, K6) against
-    # autograd of the plain aggregation, at the same shapes.
-    mask = torch.ones(b, 4, device=dev)
-    cot = torch.randn((b, n, c), generator=gen, device=dev)
-    agg_grads = []
-    for kernel in (True, False):
-        x = x5.clone().requires_grad_()
-        out = (unproject.sample_views_agg(x, m5, mask, "softmax", s) if kernel
-               else unproject.unproject_agg_plain(x, m5, mask, None,
-                                                  "softmax", s))
-        (out * cot).sum().backward()
-        agg_grads.append(x.grad)
-    err, rel = check("sample_views_agg gradient", *agg_grads)
-    log(f"  sample_views_agg softmax gradient (K1, K5, VJP, K6) vs plain "
-        f"autograd: max_abs_err {err:.3e} rel {rel:.3e}")
-    del x5, x, out, cot, agg_grads
+    _agg_gradient_check(x5, m5, gen, torch.float32, REL_TOL)
+    _agg_gradient_check(x5, m5, gen, bf16, REL_TOL_BF16)
     torch.cuda.empty_cache()
 
-    cases = (
-        ("sample_views_t", {"taps from device memory (default)":
-                            sample.sample_plan("sample_views_t", c, s)},
-         lambda plan: sample.sample_views_t(feats, m, s, plan),
-         lambda: sample.sample_views_t_plain(feats, m, s), lib_fwd,
-         4.0 * (feats.numel() + m.numel() + bv * c * n)),
-        ("sample_views_grad_t", scatter_plans("sample_views_grad_t", c, s),
-         lambda plan: sample.sample_views_grad_t(g, m, shape, s, plan),
-         lambda: sample.sample_views_grad_t_plain(g, m, shape, s),
-         lambda: lib_grad(g_lib),
-         4.0 * (g.numel() + m.numel() + feats.numel())))
-    rows = {}
-    for name, variants, run, plain, library, nbytes in cases:
+    k5_plan = {"taps from device memory (default)":
+               sample.sample_plan("sample_views_t", c, s)}
+    k6_plans = scatter_plans("sample_views_grad_t", c, s)
+    cases = [("sample_views_t", "float32", k5_plan,
+              lambda plan: sample.sample_views_t(feats, m, s, plan),
+              lambda: sample.sample_views_t_plain(feats, m, s), lib_fwd,
+              4.0 * (feats.numel() + m.numel() + bv * c * n), REL_TOL,
+              None),
+             ("sample_views_grad_t", "float32", k6_plans,
+              lambda plan: sample.sample_views_grad_t(g, m, shape, s, plan),
+              lambda: sample.sample_views_grad_t_plain(g, m, shape, s),
+              lambda: lib_grad(g[:, :, None]),
+              4.0 * (g.numel() + m.numel() + feats.numel()), REL_TOL, None)]
+    cases += [("sample_views_t", f"{tname} -> bfloat16", k5_plan,
+               lambda plan, x=x: sample.sample_views_t(x, m, s, plan, bf16),
+               lambda x=x: sample.sample_views_t_plain(x, m, s, bf16),
+               library, x.element_size() * x.numel() + 4.0 * m.numel()
+               + 2.0 * bv * c * n, REL_TOL_BF16, None)
+              for tname, x, library in (
+                  ("bfloat16", f16, lambda: F.grid_sample(
+                      f16_nchw.detach(), grid16, align_corners=True)),
+                  ("float32", feats, lib_fwd))]
+    cases.append((
+        "sample_views_grad_t", "g bfloat16", k6_plans,
+        lambda plan: sample.sample_views_grad_t(g16, m, shape, s, plan),
+        lambda: sample.sample_views_grad_t_plain(g16, m, shape, s),
+        lambda: torch.autograd.grad(lib16, f16_nchw, g16[:, :, None],
+                                    retain_graph=True),
+        2.0 * g16.numel() + 4.0 * (m.numel() + feats.numel()), REL_TOL,
+        lambda: sample.sample_views_grad_t(g16.float(), m, shape, s)))
+    # Operations counted as if all four taps of every voxel were in the map
+    # (projection ~30, then 2 per tap and channel); the bytes bound is ten
+    # times larger and decides either way.
+    ops = bv * n * (30.0 + 8.0 * c)
+    rows = {"sample_views_t": {}, "sample_views_grad_t": {}}
+    for name, types, plans, run, plain, library, nbytes, tol, wide in cases:
+        if types != "float32" and not any(
+                t != "float32" for r in rows.values() for t in r):
+            log(f"[train entry points bf16] K5 bfloat16 -> bfloat16 and "
+                f"float32 -> bfloat16, K6 on a bfloat16 g, the same shapes; "
+                f"tolerance rel {REL_TOL_BF16} (bfloat16 output), {REL_TOL} "
+                f"(K6's float32 dF)")
         ref = plain()
-        # Operations counted as if all four taps of every voxel were in the
-        # map (projection ~30, then 2 per tap and channel); the bytes bound
-        # is ten times larger and decides either way.
-        b_ms, b_by = bound(nbytes, bv * n * (30.0 + 8.0 * c))
+        widened = wide() if wide else None
+        b_ms, b_by = bound(nbytes, ops)
         times = {}
-        for label, plan in variants.items():
-            err_v, rel_v = check(f"{name} {label}", run(plan), ref)
-            times[label] = (cuda_ms(functools.partial(run, plan)), err_v,
-                            rel_v)
-        del ref
+        for label, plan in plans.items():
+            got = run(plan)
+            err, rel = check(f"{name} {types} {label}", got, ref, tol)
+            if widened is not None:
+                check(f"{name} {types} {label} vs the widened g", got,
+                      widened, 1e-5)
+            del got
+            times[label] = (cuda_ms(functools.partial(run, plan)), err, rel)
+        del ref, widened
         torch.cuda.synchronize()
         plain_ms, lib_ms = cuda_ms(plain), cuda_ms(library)
         (ms, err, rel), *_ = times.values()
-        log(f"  {name}({bv},{hm},{hm},{c},S={s}): plain {plain_ms:.4f} ms  "
-            f"library {lib_ms:.4f} ms  bound {b_ms:.4f} ms ({b_by})")
+        log(f"  {name}({bv},{hm},{hm},{c},S={s}) {types}: plain "
+            f"{plain_ms:.4f} ms  library {lib_ms:.4f} ms  bound {b_ms:.4f} "
+            f"ms ({b_by})")
         for label, (t, e, r) in times.items():
-            log(f"    {label} (plan {variants[label]}): kernel {t:.4f} ms, "
+            log(f"    {label} (plan {plans[label]}): kernel {t:.4f} ms, "
                 f"{100 * b_ms / t:.1f} % of the bound, {lib_ms / t:.2f}x "
                 f"the library; max_abs_err {e:.3e} rel {r:.3e}")
-        rows[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                      "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms}
-    del feats, g, g_lib, lib_fwd, lib_grad, cases
+        rows[name][types] = {
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms}
+        if len(times) > 1 and types != "float32":
+            rows[name][types]["plans"] = {k: t for k, (t, _, _) in
+                                          times.items()}
+    del feats, f16, f16_nchw, lib16, g, g16, cases, lib_fwd, lib_grad
     torch.cuda.empty_cache()
+    log(f"  the phases took {time.perf_counter() - t0:.1f} s")
     return rows
 
 
@@ -1530,16 +1629,71 @@ def alt_entry_points(batch, geometry, dev):
     return totals, rows
 
 
+def _loss_and_grads(model, batch, config, criterion):
+    """One training forward and backward of ``model`` on ``batch``: (the
+    loss, the gradients of GRAD_MODULES' parameters less the biases that
+    feed a BatchNorm, whose gradient is 0 in exact arithmetic)."""
+    from lt_tpu_torch.engine import steps
+    from lt_tpu_torch.models.batchnorm import bn_fed_biases
+
+    model.train()
+    model.zero_grad(set_to_none=True)
+    out = steps.model_outputs(model, batch, config)
+    total, _ = steps.compute_losses(criterion, config, out, batch)
+    total.backward()
+    skip = bn_fed_biases(model)
+    grads = {k: p.grad.detach().clone()
+             for k, p in model.named_parameters()
+             if k.startswith(GRAD_MODULES) and k not in skip}
+    return total.item(), grads
+
+
+def _grad_l2(grads, ref, prefix):
+    """Relative L2 distance of ``grads`` from ``ref`` over the tensors
+    under ``prefix``."""
+    names = [k for k in ref if k.startswith(prefix)]
+    return (sum(float((grads[k] - ref[k]).double().square().sum())
+                for k in names)
+            / sum(float(ref[k].double().square().sum())
+                  for k in names)) ** 0.5
+
+
+def _timed_steps(model, optimizer, criterion, config, batch,
+                 n=TRAIN_STEPS):
+    """``n`` optimizer steps after the launch counts were set to 0:
+    (median ms, all ms, losses, launches, peak GiB since the counts were
+    set to 0)."""
+    import numpy as np
+    import torch
+
+    from lt_tpu_torch.engine import steps
+    from lt_tpu_torch.ops.kernels import _build
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()
+    times, losses = [], []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(steps.train_step(model, optimizer, criterion, config,
+                                       batch)["total_loss"])
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    launches = dict(_build.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    return float(np.median(times)), times, losses, launches, peak
+
+
 def train_flagship(dev):
     """The flagship training step: kernel path vs plain path from the same
     weights and rotations, then TRAIN_STEPS timed optimizer steps on the
-    kernel path.  Returns the kernel launches of those steps."""
+    kernel path.  Returns the kernel launches of those steps and (ms,
+    peak GiB)."""
     import numpy as np
     import torch
 
     from lt_tpu_torch.engine import factory, steps
-    from lt_tpu_torch.models.batchnorm import bn_fed_biases
-    from lt_tpu_torch.ops.kernels import _build
     from lt_tpu_torch.utils import cfg
     from lt_tpu_torch.utils.example import example_train_batch
 
@@ -1554,23 +1708,11 @@ def train_flagship(dev):
         b, config.image_shape[0], 17, seed=3).items()}
     criterion = factory.make_criterion(config)
 
-    def loss_and_grads(model):
-        model.train()
-        model.zero_grad(set_to_none=True)
-        out = steps.model_outputs(model, batch, config)
-        total, _ = steps.compute_losses(criterion, config, out, batch)
-        total.backward()
-        skip = bn_fed_biases(model)
-        grads = {k: p.grad.detach().clone()
-                 for k, p in model.named_parameters()
-                 if k.startswith(GRAD_MODULES) and k not in skip}
-        return total.item(), grads
-
     model = factory.make_model(config, device=dev, seed=0)
     plain = factory.make_model(config, device=dev, use_kernels=False, seed=0)
     plain.load_state_dict(model.state_dict())
-    loss_k, grads_k = loss_and_grads(model)
-    loss_p, grads_p = loss_and_grads(plain)
+    loss_k, grads_k = _loss_and_grads(model, batch, config, criterion)
+    loss_p, grads_p = _loss_and_grads(plain, batch, config, criterion)
     del plain
     torch.cuda.empty_cache()
     loss_rel = abs(loss_k - loss_p) / abs(loss_p)
@@ -1581,10 +1723,7 @@ def train_flagship(dev):
     for prefix in GRAD_MODULES:
         names = [k for k in grads_p if k.startswith(prefix)]
         worst = max(rel_err(grads_k[k], grads_p[k])[1] for k in names)
-        l2 = (sum(float((grads_k[k] - grads_p[k]).double().square().sum())
-                  for k in names)
-              / sum(float(grads_p[k].double().square().sum())
-                    for k in names)) ** 0.5
+        l2 = _grad_l2(grads_k, grads_p, prefix)
         log(f"  gradients of {prefix}: kernel vs plain max rel err "
             f"{worst:.3e} (limit {STEP_GRAD_TOL}), relative L2 {l2:.3e}")
         if worst > STEP_GRAD_TOL:
@@ -1593,20 +1732,8 @@ def train_flagship(dev):
 
     optimizer = factory.make_optimizer(config, model)
     steps.train_step(model, optimizer, criterion, config, batch)  # warm-up
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    _build.reset_launches()
-    times, losses = [], []
-    for _ in range(TRAIN_STEPS):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        losses.append(steps.train_step(model, optimizer, criterion, config,
-                                       batch)["total_loss"])
-        torch.cuda.synchronize()
-        times.append((time.perf_counter() - t0) * 1e3)
-    launches = dict(_build.LAUNCHES)
-    peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    ms = float(np.median(times))
+    ms, times, losses, launches, peak = _timed_steps(
+        model, optimizer, criterion, config, batch)
     log(f"  launches over {TRAIN_STEPS} steps: {launches}")
     for k in TRAIN_KERNELS:
         if launches[k] != TRAIN_STEPS:
@@ -1620,7 +1747,219 @@ def train_flagship(dev):
         f"peak memory {peak:.2f} GiB  losses {[round(x, 4) for x in losses]}")
     del model, optimizer, batch
     torch.cuda.empty_cache()
+    return launches, (ms, peak)
+
+
+def train_flagship_bf16(dev, smi, f32):
+    """[train flagship bf16]: TRAIN_YAML with bf16: true at its batch, seed
+    0, random weights.  A recorded step launches K1, K5 and K6 once each,
+    with bfloat16 element types (their C type arguments), and no other
+    kernel; then BF16_TRAIN_STEPS timed steps: finite losses, ms,
+    samples/s and peak memory beside the float32 step's ``f32`` (ms, GiB)
+    of this run.  (The bfloat16 step's distance from float32 is held on
+    the trained fixture, [train fixture bf16]: at random weights both
+    paths lie 0.5-1.4 from float32.)  Returns the timed steps'
+    launches."""
+    import numpy as np
+    import torch
+
+    from lt_tpu_torch.engine import factory, steps
+    from lt_tpu_torch.utils import cfg
+    from lt_tpu_torch.utils.example import example_train_batch
+
+    t0 = time.perf_counter()
+    b = TRAIN_BATCH
+    config = cfg.load_config(str(ROOT / TRAIN_YAML), {
+        "model.backbone.init_weights": False, "bf16": True})
+    log(f"[train flagship bf16] {TRAIN_YAML} + bf16: true, batch {b}, seed "
+        f"0, random weights")
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in example_train_batch(
+        b, config.image_shape[0], 17, seed=3).items()}
+    criterion = factory.make_criterion(config)
+    model = factory.make_model(config, device=dev, seed=0)
+    optimizer = factory.make_optimizer(config, model)
+    calls = record_launches(lambda: steps.train_step(     # the warm-up step
+        model, optimizer, criterion, config, batch))
+    for k, idx in TRAIN_DTYPE_ARGS.items():
+        found = [args for _, name, args in calls if name == k]
+        if len(found) != 1 or not all(found[0][i] == 1 for i in idx):
+            raise AssertionError(f"[train flagship bf16] {k}: launches "
+                                 f"{len(found)}, type arguments "
+                                 f"{[[a[i] for i in idx] for a in found]}, "
+                                 f"want one launch in bfloat16")
+    if any(name not in TRAIN_KERNELS for _, name, _ in calls):
+        raise AssertionError(f"[train flagship bf16] other kernels launched: "
+                             f"{sorted({n for _, n, _ in calls})}")
+    log(f"  the recorded step: {', '.join(TRAIN_KERNELS)} one launch each, "
+        f"bfloat16 (type arguments {TRAIN_DTYPE_ARGS})")
+    ms, times, losses, launches, peak = _timed_steps(
+        model, optimizer, criterion, config, batch, BF16_TRAIN_STEPS)
+    for k in TRAIN_KERNELS:
+        if launches[k] != BF16_TRAIN_STEPS:
+            raise AssertionError(f"{k}: {launches[k]} launches in "
+                                 f"{BF16_TRAIN_STEPS} bfloat16 training "
+                                 f"steps")
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"non-finite bfloat16 training loss: {losses}")
+    log(f"  bf16 train step ms (median of {BF16_TRAIN_STEPS}): {ms:.1f}  "
+        f"all: {[round(t, 1) for t in times]}  samples/s: "
+        f"{b / ms * 1e3:.2f}  peak memory {peak:.2f} GiB  losses "
+        f"{[round(x, 4) for x in losses]}; float32 in this run {f32[0]:.1f} "
+        f"ms, {b / f32[0] * 1e3:.2f} samples/s, {f32[1]:.2f} GiB; on {smi}; "
+        f"the phase took {time.perf_counter() - t0:.1f} s")
+    del model, optimizer, batch
+    torch.cuda.empty_cache()
     return launches
+
+
+def _fixture_train_batch(dev):
+    """The trained fixture's training batch: two poses of the synthetic set
+    (128^2, 4 views), as tests/test_torch_bf16_train.py builds it."""
+    import numpy as np
+    import torch
+
+    from lt_tpu_torch.data.synthetic import SyntheticMultiViewDataset
+
+    ds = SyntheticMultiViewDataset(n_samples=2, n_views=4, image_size=128)
+    val = [ds[i] for i in range(2)]
+    kp = np.stack([x["keypoints_3d"] for x in val]).astype(np.float32)
+    batch = {"images": np.stack([np.stack(x["images"]) for x in val]),
+             "proj_matrices": np.stack([np.stack(x["proj_matrices"])
+                                        for x in val]),
+             "keypoints_3d": kp, "keypoints_validity": kp[..., 3:].copy(),
+             "view_mask": np.ones((2, 4), np.float32)}
+    return {k: torch.from_numpy(np.asarray(v, np.float32)).to(dev)
+            for k, v in batch.items()}
+
+
+def _fixture_unprojection(model, batch, config):
+    """The inputs the kernel path's fused aggregation gets in one training
+    forward of ``model``: (features, m, view_mask, grid size)."""
+    from lt_tpu_torch.engine import steps
+    from lt_tpu_torch.ops.kernels import unproject
+
+    seen = []
+    agg = unproject.sample_views_agg
+
+    def spy(features, m, view_mask, method, grid_size):
+        seen.append((features.detach(), m.detach(), view_mask.detach(),
+                     grid_size))
+        return agg(features, m, view_mask, method, grid_size)
+
+    unproject.sample_views_agg = spy
+    try:
+        steps.model_outputs(model, batch, config)
+    finally:
+        unproject.sample_views_agg = agg
+    return seen[0]
+
+
+def train_fixture_bf16(dev):
+    """[train fixture bf16]: the bfloat16 training step on the committed
+    trained fixture (SYNTH_YAML, vol_rn18_synth.npz: RN-18, 128^2, 4 views,
+    32^3, batch 2), where rounding is not amplified a million-fold as at
+    random weights.  For each of FIX_BF16_ROTATIONS pairs of cuboid
+    rotations (seeded): the plain float32 step (use_kernels=False) as the
+    reference, the kernel path and the plain path in bfloat16.  The means
+    over the rotations of each distance (the loss, relative; each of
+    GRAD_MODULES' gradients, relative L2): the kernel path's at most
+    BF16_STEP_RATIO times the plain path's.  One step's distance is one
+    draw of a wide distribution (on an H100 each path's process_features
+    gradient lay 0.07-0.40 from float32 across the 16 rotations, the
+    kernel path the further in 7), so the rule holds means.  The kernel path
+    launches K1, K5 and K6 once a step.  Then, on the fixture's own
+    features: K1's bfloat16 volume and the fused backward's dF for a
+    bfloat16 cotangent against their plain versions on the CPU
+    (REL_TOL_BF16)."""
+    import numpy as np
+    import torch
+
+    from lt_tpu_torch.engine import factory
+    from lt_tpu_torch.ops.kernels import _build, unproject
+    from lt_tpu_torch.utils import cfg
+    from lt_tpu_torch.utils.weights import (load_npz_variables,
+                                            volumetric_state_dict)
+
+    t0 = time.perf_counter()
+    over = {"model.init_weights": False, "model.backbone.init_weights": False}
+    configs = {dt: cfg.load_config(str(ROOT / SYNTH_YAML),
+                                   {**over, "bf16": dt == "bfloat16"})
+               for dt in ("float32", "bfloat16")}
+    state = volumetric_state_dict(load_npz_variables(
+        str(ROOT / "tests" / "fixtures" / "vol_rn18_synth.npz")), 18)
+    paths = {"plain float32": ("float32", False),
+             "kernel bfloat16": ("bfloat16", "fused"),
+             "plain bfloat16": ("bfloat16", False)}
+    models = {label: factory.make_model(configs[dt], device=dev,
+                                        use_kernels=kernels)
+              for label, (dt, kernels) in paths.items()}
+    criterion = factory.make_criterion(configs["float32"])
+    batch = _fixture_train_batch(dev)
+    rotations = np.random.RandomState(0).uniform(
+        0.0, 2.0 * np.pi, (FIX_BF16_ROTATIONS, 2)).astype(np.float32)
+    log(f"[train fixture bf16] {SYNTH_YAML} on vol_rn18_synth.npz, batch 2, "
+        f"{FIX_BF16_ROTATIONS} rotation pairs (seed 0): the kernel path and "
+        f"the plain path in bfloat16 against the plain float32 step")
+    what = ("loss",) + GRAD_MODULES
+    dist = {"kernel bfloat16": [], "plain bfloat16": []}
+    _build.reset_launches()
+    for rot in rotations:
+        batch["rotation_thetas"] = torch.from_numpy(rot).to(dev)
+        res = {}
+        for label, model in models.items():
+            model.load_state_dict(state)      # the fixture's statistics too
+            res[label] = _loss_and_grads(model, batch,
+                                         configs[paths[label][0]], criterion)
+        loss32, grads32 = res.pop("plain float32")
+        for label, (loss, grads) in res.items():
+            if not (np.isfinite(loss) and all(bool(g.isfinite().all())
+                                              for g in grads.values())):
+                raise AssertionError(f"[train fixture bf16] {label}: "
+                                     f"non-finite loss or gradients")
+            dist[label].append([abs(loss - loss32) / abs(loss32)] + [
+                _grad_l2(grads, grads32, prefix) for prefix in GRAD_MODULES])
+    launches = {k: _build.LAUNCHES[k] for k in TRAIN_KERNELS}
+    if any(n != FIX_BF16_ROTATIONS for n in launches.values()):
+        raise AssertionError(f"[train fixture bf16] launches {launches} in "
+                             f"{FIX_BF16_ROTATIONS} kernel-path steps")
+    for i, name in enumerate(what):
+        k, p = (np.asarray(dist[label])[:, i] for label in
+                ("kernel bfloat16", "plain bfloat16"))
+        log(f"  {name}: mean distance from the plain float32 step, kernel "
+            f"path {k.mean():.4e}, plain path {p.mean():.4e} (ratio "
+            f"{k.mean() / p.mean():.3f}, limit {BF16_STEP_RATIO}); per "
+            f"rotation kernel {np.round(k, 4).tolist()} plain "
+            f"{np.round(p, 4).tolist()}")
+        if k.mean() > BF16_STEP_RATIO * p.mean():
+            raise AssertionError(f"[train fixture bf16] {name}: the kernel "
+                                 f"path's mean {k.mean():.4e} from float32, "
+                                 f"the plain path's {p.mean():.4e}")
+
+    # K1 and the fused backward on the fixture's own features, card
+    # against the CPU's plain versions.
+    model = models["kernel bfloat16"]
+    model.load_state_dict(state)
+    features, m, view_mask, s = _fixture_unprojection(
+        model, batch, configs["bfloat16"])
+    cot = torch.randn((features.shape[0], s ** 3, features.shape[-1]),
+                      generator=torch.Generator().manual_seed(0)
+                      ).to(torch.bfloat16)
+    got = []
+    for d in (dev, torch.device("cpu")):
+        x = features.to(d).clone().requires_grad_()
+        out = unproject.sample_views_agg(x, m.to(d), view_mask.to(d),
+                                         "softmax", s)
+        out.backward(cot.to(d))
+        got.append((out.detach().cpu(), x.grad.cpu()))
+    for i, name in enumerate(("K1 volume", "fused backward dF")):
+        err, rel = check(f"[train fixture bf16] {name}", got[0][i],
+                         got[1][i], REL_TOL_BF16)
+        log(f"  {name} on the fixture's features, card vs the CPU's plain "
+            f"versions: max_abs_err {err:.3e} rel {rel:.3e} (limit "
+            f"{REL_TOL_BF16})")
+    del models, model, features, got
+    torch.cuda.empty_cache()
+    log(f"  the phase took {time.perf_counter() - t0:.1f} s")
 
 
 def train_cli(dev):
@@ -1963,65 +2302,17 @@ def alg_fixture(dev, smi):
 
 
 def alg_train(dev, smi):
-    """[alg train]: the training step of ALG_TRAIN_YAML at its batch (8),
-    float32, seeded random weights: the median of TRAIN_STEPS timed steps
-    after a warm-up, samples/s and peak memory; finite losses and
-    gradients, the parameters moved, no kernel of the port launched.  Then
-    ALG_TINY_YAML one epoch through the CLI's ``run`` and a resume."""
+    """[alg train]: the training step of ALG_TRAIN_YAML (alg_train_step),
+    then ALG_TINY_YAML one epoch through the CLI's ``run`` and a resume.
+    Returns the step's (ms, peak GiB)."""
     import tempfile
 
     import numpy as np
-    import torch
 
     from lt_tpu_torch.engine import checkpoint as ckpt
-    from lt_tpu_torch.engine import factory, steps
     from lt_tpu_torch.engine.train import run
-    from lt_tpu_torch.ops.kernels import _build
-    from lt_tpu_torch.utils import cfg
-    from lt_tpu_torch.utils.example import example_train_batch
 
-    config = cfg.load_config(str(ROOT / ALG_TRAIN_YAML),
-                             {"model.backbone.init_weights": False})
-    b = config.opt.batch_size
-    model = factory.make_model(config, device=dev, seed=0)
-    optimizer = factory.make_optimizer(config, model)
-    criterion = factory.make_criterion(config)
-    batch = {k: torch.from_numpy(v).to(dev) for k, v in example_train_batch(
-        b, config.image_shape[0], 17, seed=3).items()}
-    before = {k: p.detach().clone() for k, p in model.named_parameters()}
-    steps.train_step(model, optimizer, criterion, config, batch)  # warm-up
-    grads = [p.grad for p in model.parameters() if p.grad is not None]
-    if not grads or not all(bool(g.isfinite().all()) for g in grads):
-        raise AssertionError("[alg train] missing or non-finite gradients")
-    moved = sum(not torch.equal(p, before[k])
-                for k, p in model.named_parameters())
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    _build.reset_launches()
-    times, losses = [], []
-    for _ in range(TRAIN_STEPS):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        losses.append(steps.train_step(model, optimizer, criterion, config,
-                                       batch)["total_loss"])
-        torch.cuda.synchronize()
-        times.append((time.perf_counter() - t0) * 1e3)
-    _no_kernel_launched("the algebraic training step")
-    peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    ms = float(np.median(times))
-    log(f"[alg train] {ALG_TRAIN_YAML}: RN-{config.model.backbone.num_layers}"
-        f" {config.image_shape[0]}^2 x4 views, confidences, batch {b}, "
-        f"float32, seed 0, random weights, on {smi}: step ms (median of "
-        f"{TRAIN_STEPS}) {ms:.1f}  all {[round(t, 1) for t in times]}  "
-        f"samples/s {b / ms * 1e3:.2f}  peak memory {peak:.2f} GiB  losses "
-        f"{[round(x, 3) for x in losses]}; {moved} of "
-        f"{len(before)} parameter tensors moved in the first step")
-    if not np.isfinite(losses).all() or moved < len(before) // 2:
-        raise AssertionError(f"[alg train] losses {losses}, {moved} tensors "
-                             f"moved")
-    del model, optimizer, batch, before, grads
-    torch.cuda.empty_cache()
-
+    f32 = alg_train_step(dev, smi)
     with tempfile.TemporaryDirectory(dir=ROOT / "build") as logdir:
         t0 = time.perf_counter()
         metric = run(str(ROOT / ALG_TINY_YAML), logdir + "/a", max_epochs=1,
@@ -2047,6 +2338,65 @@ def alg_train(dev, smi):
             f"total_loss {train[0]:.3f} -> {train[-1]:.3f}, val MPJPE rel "
             f"{metric:.2f} mm, checkpoint {Path(latest).name}; resumed at "
             f"step {steps_b[0]} and ran epoch 1")
+    return f32
+
+
+def alg_train_step(dev, smi, dtype="float32", f32=None):
+    """The training step of ALG_TRAIN_YAML at its batch (8), seeded random
+    weights, in ``dtype``: [alg train] in float32, [alg train bf16] with
+    bf16: true beside ``f32`` (the float32 step's ms, peak GiB of this
+    run).  The median of TRAIN_STEPS (bfloat16: BF16_TRAIN_STEPS) timed
+    steps after a warm-up, samples/s and peak memory; finite losses and
+    float32 gradients of the float32 parameters, the parameters moved, no
+    kernel of the port launched.  Returns (ms, peak GiB)."""
+    import numpy as np
+    import torch
+
+    from lt_tpu_torch.engine import factory, steps
+    from lt_tpu_torch.utils import cfg
+    from lt_tpu_torch.utils.example import example_train_batch
+
+    t0 = time.perf_counter()
+    bf16 = dtype == "bfloat16"
+    what = "[alg train bf16]" if bf16 else "[alg train]"
+    config = cfg.load_config(str(ROOT / ALG_TRAIN_YAML),
+                             {"model.backbone.init_weights": False,
+                              "bf16": bf16})
+    b = config.opt.batch_size
+    model = factory.make_model(config, device=dev, seed=0)
+    optimizer = factory.make_optimizer(config, model)
+    criterion = factory.make_criterion(config)
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in example_train_batch(
+        b, config.image_shape[0], 17, seed=3).items()}
+    before = {k: p.detach().clone() for k, p in model.named_parameters()}
+    steps.train_step(model, optimizer, criterion, config, batch)  # warm-up
+    grads = [p.grad for p in model.parameters() if p.grad is not None]
+    if not grads or not all(bool(g.isfinite().all())
+                            and g.dtype == torch.float32 for g in grads):
+        raise AssertionError(f"{what} missing, non-finite or not float32 "
+                             f"gradients")
+    moved = sum(not torch.equal(p, before[k])
+                for k, p in model.named_parameters())
+    ms, times, losses, _, peak = _timed_steps(
+        model, optimizer, criterion, config, batch,
+        BF16_TRAIN_STEPS if bf16 else TRAIN_STEPS)
+    _no_kernel_launched(f"the algebraic training step{' (bf16)' * bf16}")
+    log(f"{what} {ALG_TRAIN_YAML}{' + bf16: true' * bf16}: "
+        f"RN-{config.model.backbone.num_layers} {config.image_shape[0]}^2 x4 "
+        f"views, confidences, batch {b}, "
+        f"{'bfloat16' if bf16 else 'float32'}, seed 0, random weights, on "
+        f"{smi}: step ms (median of {len(times)}) {ms:.1f}  all "
+        f"{[round(t, 1) for t in times]}  samples/s {b / ms * 1e3:.2f}  peak "
+        f"memory {peak:.2f} GiB  losses {[round(x, 3) for x in losses]}; "
+        f"{moved} of {len(before)} parameter tensors moved in the first step"
+        + (f"; float32 in this run {f32[0]:.1f} ms, {f32[1]:.2f} GiB; the "
+           f"phase took {time.perf_counter() - t0:.1f} s" if bf16 else ""))
+    if not np.isfinite(losses).all() or moved < len(before) // 2:
+        raise AssertionError(f"{what} losses {losses}, {moved} tensors "
+                             f"moved")
+    del model, optimizer, batch, before, grads
+    torch.cuda.empty_cache()
+    return ms, peak
 
 
 # ---------------------------------------------------------------------------
@@ -3035,22 +3385,26 @@ def main(argv=None) -> int:
     del kps, im_v, pj_v, gt_v
     torch.cuda.empty_cache()
 
-    # Phase 7: the training kernels at the flagship training shapes.
-    log(f"[train entry points] K5 / K6 at batch {TRAIN_BATCH}, 4 views, "
-        f"{fl['heatmap']}^2 x 32 -> {fl['volume']}^3, tolerance rel "
-        f"{REL_TOL}")
+    # Phase 7: the training kernels at the flagship training shapes, in
+    # float32 and in their bfloat16 instances.
     train_rows = train_entry_points(geometry, dev)
 
     # Phase 8: the flagship training step (kernel path vs plain path, then
-    # timed on the kernel path).
-    train_launches = train_flagship(dev)
-    if any(train_launches[k] for k in ("conv3d_mma", "conv3d_mma_f32",
-                                       "split_bf16")):
-        raise AssertionError(f"the training step launched K2: "
-                             f"{train_launches}")
+    # timed on the kernel path), in float32 and with bf16: true.
+    train_launches, train_f32 = train_flagship(dev)
+    train_launches16 = train_flagship_bf16(dev, smi, train_f32)
+    train_fixture_bf16(dev)
+    for launches_, what in ((train_launches, "float32"),
+                            (train_launches16, "bfloat16")):
+        if any(launches_[k] for k in ("conv3d_mma", "conv3d_mma_f32",
+                                      "split_bf16")):
+            raise AssertionError(f"the {what} training step launched K2: "
+                                 f"{launches_}")
     for name in ("sample_views_t", "sample_views_grad_t"):
-        rows.append(row(name, train_rows[name]))
+        rows.append(row(name, train_rows[name].pop("float32")))
+        rows[-1]["types"] = train_rows[name]
     add_path("train", {k: train_launches[k] for k in TRAIN_KERNELS})
+    add_path("train_bf16", {k: train_launches16[k] for k in TRAIN_KERNELS})
 
     # Phase 9: the CLI's run on the synthetic config, one epoch, then resume.
     train_cli(dev)
@@ -3060,7 +3414,7 @@ def main(argv=None) -> int:
     alg_flagship(dev, smi, images, proj)
     ransac_flagship(dev, smi, images, proj)
     alg_fixture(dev, smi)
-    alg_train(dev, smi)
+    alg_train_step(dev, smi, "bfloat16", alg_train(dev, smi))
 
     # Phase 11: the dataset configs through the CLI's run, at their width.
     per_forward = {k: launches[k] // REQUESTS

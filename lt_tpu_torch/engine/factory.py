@@ -31,9 +31,11 @@ def make_model(config, device="cuda", use_kernels="fused", seed: int = 0):
     ``use_kernels`` (the volumetric model's only: the algebraic and RANSAC
     models launch no kernel of the port): ``"fused"``, ``"conv"`` or
     ``False`` (``models/v2v.py``).  ``bf16: true`` in the config (top level
-    or under ``model``) builds the bfloat16 eval model, as in ``lt_tpu``;
-    training it raises ``NotImplementedError``: the port trains in
-    float32.  ``opt.remat`` recomputes the backbone's (and V2V's) blocks in
+    or under ``model``) computes in bfloat16, as in ``lt_tpu``
+    (``lt_tpu/engine/factory.py:37-43``), in eval and in training: the
+    parameters stay float32 (the master weights, which Adam updates from
+    float32 gradients and checkpoints save), the convolutions run in
+    bfloat16.  ``opt.remat`` recomputes the backbone's (and V2V's) blocks in
     the backward."""
     m = config.model
     bf16 = bool(config.get("bf16", m.get("bf16", False)))

@@ -9,6 +9,7 @@ is ``config.model.name``: only 'vol' takes a pelvis and rotations.
 
 from __future__ import annotations
 
+import functools
 from typing import Dict, Optional
 
 import torch
@@ -34,6 +35,39 @@ def model_outputs(model, batch: Dict[str, torch.Tensor], config,
                  view_mask=batch.get("view_mask"),
                  rotation_thetas=batch.get("rotation_thetas"),
                  generator=generator)
+
+
+@functools.lru_cache(maxsize=None)
+def cpu_bf16_conv3d_fault() -> Optional[str]:
+    """None where the CPU's bfloat16 ``conv3d`` weight gradient (under
+    autocast, as V2V trains) is right at V2V's 2^3 level (batch 2, 128
+    channels, k=3, padding 1), else how far off it is.  PyTorch 2.11's is
+    wrong there, by another amount on each call and on any thread count
+    (1^3 and 4^3 are right), and made a V2V weight gradient of a CPU
+    training step huge or its gradients' norm NaN; torch 2.13's is right
+    (relative error 3.4e-3)."""
+    gen = torch.Generator().manual_seed(0)
+    x, gy = (torch.randn((2, 128, 2, 2, 2), generator=gen)
+             .to(torch.bfloat16) for _ in range(2))
+    ref = torch.nn.grad.conv3d_weight(x.double(), (128, 128, 3, 3, 3),
+                                      gy.double(), padding=1)
+    worst = 0.0
+    for _ in range(3):              # the faulty kernel differs call by call
+        w = torch.zeros(ref.shape, requires_grad=True)
+        with torch.autocast("cpu", dtype=torch.bfloat16):
+            y = torch.nn.functional.conv3d(x, w, padding=1)
+        y.backward(gy.to(y.dtype))
+        err = (w.grad.double() - ref).abs().max() / ref.abs().max()
+        worst = max(worst, float(err.nan_to_num(float("inf"))))
+    if worst <= 0.05:
+        return None
+    return (f"relative error {worst:.3e} against float64, whose max "
+            f"|grad| is {float(ref.abs().max()):.3e}")
+
+
+def _bf16(config) -> bool:
+    """``bf16: true`` at the config's top level or under ``model``."""
+    return bool(config.get("bf16", config.model.get("bf16", False)))
 
 
 def _single_view_relative(kp_pred, kp_gt, base_joint: int):
@@ -102,7 +136,22 @@ def train_step(model, optimizer, criterion, config,
     loss that no parameter reaches (RANSAC's hard argmax) has gradients of
     0, as in ``lt_tpu``: the step then updates only the BatchNorm
     statistics.
+
+    ``bf16: true`` on the CPU: the volumetric model's step raises
+    ``RuntimeError`` where :func:`cpu_bf16_conv3d_fault` finds this
+    torch's bfloat16 ``conv3d`` weight gradient wrong, and any step whose
+    gradients are not finite (their norm NaN or infinite) raises
+    ``FloatingPointError`` before Adam would write them into the weights.
     """
+    if _bf16(config) and config.model.name == "vol" and not any(
+            p.is_cuda for p in model.parameters()):
+        fault = cpu_bf16_conv3d_fault()
+        if fault:
+            raise RuntimeError(
+                f"bf16: true on the CPU: torch {torch.__version__}'s "
+                f"bfloat16 conv3d weight gradient is wrong at V2V's 2^3 "
+                f"level ({fault}); train in float32 on the CPU, or on the "
+                f"card")
     model.train()
     out = model_outputs(model, batch, config, generator)
     total, metrics = compute_losses(criterion, config, out, batch)
@@ -116,6 +165,12 @@ def train_step(model, optimizer, criterion, config,
     lr = config.opt.lr
     norm = torch.nn.utils.get_total_norm(
         [p.grad for p in params if p.grad is not None])
+    if (_bf16(config) and not norm.is_cuda
+            and not bool(torch.isfinite(norm))):
+        raise FloatingPointError(
+            f"bf16: true on the CPU: the gradients' norm is {float(norm)}; "
+            f"the step is refused (torch {torch.__version__}: see "
+            f"lt_tpu_torch.engine.steps.train_step)")
     if config.opt.get("grad_clip") is not None:
         max_norm = config.opt.grad_clip / lr
         torch.nn.utils.clip_grads_with_norm_(params, max_norm, norm)

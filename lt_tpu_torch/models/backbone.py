@@ -13,9 +13,11 @@ variables with ``lt_tpu.utils.torch_import``.  The convolutions are
 PyTorch's own (cuDNN on the card): they are XLA convolutions, not Pallas
 kernels, in ``lt_tpu``.  Input NCHW.
 
-``compute_dtype=torch.bfloat16`` (eval only) follows ``lt_tpu``'s bfloat16
-compute: parameters and BatchNorm statistics stay float32, every
-convolution and transposed convolution runs in bfloat16, the confidence
+``compute_dtype=torch.bfloat16`` follows ``lt_tpu``'s bfloat16 compute, in
+eval and in training (``torch.utils.checkpoint`` recomputes a remat block
+under the forward's autocast state): parameters and BatchNorm statistics
+stay float32, every convolution and transposed convolution runs in
+bfloat16, the confidence
 heads pool and run their MLP in float32, and heatmaps and features come
 back as float32.  The forward runs under ``torch.autocast`` rather than on
 cast copies of the modules: the float32 master weights stay the only

@@ -7,6 +7,12 @@ moves the running variance towards that same biased variance.
 ``torch.nn.BatchNorm*d`` moves it towards the *unbiased* one, n / (n - 1)
 larger: 2.5 % at V2V's 2^3 level at batch 5.  :class:`BatchNorm` keeps
 flax's update; backbone and V2V both use it.
+
+Under bfloat16 compute (``torch.autocast``, which leaves BatchNorm alone)
+the input is bfloat16 and the weights and running statistics float32:
+``F.batch_norm`` reduces and normalizes in float32 and rounds its output
+to bfloat16 once, and the running statistics stay float32, as
+``lt_tpu/models/backbone.py:42-60`` keeps them.
 """
 
 from __future__ import annotations

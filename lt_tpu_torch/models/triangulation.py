@@ -17,12 +17,16 @@ In training the unprojection's backward runs kernels K5 and K6.  Public
 layouts as in ``lt_tpu``: images (B, V, H, W, 3), projections (B, V, 3, 4)
 in image pixels.
 
-``compute_dtype=torch.bfloat16`` (eval only) is ``lt_tpu``'s ``bf16: true``
-(``triangulation.py:208-231, 303-317``): the backbone and
-``process_features`` convolve in bfloat16, K1 reads bfloat16 features and
-writes the aggregated volume in bfloat16, V2V runs in bfloat16, and the
-soft-argmax widens its volume to float32.  Cameras, grids, the projection
-arithmetic and the keypoints are float32 throughout.
+``compute_dtype=torch.bfloat16`` is ``lt_tpu``'s ``bf16: true``
+(``triangulation.py:208-231, 303-317``), in eval and in training: the
+backbone and ``process_features`` convolve in bfloat16 (float32 master
+weights under ``torch.autocast``), K1 reads bfloat16 features and writes
+the aggregated volume in bfloat16 (the unfused training path of 'conf' and
+'max' samples into bfloat16 with K5: ``aggregation_dtype``), V2V runs in
+bfloat16 (in training its output leaves in float32), and the soft-argmax
+widens its volume to float32.  Cameras, grids, the projection arithmetic,
+heatmaps, keypoints, the DLT and the losses are float32 throughout; the
+training backward of the fused aggregation runs K5 and K6 in bfloat16.
 """
 
 from __future__ import annotations
@@ -104,13 +108,6 @@ def _check_dtype(compute_dtype: torch.dtype) -> None:
                          f"got {compute_dtype}")
 
 
-def _check_trainable(compute_dtype: torch.dtype) -> None:
-    if compute_dtype != torch.float32:
-        raise NotImplementedError(
-            "training runs in float32 only: compute_dtype=bfloat16 "
-            "(bf16: true) is an eval configuration of the port")
-
-
 def _backbone_heatmaps(backbone, images: torch.Tensor):
     """(B, V, H, W, 3) images -> raw heatmaps (B, V, J, h, w) and the
     algebraic confidences (B * V, J) or None."""
@@ -122,8 +119,8 @@ def _backbone_heatmaps(backbone, images: torch.Tensor):
 
 class _PoseNet(nn.Module):
     """What the algebraic and RANSAC models share: a PoseResNet built in
-    eval mode on ``device``, the forward under ``torch.no_grad`` in eval,
-    and training in float32 only (``model.train()``)."""
+    eval mode on ``device``, the forward under ``torch.no_grad`` in eval
+    and under autograd in training (``model.train()``)."""
 
     def __init__(self, num_joints, num_layers, style, alg_confidences,
                  remat, device, seed, compute_dtype):
@@ -145,7 +142,6 @@ class _PoseNet(nn.Module):
           view_mask: optional (B, V) validity of each view.
         """
         if self.training:
-            _check_trainable(self.compute_dtype)
             return self._forward(images, proj_matrices, view_mask)
         with torch.no_grad():
             return self._forward(images, proj_matrices, view_mask)
@@ -161,7 +157,7 @@ class AlgebraicTriangulationNet(_PoseNet):
     zero DLT weight and the result equals dropping the view.
     ``compute_dtype=torch.bfloat16`` is ``lt_tpu``'s ``bf16: true`` (the
     backbone convolves in bfloat16; heatmaps, confidences, keypoints and
-    the DLT are float32), eval only.
+    the DLT are float32), in eval and in training.
     """
 
     def __init__(self, num_joints: int = 17, num_layers: int = 152,
@@ -282,7 +278,6 @@ class VolumetricTriangulationNet(nn.Module):
             with torch.no_grad():
                 return self._forward(images, proj_matrices, pelvis_keypoints,
                                      view_mask, rotation_thetas)
-        _check_trainable(self.compute_dtype)
         if rotation_thetas is None:
             if generator is None:
                 raise ValueError("training draws cuboid rotations: pass "
@@ -324,9 +319,10 @@ class VolumetricTriangulationNet(nn.Module):
         features = features.reshape((b, v) + features.shape[1:]).contiguous()
 
         if self.use_kernels:
-            # As lt_tpu (triangulation.py:303-305): training keeps the fused
+            # As lt_tpu (triangulation.py:303-317): training keeps the fused
             # aggregation where its backward exists (softmax / sum without
-            # confidences) and samples per view otherwise.
+            # confidences) and samples per view otherwise; the volume comes
+            # in the compute dtype.
             fuse = not self.training or (
                 self.volume_aggregation_method in ("softmax", "sum")
                 and vol_conf is None)
@@ -335,7 +331,9 @@ class VolumetricTriangulationNet(nn.Module):
                 self.volume_size,
                 volume_aggregation_method=self.volume_aggregation_method,
                 vol_confidences=vol_conf, view_mask=view_mask,
-                channels_last=True, fuse_aggregation=fuse)
+                channels_last=True, fuse_aggregation=fuse,
+                aggregation_dtype=(None if self.compute_dtype == torch.float32
+                                   else self.compute_dtype))
         else:
             volumes = vol_ops.unproject_heatmaps(
                 features, proj_hm, coord_volumes,

@@ -31,8 +31,9 @@ switches, ``lt_tpu/models/v2v.py:52-96``; the port reads no environment):
 
 BN is folded into the weights in float32 once per weight version, device
 and compute dtype, not on every call; with ``compute_dtype=torch.bfloat16``
-(eval only) the folded weights are cast to bfloat16 once there, biases stay
-float32, and the volume enters and leaves the kernels as bfloat16.  In
+the eval kernel paths cast the folded weights to bfloat16 once there,
+biases stay float32, and the volume enters and leaves the kernels as
+bfloat16.  In
 float32 on the card the folded convolution weights are split once there
 into the bfloat16 parts that K2's float32 body takes
 (``conv3d.split_bf16``), and the packed tree holds those parts.  The
@@ -42,7 +43,13 @@ module graph runs bfloat16 under ``torch.autocast`` (see
 Training always runs the unfused module graph under autograd, NCDHW, with
 batch-statistics BatchNorm: ``lt_tpu`` gates its V2V Pallas kernels off in
 training too (``lt_tpu/models/v2v.py:52-93``) and runs XLA convolutions.
-``remat`` recomputes each block's activations in the backward.
+``remat`` recomputes each block's activations in the backward
+(``torch.utils.checkpoint`` restores the forward's autocast state for the
+recompute).  In bfloat16 the graph trains under ``torch.autocast`` on the
+float32 master weights: bfloat16 convolutions, BatchNorm with float32
+statistics normalizing in the activation's type (``models/batchnorm.py``),
+and the output leaves in float32, as ``lt_tpu``'s training output does
+(``lt_tpu/models/v2v.py:742-748``).
 """
 
 from __future__ import annotations
@@ -276,14 +283,13 @@ class V2VModel(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """(B, X, Y, Z, C_in) -> (B, X, Y, Z, output_channels), in the
-        compute dtype."""
-        if self.training and self.compute_dtype != torch.float32:
-            raise NotImplementedError(
-                "V2V trains in float32 only; compute_dtype=bfloat16 is an "
-                "eval configuration")
+        compute dtype in eval and in float32 in training."""
         if self.training or not self.use_kernels:
             with compute_context(x, self.compute_dtype):
-                return self._forward_modules(x)
+                y = self._forward_modules(x)
+            if self.training and y.dtype == torch.bfloat16:
+                y = y.float()
+            return y
         with torch.no_grad():
             if self.compute_dtype == torch.bfloat16:
                 x = x.to(torch.bfloat16)

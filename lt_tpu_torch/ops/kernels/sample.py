@@ -10,9 +10,12 @@ of ``lt_tpu/ops/pallas/unproject.py:612-658`` (``_sample_views_fwd_impl_t``),
 Voxels-major, (BV, S^3, C): kernels K7 and K8.  Port of ``:507-586``
 (``_sample_views_fwd_impl``), ``:896-918`` (``_sample_views_grad_features``)
 and ``:1073-1108`` (``sample_views_affine``); CUDA kernels
-``csrc/sample_views.cu`` and ``csrc/sample_views_grad.cu``.  The forward
-takes float32 or bfloat16 features and writes ``out_dtype``; the gradient
-is float32, computed in float32.
+``csrc/sample_views.cu`` and ``csrc/sample_views_grad.cu``.
+
+In both orientations the forward takes float32 or bfloat16 features and
+writes ``out_dtype`` (float32 or bfloat16); the gradient takes a float32 or
+bfloat16 cotangent and is float32, computed in float32.  bfloat16 is
+widened where it is read and a bfloat16 output is rounded once.
 
 All four work on voxel bricks (``csrc/sample_brick.cuh``: K5 on one
 elongated in z, K6-K8 on K1's), each voxel projected once, K8 sharing K6's
@@ -119,23 +122,39 @@ def _project(affine: torch.Tensor, grid_size: int) -> torch.Tensor:
     return (affine[:, None, :, :] * grid[None, :, None, :]).sum(-1)
 
 
+def _widened(x: torch.Tensor) -> torch.Tensor:
+    """bfloat16 -> float32 (the kernels widen where they read); other
+    types as they are."""
+    return x.float() if x.dtype == torch.bfloat16 else x
+
+
+def _check_out_dtype(out_dtype) -> None:
+    if out_dtype not in _build.DTYPE_CODES:
+        raise TypeError(f"out_dtype: kernel writes float32 or bfloat16, got "
+                        f"{out_dtype}")
+
+
 def sample_views_t_plain(features: torch.Tensor, affine: torch.Tensor,
-                         grid_size: int) -> torch.Tensor:
-    """Plain version of K5: (BV, H, W, C), (BV, 3, 4) -> (BV, C, S^3)."""
+                         grid_size: int, out_dtype=torch.float32
+                         ) -> torch.Tensor:
+    """Plain version of K5: (BV, H, W, C), (BV, 3, 4) -> (BV, C, S^3).
+    bfloat16 features are widened to float32; the result is rounded once."""
     uvw = _project(affine, grid_size)
-    return sample_homogeneous(features[None], uvw[None])[0].transpose(
-        1, 2).contiguous()
+    return sample_homogeneous(_widened(features)[None], uvw[None])[0] \
+        .transpose(1, 2).to(out_dtype).contiguous()
 
 
 def sample_views_t(features: torch.Tensor, affine: torch.Tensor,
-                   grid_size: int, plan: Optional[SamplePlan] = None
-                   ) -> torch.Tensor:
+                   grid_size: int, plan: Optional[SamplePlan] = None,
+                   out_dtype=torch.float32) -> torch.Tensor:
     """K5 on a CUDA tensor, its plain version on a CPU tensor.
 
     Args:
-      features: (BV, H, W, C) float32 feature maps.
-      affine: (BV, 3, 4) composed grid-index -> heatmap-pixel matrices.
+      features: (BV, H, W, C) feature maps, float32 or bfloat16.
+      affine: (BV, 3, 4) float32 composed grid-index -> heatmap-pixel
+        matrices.
       plan: the launch plan (window 0); default :func:`sample_plan`'s.
+      out_dtype: float32 or bfloat16.
     Returns:
       (BV, C, S^3) samples, voxel n = (gx * S + gy) * S + gz; 0 where
       w <= 0 or a tap falls outside the map.
@@ -143,26 +162,30 @@ def sample_views_t(features: torch.Tensor, affine: torch.Tensor,
     bv, h, w, c = features.shape
     _check_affine(affine, bv)
     if not features.is_cuda:
-        return sample_views_t_plain(features, affine, grid_size)
-    _build.check_cuda(features, "features", 4)
+        return sample_views_t_plain(features, affine, grid_size, out_dtype)
+    _check_out_dtype(out_dtype)
+    _build.check_cuda(features, "features", 4, dtypes=_build.F32_BF16)
     affine = affine.contiguous()
     _build.check_cuda(affine, "affine", 3)
-    out = torch.empty((bv, c, grid_size ** 3), dtype=torch.float32,
+    out = torch.empty((bv, c, grid_size ** 3), dtype=out_dtype,
                       device=features.device)
     plan = _sampler_plan(plan, "sample_views_t", c, grid_size)
     p, i, f = _build.ptr, _build.i32, _build.f32
     _build.launch("sample_views_t", features.device,
-                  [p, p, p, i, i, i, i, i, f, f, i, i, i],
+                  [p, p, p, i, i, i, i, i, f, f, i, i, i, i, i],
                   features.data_ptr(), affine.data_ptr(), out.data_ptr(), bv,
-                  h, w, c, grid_size, (w - 1) / w, (h - 1) / h, *plan[1:])
+                  h, w, c, grid_size, (w - 1) / w, (h - 1) / h,
+                  _build.DTYPE_CODES[features.dtype],
+                  _build.DTYPE_CODES[out_dtype], *plan[1:])
     return out
 
 
 def sample_views_grad_t_plain(g: torch.Tensor, affine: torch.Tensor,
                               feat_shape, grid_size: int) -> torch.Tensor:
-    """Plain version of K6: g (BV, C, S^3) -> dF (BV, H, W, C) by an
-    ``index_add_`` of every voxel's four weighted taps."""
-    return _scatter_taps(g.transpose(1, 2), affine, feat_shape, grid_size)
+    """Plain version of K6: g (BV, C, S^3) -> float32 dF (BV, H, W, C) by
+    an ``index_add_`` of every voxel's four weighted taps."""
+    return _scatter_taps(_widened(g).transpose(1, 2), affine, feat_shape,
+                         grid_size)
 
 
 def _scatter_taps(gt: torch.Tensor, affine: torch.Tensor, feat_shape,
@@ -201,7 +224,8 @@ def sample_views_grad_t(g: torch.Tensor, affine: torch.Tensor, feat_shape,
     """K6 on a CUDA tensor, its plain version on a CPU tensor.
 
     Args:
-      g: (BV, C, S^3) float32 cotangent of :func:`sample_views_t`.
+      g: (BV, C, S^3) cotangent of :func:`sample_views_t`, float32 or
+        bfloat16.
       affine: (BV, 3, 4) as there.
       feat_shape: (BV, H, W, C) of the sampled features.
       plan: the launch plan; default :func:`sample_plan`'s with K6_WINDOW
@@ -215,7 +239,7 @@ def sample_views_grad_t(g: torch.Tensor, affine: torch.Tensor, feat_shape,
         raise ValueError(f"g {tuple(g.shape)} != {(bv, c, grid_size ** 3)}")
     if not g.is_cuda:
         return sample_views_grad_t_plain(g, affine, feat_shape, grid_size)
-    _build.check_cuda(g, "g", 3)
+    _build.check_cuda(g, "g", 3, dtypes=_build.F32_BF16)
     affine = affine.contiguous()
     _build.check_cuda(affine, "affine", 3)
     df = torch.zeros((bv, h, w, c), dtype=torch.float32, device=g.device)
@@ -223,9 +247,10 @@ def sample_views_grad_t(g: torch.Tensor, affine: torch.Tensor, feat_shape,
                                K6_WINDOW)
     p, i, f = _build.ptr, _build.i32, _build.f32
     _build.launch("sample_views_grad_t", g.device,
-                  [p, p, p, i, i, i, i, i, f, f] + [i] * len(plan),
+                  [p, p, p, i, i, i, i, i, f, f, i] + [i] * len(plan),
                   g.data_ptr(), affine.data_ptr(), df.data_ptr(), bv, h, w, c,
-                  grid_size, (w - 1) / w, (h - 1) / h, *plan)
+                  grid_size, (w - 1) / w, (h - 1) / h,
+                  _build.DTYPE_CODES[g.dtype], *plan)
     return df
 
 
@@ -233,25 +258,30 @@ class _SampleViewsAffineT(torch.autograd.Function):
     """Forward K5, backward K6; ``affine`` gets no gradient."""
 
     @staticmethod
-    def forward(ctx, features, affine, grid_size):
+    def forward(ctx, features, affine, grid_size, out_dtype):
         ctx.save_for_backward(affine)
         ctx.feat_shape = tuple(features.shape)
+        ctx.feat_dtype = features.dtype
         ctx.grid_size = grid_size
-        return sample_views_t(features, affine, grid_size)
+        return sample_views_t(features, affine, grid_size,
+                              out_dtype=out_dtype)
 
     @staticmethod
     def backward(ctx, g):
         (affine,) = ctx.saved_tensors
         df = sample_views_grad_t(g.contiguous(), affine, ctx.feat_shape,
                                  ctx.grid_size)
-        return df, None, None
+        return df.to(ctx.feat_dtype), None, None, None
 
 
 def sample_views_affine_t(features: torch.Tensor, affine: torch.Tensor,
-                          grid_size: int) -> torch.Tensor:
-    """Differentiable :func:`sample_views_t`: (BV, H, W, C) -> (BV, C, S^3),
-    gradients to ``features`` only (cameras and grids are inputs)."""
-    return _SampleViewsAffineT.apply(features, affine, grid_size)
+                          grid_size: int, out_dtype=torch.float32
+                          ) -> torch.Tensor:
+    """Differentiable :func:`sample_views_t`: (BV, H, W, C) -> (BV, C, S^3)
+    in ``out_dtype``, gradients to ``features`` only (cameras and grids are
+    inputs), computed in float32 and cast to the features' type, as
+    ``lt_tpu``'s ``_sample_views_bwd_t`` (``unproject.py:1061-1067``)."""
+    return _SampleViewsAffineT.apply(features, affine, grid_size, out_dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -265,8 +295,8 @@ def sample_views_plain(features: torch.Tensor, affine: torch.Tensor,
     """Plain version of K7: (BV, H, W, C), (BV, 3, 4) -> (BV, S^3, C).
     bfloat16 features are widened to float32; the result is rounded once."""
     uvw = _project(affine, grid_size)
-    f = features.float() if features.dtype == torch.bfloat16 else features
-    return sample_homogeneous(f[None], uvw[None])[0].to(out_dtype)
+    return sample_homogeneous(_widened(features)[None], uvw[None])[0].to(
+        out_dtype)
 
 
 def sample_views(features: torch.Tensor, affine: torch.Tensor,
@@ -288,9 +318,7 @@ def sample_views(features: torch.Tensor, affine: torch.Tensor,
     _check_affine(affine, bv)
     if not features.is_cuda:
         return sample_views_plain(features, affine, grid_size, out_dtype)
-    if out_dtype not in _build.DTYPE_CODES:
-        raise TypeError(f"out_dtype: kernel writes float32 or bfloat16, got "
-                        f"{out_dtype}")
+    _check_out_dtype(out_dtype)
     _build.check_cuda(features, "features", 4, dtypes=_build.F32_BF16)
     affine = affine.contiguous()
     _build.check_cuda(affine, "affine", 3)
@@ -311,8 +339,7 @@ def sample_views_grad_plain(g: torch.Tensor, affine: torch.Tensor,
                             feat_shape, grid_size: int) -> torch.Tensor:
     """Plain version of K8: g (BV, S^3, C) -> float32 dF (BV, H, W, C) by an
     ``index_add_`` of every voxel's four weighted taps."""
-    return _scatter_taps(g.float() if g.dtype == torch.bfloat16 else g,
-                         affine, feat_shape, grid_size)
+    return _scatter_taps(_widened(g), affine, feat_shape, grid_size)
 
 
 def sample_views_grad(g: torch.Tensor, affine: torch.Tensor, feat_shape,

@@ -22,7 +22,8 @@ import torch
 
 from lt_tpu_torch.ops.kernels import _build
 from lt_tpu_torch.ops.kernels.bricks import AGG_BRICK, AGG_CHUNK, AGG_SMEM_MAX
-from lt_tpu_torch.ops.kernels.sample import (_project, sample_views_affine_t,
+from lt_tpu_torch.ops.kernels.sample import (_project, _widened,
+                                             sample_views_affine_t,
                                              sample_views_grad_t,
                                              sample_views_t)
 from lt_tpu_torch.ops.volumetric import (aggregate_views, index_grid,
@@ -227,7 +228,13 @@ class _SampleViewsAgg(torch.autograd.Function):
 
     Only ``(features, m, view_mask)`` are saved: the (B, V, C, N) samples
     never outlive the backward (``lt_tpu``'s training-memory design).
-    ``lt_tpu`` recomputes in bfloat16; the port recomputes in float32.
+    bfloat16 features follow ``lt_tpu``'s ``_agg_bwd``
+    (``unproject.py:463-504``): K5 recomputes the samples bfloat16 ->
+    bfloat16, the VJP runs in float32 on the widened samples and g (the
+    softmax's masked logits are -1e9 in float32), and its cotangent is
+    rounded to bfloat16 into K6; dF is cast to the features' type.  Float32
+    features recompute in float32 (``lt_tpu`` recomputes in bfloat16 there
+    too; the port's float32 step is held to ``lt_tpu``'s float64 one).
     """
 
     @staticmethod
@@ -242,22 +249,24 @@ class _SampleViewsAgg(torch.autograd.Function):
         b, v, h, w, c = features.shape
         bv_shape = (b * v, h, w, c)
         s = sample_views_t(features.reshape(bv_shape), m.reshape(b * v, 3, 4),
-                           ctx.grid_size).reshape(b, v, c, -1)
+                           ctx.grid_size, out_dtype=features.dtype
+                           ).reshape(b, v, c, -1)
+        s32, g = _widened(s), _widened(g).transpose(1, 2)[:, None]
         keep = (view_mask > 0.0)[:, :, None, None]
-        zero = torch.zeros((), dtype=s.dtype, device=s.device)
-        g = g.transpose(1, 2)[:, None]                      # (B, 1, C, N)
+        zero = torch.zeros((), dtype=s32.dtype, device=s.device)
         if ctx.method == "softmax":
-            wgt = torch.softmax(torch.where(keep, s, zero - 1e9), dim=1)
-            contrib = torch.where(keep, s, zero)
+            wgt = torch.softmax(torch.where(keep, s32, zero - 1e9), dim=1)
+            contrib = torch.where(keep, s32, zero)
             out = (wgt * contrib).sum(1, keepdim=True)
             # d out / d s_k = w_k (1 + s_k - out) for kept views.
             ds = torch.where(keep, g * wgt * (1.0 + contrib - out), zero)
         else:
             ds = torch.where(keep, g, zero).expand(b, v, c, s.shape[-1])
-        df = sample_views_grad_t(ds.reshape(b * v, c, -1).contiguous(),
-                                 m.reshape(b * v, 3, 4), bv_shape,
-                                 ctx.grid_size)
-        return df.reshape(features.shape), None, None, None, None
+        df = sample_views_grad_t(
+            ds.to(s.dtype).reshape(b * v, c, -1).contiguous(),
+            m.reshape(b * v, 3, 4), bv_shape, ctx.grid_size)
+        return (df.reshape(features.shape).to(features.dtype), None, None,
+                None, None)
 
 
 def sample_views_agg(features: torch.Tensor, m: torch.Tensor,
@@ -278,9 +287,12 @@ def unproject_heatmaps_affine(features: torch.Tensor,
                               vol_confidences: Optional[torch.Tensor] = None,
                               view_mask: Optional[torch.Tensor] = None,
                               channels_last: bool = False,
-                              fuse_aggregation: bool = True) -> torch.Tensor:
+                              fuse_aggregation: bool = True,
+                              aggregation_dtype: Optional[torch.dtype] = None
+                              ) -> torch.Tensor:
     """Fused-unprojection equivalent of ``volumetric.unproject_heatmaps``,
-    as ``lt_tpu``'s ``unproject_heatmaps_affine``.
+    as ``lt_tpu``'s ``unproject_heatmaps_affine``
+    (``lt_tpu/ops/pallas/unproject.py:710-829``).
 
     Args:
       features: (B, V, H, W, C); proj_matrices: (B, V, 3, 4) in heatmap
@@ -293,6 +305,11 @@ def unproject_heatmaps_affine(features: torch.Tensor,
         'conf' and 'max' are forward-only there.  False samples every view
         with K5 (differentiable through K6) and aggregates in PyTorch ops:
         the training path of 'conf' and 'max'.
+      aggregation_dtype: the volume's type.  The unfused path samples
+        straight into it (K5's ``out_dtype``) and aggregates those samples
+        (``volumetric.aggregate_views``), as ``lt_tpu`` does.  None: K1
+        writes the features' type; the unfused path samples in float32
+        (float64 features: float64, on the CPU).
     """
     b, v, h, w, c = features.shape
     m = compose_grid_projection(proj_matrices, grid_affine)
@@ -301,9 +318,12 @@ def unproject_heatmaps_affine(features: torch.Tensor,
                                device=features.device)
     method = volume_aggregation_method
     if not fuse_aggregation:
+        out_dtype = aggregation_dtype or (
+            torch.float32 if features.dtype == torch.bfloat16
+            else features.dtype)
         sampled = sample_views_affine_t(
             features.reshape(b * v, h, w, c), m.reshape(b * v, 3, 4),
-            grid_size).reshape(b, v, c, -1)
+            grid_size, out_dtype).reshape(b, v, c, -1)
         volume = aggregate_views(sampled.transpose(2, 3), method,
                                  vol_confidences, view_mask).contiguous()
     elif method in ("softmax", "sum") and vol_confidences is None:
@@ -311,6 +331,8 @@ def unproject_heatmaps_affine(features: torch.Tensor,
     else:
         volume = unproject_agg(features, m, view_mask, vol_confidences,
                                method, grid_size)
+    if aggregation_dtype is not None:
+        volume = volume.to(aggregation_dtype)
     s = grid_size
     if channels_last:
         return volume.reshape(b, s, s, s, c)

@@ -186,6 +186,14 @@ def aggregate_views(sampled: torch.Tensor, method: str,
     'softmax' weighs with a softmax over views whose masked logits are
     -1e9; 'max' maps an all-masked -inf to 0; 'conf*' weighs by (B, V, C)
     confidences.
+
+    bfloat16 samples (the unfused training path under ``bf16: true``) keep
+    ``lt_tpu``'s type at each step (``lt_tpu/ops/pallas/unproject.py:
+    791-825``): 'conf*' multiplies by the float32 confidences and sums in
+    float32; 'sum', 'max' and 'softmax' stay bfloat16 (masked logits -1e9
+    rounded to bfloat16, as ``jnp.where`` rounds it).  Where the port
+    widens: PyTorch's bfloat16 ``sum`` and ``softmax`` accumulate in
+    float32 and round their result once.
     """
     mask = (None if view_mask is None
             else view_mask.to(torch.bool)[:, :, None, None])

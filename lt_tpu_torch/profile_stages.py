@@ -1,7 +1,7 @@
 """Where the flagship forward's, or training step's, time goes on the card.
 
     python -m lt_tpu_torch.profile_stages [--batch 8] [--bf16]
-    python -m lt_tpu_torch.profile_stages --train [--batch 5]
+    python -m lt_tpu_torch.profile_stages --train [--batch 5] [--bf16]
 
 Times warm requests of the volumetric forward (RN-152, 384^2, 4 views,
 64^3, f32 with TF32 off or, with ``--bf16``, the bfloat16 eval
@@ -14,8 +14,9 @@ then traces one more request with ``torch.profiler`` and prints the
 device's busy share of the window and the kernels that take the most
 device time.  ``--train`` does the same for training steps of
 experiments/human36m/train/human36m_vol_softmax.yaml
-(forward stages, loss, backward, Adam) on the kernel path, and prints the
-peak device memory.  Needs an NVIDIA GPU.
+(forward stages, loss, backward, Adam) on the kernel path, in float32 or
+with ``--bf16`` its ``bf16: true`` configuration, and prints the peak
+device memory.  Needs an NVIDIA GPU.
 """
 
 from __future__ import annotations
@@ -47,17 +48,16 @@ def main(argv=None) -> None:
     ap.add_argument("--train", action="store_true",
                     help="profile a training step instead of a request")
     ap.add_argument("--bf16", action="store_true",
-                    help="the bfloat16 eval configuration (requests only)")
+                    help="the bfloat16 configuration (bf16: true)")
     args = ap.parse_args(argv)
-    if args.train and args.bf16:
-        ap.error("training runs in float32 only")
 
     dev = resolve_device("cuda")
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     if args.train:
         config = cfg.load_config(str(TRAIN_YAML),
-                                 {"model.backbone.init_weights": False})
+                                 {"model.backbone.init_weights": False,
+                                  "bf16": args.bf16})
         args.batch = args.batch or config.opt.batch_size
         model = factory.make_model(config, device=dev)
         criterion = factory.make_criterion(config)

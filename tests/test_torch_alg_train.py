@@ -292,15 +292,32 @@ def test_alg_tiny_cli_epoch_and_resume(tmp_path):
 
 @pytest.mark.parametrize("name", ["alg", "ransac"])
 def test_training_in_bfloat16_raises(name):
-    """bf16: true builds an eval model; training it raises, as for the
-    volumetric model."""
+    """bf16: true trains (it raised before bfloat16 training was ported;
+    the name stays): the step's loss is finite, the parameters, their
+    gradients and Adam's moments stay float32; the algebraic model's
+    parameters move, RANSAC's gradients are 0 (its hard argmax, as in
+    float32).  tests/test_torch_bf16_steps.py holds the algebraic bfloat16
+    step to lt_tpu's."""
     path = ALG_YAML if name == "alg" else RANSAC_YAML
-    config = _config(path, {"bf16": True, "model.backbone.num_layers": 18})
+    config = _config(path, {"bf16": True, "model.backbone.num_layers": 18,
+                            "opt.batch_size": B})
     model = factory.make_model(config, device="cpu")
     assert model.compute_dtype == torch.bfloat16
-    model.train()
-    with pytest.raises(NotImplementedError, match="float32"):
-        steps.model_outputs(model, _torch_batch(_batch()), config)
+    opt = factory.make_optimizer(config, model)
+    before = {k: p.detach().clone() for k, p in model.named_parameters()}
+    metrics = steps.train_step(model, opt, factory.make_criterion(config),
+                               config, _torch_batch(_batch()))
+    assert np.isfinite(metrics["total_loss"])
+    params = dict(model.named_parameters())
+    assert all(p.dtype == p.grad.dtype == torch.float32
+               for p in params.values())
+    assert all(t.dtype == torch.float32 for st in opt.state.values()
+               for t in st.values() if t.dim())
+    moved = sum(not torch.equal(p, before[k]) for k, p in params.items())
+    if name == "alg":
+        assert moved > len(params) // 2
+    else:
+        assert metrics["grad_norm_times_lr"] == 0.0 and moved == 0
 
 
 def _fixture_keypoints_lt_tpu(family, images, proj):

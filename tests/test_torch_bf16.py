@@ -14,7 +14,9 @@ vs lt_tpu on the CPU.
     keypoints stay within lt_tpu's measured bfloat16 band of its float32
     ones and under the fixture's accuracy gate.
 (c) ``use_kernels="conv"`` equals ``"fused"`` in float32 and matches lt_tpu.
-(d) ``bf16: true`` builds through the factory, and training it raises.
+(d) ``bf16: true`` builds through the factory, and its training step runs
+    on float32 master weights (tests/test_torch_bf16_train.py holds that
+    step to lt_tpu's).
 
 Every limit stands beside the value measured when the test was written.
 """
@@ -497,6 +499,10 @@ def test_packed_params_follow_the_compute_dtype():
 
 
 def test_make_model_bf16_builds_and_training_raises():
+    """``bf16: true`` builds the bfloat16 model, evaluates, and trains: the
+    step runs (it raised before bfloat16 training was ported; the name
+    stays), its loss is finite, the parameters, their gradients and
+    Adam's moments stay float32, and the parameters move."""
     config = load_config(SYNTH_YAML, {"bf16": True})
     model = factory.make_model(config, device="cpu")
     assert model.compute_dtype == BF16
@@ -510,9 +516,19 @@ def test_make_model_bf16_builds_and_training_raises():
     kp, _ = steps.eval_step(model, factory.make_criterion(config), config,
                             batch)
     assert kp.dtype == torch.float32 and bool(kp.isfinite().all())
-    with pytest.raises(NotImplementedError, match="float32"):
-        steps.train_step(model, factory.make_optimizer(config, model),
-                         factory.make_criterion(config), config, batch,
-                         generator=torch.Generator().manual_seed(0))
+    opt = factory.make_optimizer(config, model)
+    before = {k: p.detach().clone() for k, p in model.named_parameters()}
+    batch = {k: torch.from_numpy(v) for k, v in example_train_batch(
+        2, 64, 17, n_views=2, seed=3).items()}   # batch 2: V2V's 1^3 level
+    metrics = steps.train_step(model, opt, factory.make_criterion(config),
+                               config, batch,
+                               generator=torch.Generator().manual_seed(0))
+    assert np.isfinite(metrics["total_loss"])
+    trained = [(k, p) for k, p in model.named_parameters() if p.requires_grad]
+    assert all(p.dtype == p.grad.dtype == torch.float32 for _, p in trained)
+    assert all(t.dtype == torch.float32 for st in opt.state.values()
+               for t in st.values() if t.dim())
+    assert sum(not torch.equal(p, before[k]) for k, p in trained) > \
+        len(trained) // 2
     assert factory.make_model(load_config(SYNTH_YAML), device="cpu"
                               ).compute_dtype == torch.float32

@@ -14,6 +14,10 @@ V2V's per-conv and bfloat16 paths; K4's vector and scalar instances and
 the plans its C entry point refuses; NaN and infinities kept by K1's
 'max', K2's and K3's ReLU and K4 where their plain versions keep them.
 
+K5 and K6 in bfloat16 (K5 into a bfloat16 output from either type, bit
+for bit K7's; K6 on a bfloat16 g) on their bricks, and the ``bf16: true``
+training step on the card against the same step on the CPU.
+
 Marked ``cuda``: without a GPU every test skips.  On a machine with one
 (this file imports torch only, so ``--noconftest`` keeps JAX out):
 
@@ -194,6 +198,7 @@ def _plant_edges(feats):
                                     "unproject_agg softmax +inf",
                                     "unproject_agg conf masked edges",
                                     "sample_views_t edges",
+                                    "sample_views_t edges own type",
                                     "sample_views edges"])
 def test_kernels_keep_nan(dev, kernel, dt):
     """NaN, +inf and -inf in K2's and K3's inputs, NaN in K1's features:
@@ -204,7 +209,8 @@ def test_kernels_keep_nan(dev, kernel, dt):
     infinities on the maps' edges, which the flagship's taps off the map
     read at their clamped pixels with weight 0 (K1, K5 and K7 as lt_tpu's
     sampler: inf * 0 = NaN; K5 reads float32 features, the bfloat16 case's
-    rounded ones widened).  '+inf': +inf features inside the maps, whose
+    rounded ones widened, and with 'own type' the features in their type
+    into an output of it).  '+inf': +inf features inside the maps, whose
     softmax over the views is NaN.  'masked': one view masked, which 'conf'
     samples and weighs by 0, as lt_tpu does."""
     from lt_tpu_torch.ops.kernels import conv3d, sample, unproject, updown
@@ -228,7 +234,10 @@ def test_kernels_keep_nan(dev, kernel, dt):
         b, v, h, w, c = feats.shape
         feats = _plant_edges(feats.to(dt)).reshape(b * v, h, w, c)
         m = m.reshape(b * v, 3, 4)
-        if kernel.startswith("sample_views_t"):
+        if kernel == "sample_views_t edges own type":
+            _nan_close(sample.sample_views_t(feats, m, FLAG, out_dtype=dt),
+                       sample.sample_views_t_plain(feats, m, FLAG, dt), rel)
+        elif kernel.startswith("sample_views_t"):
             feats = feats.float()
             _nan_close(sample.sample_views_t(feats, m, FLAG),
                        sample.sample_views_t_plain(feats, m, FLAG), REL)
@@ -258,6 +267,7 @@ def test_kernels_keep_nan(dev, kernel, dt):
 
 
 @pytest.mark.parametrize("kernel", ["sample_views_grad_t",
+                                    "sample_views_grad_t bfloat16",
                                     "sample_views_grad float32",
                                     "sample_views_grad bfloat16"])
 def test_scatters_carry_nonfinite_g_off_the_map(dev, kernel):
@@ -280,8 +290,10 @@ def test_scatters_carry_nonfinite_g_off_the_map(dev, kernel):
                                  -float("inf"))):
             g[vi, idx[i::97][:8], i::3] = val
     assert bool(off.any())
-    if kernel == "sample_views_grad_t":
+    if kernel.startswith("sample_views_grad_t"):
         gt = g.transpose(1, 2).contiguous()
+        if kernel.endswith("bfloat16"):
+            gt = gt.to(BF16)
         _nan_close(sample.sample_views_grad_t(gt, m, shape, FLAG),
                    sample.sample_views_grad_t_plain(gt, m, shape, FLAG), REL)
     else:
@@ -1461,3 +1473,206 @@ def test_sample_views_grad_bricks_and_paths(dev, scene, g_dtype):
         _close(df, ref)
         _close(df, k6, rel=1e-5)
         assert bool((df[1] == 0).all())
+
+
+# ---------------------------------------------------------------------------
+# bfloat16 training: K5 and K6 in bfloat16, the step card vs CPU
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("in_dtype", [torch.float32, BF16])
+@pytest.mark.parametrize("scene", K56_SCENES + ["inf"])
+def test_sample_views_t_bf16_bricks(dev, scene, in_dtype):
+    """K5 into a bfloat16 output, from float32 or bfloat16 features, where
+    its bricks have edges: against its plain version (1.6e-2; NaN where it
+    has NaN for the inf scene), bit for bit K7's bfloat16 sample
+    transposed and K5's float32 sample (of the widened features) rounded
+    once; a plan that does not fit is refused.  misaligned: features one
+    element off their 16-byte (float32) or 8-byte (bfloat16) boundary."""
+    from lt_tpu_torch.ops.kernels import sample
+
+    feats, m, s = _k56_scene(dev, scene)
+    feats = feats.to(in_dtype)
+    if scene == "misaligned":
+        feats = _offset(feats)
+    out = sample.sample_views_t(feats, m, s, out_dtype=BF16)
+    assert out.dtype == BF16
+    ref = sample.sample_views_t_plain(feats, m, s, BF16)
+    if scene == "inf":
+        _nan_close(out, ref, REL_BF16)
+        assert bool((out[1] == 0).all())
+    else:
+        _close(out, ref, REL_BF16)
+    k7 = sample.sample_views(feats, m, s, BF16).transpose(1, 2)
+    torch.testing.assert_close(out, k7, rtol=0, atol=0, equal_nan=True)
+    torch.testing.assert_close(
+        out, sample.sample_views_t(feats.float(), m, s).to(BF16), rtol=0,
+        atol=0, equal_nan=True)
+    _refuses_wrong_plans(
+        lambda *a, plan: sample.sample_views_t(*a, plan=plan,
+                                               out_dtype=BF16),
+        "sample_views_t", feats.shape[-1], s, feats, m, s)
+
+
+@pytest.mark.parametrize("scene", K56_SCENES)
+def test_sample_views_grad_t_bf16_g_bricks(dev, scene):
+    """K6 on a bfloat16 g where its bricks have edges, one view's g 0: the
+    default plan, a 24-pixel budget and direct atomics only, each against
+    the plain scatter and within 1e-5 of K6 on the widened g; dF float32.
+    misaligned: g one element off an 8-byte boundary."""
+    from lt_tpu_torch.ops.kernels import sample
+
+    feats, m, s = _k56_scene(dev, scene)
+    shape = tuple(feats.shape)
+    g = _randn(dev, shape[0], shape[-1], s ** 3, seed=4).to(BF16)
+    g[1] = 0.0
+    if scene == "misaligned":
+        g = _offset(g)
+    ref = sample.sample_views_grad_t_plain(g, m, shape, s)
+    wide = sample.sample_views_grad_t(g.float(), m, shape, s)
+    for w in (sample.K6_WINDOW, 24, 0):
+        df = sample.sample_views_grad_t(
+            g, m, shape, s,
+            sample.sample_plan("sample_views_grad_t", shape[-1], s, w))
+        assert df.dtype == torch.float32
+        _close(df, ref)
+        _close(df, wide, rel=1e-5)
+        assert bool((df[1] == 0).all())
+
+
+@pytest.mark.parametrize("method", ["softmax", "sum"])
+def test_sample_views_agg_gradient_bf16(dev, method):
+    """The fused aggregation's backward from bfloat16 features on the card
+    (K5 bfloat16 -> bfloat16, the VJP in float32, K6 on the rounded
+    cotangent; one launch each, in bfloat16) against the same backward on
+    the CPU (the plain versions), with a masked view: the gradient in
+    bfloat16 within 1.6e-2 of the CPU's."""
+    from lt_tpu_torch.ops.kernels import _build, unproject
+
+    feats, m, s = _sampling_scene(dev)
+    b, v = 2, 3
+    feats = feats.reshape(b, v, *feats.shape[1:]).to(BF16)
+    m = m.reshape(b, v, 3, 4)
+    mask = torch.ones(b, v, device=dev)
+    mask[0, 1] = 0.0
+    cot = _randn(dev, b, s ** 3, feats.shape[-1], seed=5).to(BF16)
+    grads = []
+    for d in (dev, torch.device("cpu")):
+        x = feats.to(d).clone().requires_grad_()
+        _build.reset_launches()
+        out = unproject.sample_views_agg(x, m.to(d), mask.to(d), method, s)
+        assert out.dtype == BF16
+        out.backward(cot.to(d))
+        assert x.grad.dtype == BF16
+        grads.append(x.grad)
+        if d == dev:
+            assert {k: n for k, n in _build.LAUNCHES.items() if n} == {
+                "unproject_agg": 1, "sample_views_t": 1,
+                "sample_views_grad_t": 1}
+    _close(grads[0].cpu(), grads[1], REL_BF16)
+
+
+@pytest.mark.parametrize("shape", [(5, 8, 6, 6), (5, 8, 2, 2, 2)])
+def test_batchnorm_bf16_training_update_matches_cpu(dev, shape):
+    """A training BatchNorm call on a bfloat16 input (float32 weights and
+    statistics, as under autocast) on the card vs on the CPU: the output
+    bfloat16 within 1.6e-2, the float32 running mean and flax's biased
+    running variance within 1e-5 relative."""
+    from lt_tpu_torch.models.batchnorm import BatchNorm
+
+    x = (_randn(torch.device("cpu"), *shape, scale=2.0) + 3.0).to(BF16)
+    outs = []
+    for d in ("cpu", dev):
+        bn = BatchNorm(shape[1]).to(d).train()
+        with torch.no_grad():
+            bn.running_var.fill_(0.7)
+            bn.weight.fill_(1.3)
+        y = bn(x.to(d))
+        assert y.dtype == BF16 and bn.running_var.dtype == torch.float32
+        outs.append((y, bn.running_mean, bn.running_var))
+    for (got, ref), rel in zip(zip(outs[1], outs[0]), (REL_BF16, 1e-5, 1e-5)):
+        _close(got.cpu(), ref, rel=rel)
+
+
+def _bf16_step(config, variables, batch, d, use_kernels="fused"):
+    """One ``train_step`` of the volumetric fixture on ``d``: (loss,
+    {group: flattened float64 gradients})."""
+    from lt_tpu_torch.engine import factory, steps
+    from lt_tpu_torch.utils.weights import volumetric_state_dict
+
+    model = factory.make_model(config, device=d, use_kernels=use_kernels)
+    model.load_state_dict(volumetric_state_dict(variables, 18))
+    opt = factory.make_optimizer(config, model)
+    m = steps.train_step(model, opt, factory.make_criterion(config), config,
+                         {k: torch.from_numpy(a).to(d)
+                          for k, a in batch.items()})
+    grads = {}
+    for group in factory.GROUPS:
+        grads[group] = torch.cat([
+            p.grad.detach().double().cpu().flatten()
+            for k, p in model.named_parameters()
+            if k.startswith(group + ".") and p.grad is not None])
+    assert all(p.dtype == torch.float32 for p in model.parameters())
+    return m["total_loss"], grads
+
+
+# The bfloat16 step of the trained volumetric fixture on the card, kernel
+# path and plain path, against the CPU's float32 step: relative loss
+# difference, relative L2 of each group's gradient, each averaged over
+# BF16_STEP_ROTATIONS pairs of cuboid rotations (seed 0).  One step's
+# distance is one draw of a wide distribution (on an H100 each path's
+# process_features gradient lay 0.07-0.40 from float32 across 16
+# rotations), so the kernel path's means are held to BF16_STEP_RATIO times
+# the plain path's, chip_smoke.py's [train fixture bf16] rule.
+BF16_STEP_ROTATIONS = 8
+BF16_STEP_RATIO = 1.5
+
+
+def test_bf16_train_step_card_vs_cpu(dev):
+    """The bf16: true step of the trained volumetric fixture
+    (vol_tiny_2stage.yaml, RN-18, 128^2, 4 views, 32^3, batch 2) on the
+    card, on the kernel path (K1, K5, K6 in bfloat16, each launched once a
+    step) and on the plain path (use_kernels=False), from the CPU's
+    float32 step (the plain versions), at BF16_STEP_ROTATIONS rotations:
+    the kernel path's mean distances within BF16_STEP_RATIO times the
+    plain path's, every loss finite."""
+    import numpy as np
+
+    from lt_tpu_torch.data.synthetic import SyntheticMultiViewDataset
+    from lt_tpu_torch.ops.kernels import _build
+    from lt_tpu_torch.utils import cfg
+    from lt_tpu_torch.utils.weights import load_npz_variables
+
+    ds = SyntheticMultiViewDataset(n_samples=2, n_views=4, image_size=128)
+    val = [ds[i] for i in range(2)]
+    kp = np.stack([x["keypoints_3d"] for x in val]).astype(np.float32)
+    batch = {"images": np.stack([np.stack(x["images"]) for x in val])
+             .astype(np.float32),
+             "proj_matrices": np.stack([np.stack(x["proj_matrices"])
+                                        for x in val]).astype(np.float32),
+             "keypoints_3d": kp, "keypoints_validity": kp[..., 3:].copy(),
+             "view_mask": np.ones((2, 4), np.float32)}
+    variables = load_npz_variables("tests/fixtures/vol_rn18_synth.npz")
+    over = {"model.init_weights": False, "model.backbone.init_weights": False}
+    yaml = "experiments/synthetic/vol_tiny_2stage.yaml"
+    config32 = cfg.load_config(yaml, over)
+    config = cfg.load_config(yaml, {**over, "bf16": True})
+    rotations = np.random.RandomState(0).uniform(
+        0.0, 2.0 * np.pi, (BF16_STEP_ROTATIONS, 2)).astype(np.float32)
+    dist = {"kernel": [], "plain": []}
+    for rot in rotations:
+        batch["rotation_thetas"] = rot
+        ref_loss, ref = _bf16_step(config32, variables, batch,
+                                   torch.device("cpu"))
+        _build.reset_launches()
+        paths = {"kernel": _bf16_step(config, variables, batch, dev)}
+        for k in ("unproject_agg", "sample_views_t", "sample_views_grad_t"):
+            assert _build.LAUNCHES[k] == 1, (k, _build.LAUNCHES[k])
+        paths["plain"] = _bf16_step(config, variables, batch, dev, False)
+        for name, (loss, grads) in paths.items():
+            assert np.isfinite(loss), name
+            dist[name].append([abs(loss - ref_loss) / ref_loss] + [
+                float((grads[g] - ref[g]).norm() / ref[g].norm())
+                for g in ref])
+    kernel, plain = (np.mean(dist[k], axis=0) for k in ("kernel", "plain"))
+    assert (kernel <= BF16_STEP_RATIO * plain).all(), (kernel, plain)
