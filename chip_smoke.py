@@ -39,7 +39,17 @@ K6 on a bfloat16 g) and the same step with ``bf16: true``, its kernel and
 plain paths each held to the plain float32 step, K1, K5 and K6 once a
 step in bfloat16.  It also runs the committed trained RN-18
 fixture in float32 and bfloat16, and trains the synthetic config for one
-epoch through the CLI's ``run``, then resumes it.  Then the algebraic and
+epoch through the CLI's ``run``, then resumes it.  Then data
+parallelism: ``[ddp nccl]`` wraps the flagship training step (float32 and
+``bf16: true``) in ``DistributedDataParallel`` over a NCCL group of one
+rank, this process, and holds it to the unwrapped step from the same
+weights (the loss and V2V's gradients bit for bit, the gradients below
+K6's atomics within the unwrapped step's own spread), K1, K5 and K6 once a
+step, with both steps' ms and peak memory; ``[ddp 2 ranks]`` trains the
+trained fixture in two processes on the card (gloo) and holds the loss,
+gradients, BatchNorm statistics, Adam's moves and the gathered eval
+keypoints to one process's; ``[vis]`` times the flagship's vis step and
+the training panels' host work.  Then the algebraic and
 RANSAC families, which launch no kernel of the port (``lt_tpu`` computes
 them with XLA only): AlgebraicTriangulationNet at the flagship width in
 float32 and bfloat16 and RANSACTriangulationNet in float32 (batch 8,
@@ -185,6 +195,25 @@ K3 = {"float32": "upsample3d_2x", "bfloat16": "upsample3d_2x_mma"}
 K2_PER_FORWARD = 47     # K2 launches per flagship V2V forward, both configs
 K3_PER_FORWARD = 5      # K3 launches per flagship V2V forward
 TRAIN_KERNELS = ("unproject_agg", "sample_views_t", "sample_views_grad_t")
+# [ddp nccl]: the DDP step's gradients below K6 (whose atomics sum in no
+# fixed order) against the unwrapped step's, relative L2 per GRAD_MODULES
+# prefix: at most DDP_SPREAD times the unwrapped step's distance from a
+# second run of itself, and DDP_SPREAD_FLOOR where that is smaller.
+DDP_SPREAD = 4.0
+DDP_SPREAD_FLOOR = 1e-6
+# [ddp 2 ranks]: the global batch, and the limits of two ranks against
+# one process (_ddp_distances).  The first reading on an H100 (PERF.md,
+# PR 14): keypoints 3.7e-4 mm, loss 9.5e-6, gradients 3.8e-4 / 1.4e-3 /
+# 2.4e-4, statistics 3.8e-4, the Adam moves 4.0e-3.  Its cause: float32
+# rounding of the global BatchNorm's two-pass sums and of the split loss
+# sums, which the step amplifies (CPU float64: 1e-9, tests/
+# test_torch_ddp.py); one process differs from itself by K6's atomics,
+# 10-100 times less except in the Adam moves (2.1e-3).  The limits are
+# about ten times the reading; the keypoints' is the eval's 0.1 mm.
+DDP_BATCH = 4
+DDP_LIMITS = {"keypoints": KP_TOL_MM, "loss": 1e-4, "process_features": 1e-2,
+              "backbone.deconv_layers": 1e-2, "volume_net.front_layers": 1e-2,
+              "stats": 4e-3, "moved": 4e-2}
 # [train fixture bf16]: the bfloat16 kernel path's mean distance from the
 # plain float32 step (loss; relative L2 of each of GRAD_MODULES' gradients)
 # over the plain bfloat16 path's, at most (tests/test_torch_bf16_train.py's
@@ -2000,6 +2029,362 @@ def train_cli(dev):
 
 
 # ---------------------------------------------------------------------------
+# Data parallelism and the training panels
+# ---------------------------------------------------------------------------
+
+
+def _free_port() -> int:
+    """A free TCP port on localhost for a process group's rendezvous."""
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def _grads_of(model, batch, config, criterion):
+    """One training forward and backward of ``model`` (a data_parallel
+    wrapper or not) without an optimizer step: (the loss, every gradient
+    by the module's names)."""
+    from lt_tpu_torch.engine import steps
+    from lt_tpu_torch.parallel import mesh
+
+    model.train()
+    model.zero_grad(set_to_none=True)
+    out = steps.model_outputs(model, batch, config)
+    total, _ = steps.compute_losses(criterion, config, out, batch)
+    total.backward()
+    return total.item(), {k: p.grad.detach().clone() for k, p in
+                          mesh.unwrap(model).named_parameters()
+                          if p.grad is not None}
+
+
+def ddp_nccl(dev, smi):
+    """[ddp nccl]: TRAIN_YAML's step at TRAIN_BATCH in float32 and with
+    bf16: true, wrapped by ``parallel.mesh.data_parallel`` in a NCCL group
+    of one rank (this process), against the unwrapped model from the same
+    weights, under cuDNN's deterministic algorithms.  The loss and V2V's
+    gradients (computed before any atomic of the backward) must be equal
+    bit for bit; the gradients below K6, whose float atomics sum in no
+    fixed order, within DDP_SPREAD times the unwrapped step's own distance
+    from a second run of itself (floor DDP_SPREAD_FLOOR, relative L2 per
+    GRAD_MODULES prefix).  Then TRAIN_STEPS timed steps of each (K1, K5
+    and K6 once a DDP step), ms and peak GiB.  Returns {type: (ms of the
+    DDP step, of the unwrapped step)}."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from lt_tpu_torch.engine import factory
+    from lt_tpu_torch.parallel import mesh
+    from lt_tpu_torch.utils import cfg
+    from lt_tpu_torch.utils.example import example_train_batch
+
+    t0 = time.perf_counter()
+    torch.cuda.set_device(dev)
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:"
+                            f"{_free_port()}", rank=0, world_size=1)
+    log(f"[ddp nccl] {TRAIN_YAML} at batch {TRAIN_BATCH}, seed 0, random "
+        f"weights: DistributedDataParallel over a NCCL group of one rank "
+        f"against the unwrapped model")
+    out = {}
+    try:
+        for bf16 in (False, True):
+            what = "bfloat16" if bf16 else "float32"
+            config = cfg.load_config(str(ROOT / TRAIN_YAML), {
+                "model.backbone.init_weights": False, "bf16": bf16})
+            batch = {k: torch.from_numpy(v).to(dev) for k, v in
+                     example_train_batch(TRAIN_BATCH, config.image_shape[0],
+                                         17, seed=3).items()}
+            criterion = factory.make_criterion(config)
+            model = factory.make_model(config, device=dev, seed=0)
+            optimizer = factory.make_optimizer(config, model)
+            net = mesh.data_parallel(model, dev)
+            with deterministic_cudnn():
+                loss_a, grads_a = _grads_of(model, batch, config, criterion)
+                loss_b, grads_b = _grads_of(model, batch, config, criterion)
+                loss_d, grads_d = _grads_of(net, batch, config, criterion)
+            v2v = [k for k in grads_a if k.startswith("volume_net.")]
+            same = [k for k in v2v if torch.equal(grads_d[k], grads_a[k])]
+            log(f"  {what}: loss unwrapped {loss_a!r}, again {loss_b!r}, "
+                f"DDP {loss_d!r}; V2V gradients equal bit for bit "
+                f"{len(same)} / {len(v2v)}")
+            if loss_d != loss_a or len(same) != len(v2v):
+                raise AssertionError(f"[ddp nccl] {what}: the DDP step's "
+                                     f"loss or V2V gradients differ from "
+                                     f"the unwrapped step's")
+            for prefix in GRAD_MODULES:
+                spread = _grad_l2(grads_b, grads_a, prefix)
+                dist_ = _grad_l2(grads_d, grads_a, prefix)
+                limit = max(DDP_SPREAD * spread, DDP_SPREAD_FLOOR)
+                log(f"  {what} {prefix}: DDP vs unwrapped relative L2 "
+                    f"{dist_:.3e}, unwrapped vs itself {spread:.3e} (limit "
+                    f"{limit:.3e})")
+                if dist_ > limit:
+                    raise AssertionError(f"[ddp nccl] {what} {prefix}: "
+                                         f"{dist_:.3e} > {limit:.3e}")
+            del grads_a, grads_b, grads_d
+            n = BF16_TRAIN_STEPS if bf16 else TRAIN_STEPS
+            timed = {}
+            for label, m in (("unwrapped", model), ("DDP", net),
+                             ("DDP", net), ("unwrapped", model)):
+                steps_ms = _timed_steps(m, optimizer, criterion, config,
+                                        batch, n)
+                timed.setdefault(label, []).append(steps_ms)
+                if label == "DDP":
+                    bad = {k: steps_ms[3][k] for k in TRAIN_KERNELS
+                           if steps_ms[3][k] != n}
+                    if bad:
+                        raise AssertionError(f"[ddp nccl] {what}: launches "
+                                             f"{bad} in {n} DDP steps")
+                    if not all(np.isfinite(steps_ms[2])):
+                        raise AssertionError(f"[ddp nccl] {what}: losses "
+                                             f"{steps_ms[2]}")
+            ms = {k: float(np.median([t for r in v for t in r[1]]))
+                  for k, v in timed.items()}
+            peak = {k: max(r[4] for r in v) for k, v in timed.items()}
+            log(f"  {what}: step ms (median of {2 * n}, runs alternated) DDP "
+                f"{ms['DDP']:.1f}, unwrapped {ms['unwrapped']:.1f} (DDP "
+                f"{ms['DDP'] - ms['unwrapped']:+.1f} ms a step); peak "
+                f"{peak['DDP']:.2f} / {peak['unwrapped']:.2f} GiB; K1, K5 "
+                f"and K6 once a DDP step; on {smi}")
+            out[what] = (ms["DDP"], ms["unwrapped"])
+            del net, model, optimizer, batch
+            torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    log(f"  the phase took {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+def _fixture_ddp_batch(dev):
+    """DDP_BATCH poses of the synthetic set (128^2, 4 views) with seeded
+    rotations: [ddp 2 ranks]' global batch."""
+    import numpy as np
+    import torch
+
+    from lt_tpu_torch.data.synthetic import SyntheticMultiViewDataset
+
+    ds = SyntheticMultiViewDataset(n_samples=DDP_BATCH, n_views=4,
+                                   image_size=128)
+    items = [ds[i] for i in range(DDP_BATCH)]
+    kp = np.stack([x["keypoints_3d"] for x in items]).astype(np.float32)
+    batch = {"images": np.stack([np.stack(x["images"]) for x in items]),
+             "proj_matrices": np.stack([np.stack(x["proj_matrices"])
+                                        for x in items]),
+             "keypoints_3d": kp, "keypoints_validity": kp[..., 3:].copy(),
+             "view_mask": np.ones((DDP_BATCH, 4), np.float32),
+             "rotation_thetas": np.random.RandomState(0).uniform(
+                 0.0, 2.0 * np.pi, DDP_BATCH)}
+    return {k: torch.from_numpy(np.asarray(v, np.float32)).to(dev)
+            for k, v in batch.items()}
+
+
+def fixture_ddp_run(dev, data_parallel: bool):
+    """SYNTH_YAML on vol_rn18_synth.npz, float32, under cuDNN's
+    deterministic algorithms: the eval keypoints of the global batch, then
+    two training steps (the gradients, losses and BatchNorm statistics of
+    each, the parameters' move over both, the launches of K1, K5 and
+    K6).  ``data_parallel``: this rank's rows of
+    the batch through ``parallel.mesh.data_parallel`` in the launch's
+    process group, the keypoints gathered."""
+    import torch
+
+    from lt_tpu_torch.engine import factory, steps
+    from lt_tpu_torch.ops.kernels import _build
+    from lt_tpu_torch.parallel import mesh
+    from lt_tpu_torch.utils import cfg
+    from lt_tpu_torch.utils.weights import (load_npz_variables,
+                                            volumetric_state_dict)
+
+    config = cfg.load_config(str(ROOT / SYNTH_YAML), {
+        "model.init_weights": False, "model.backbone.init_weights": False})
+    model = factory.make_model(config, device=dev)
+    model.load_state_dict(volumetric_state_dict(load_npz_variables(
+        str(ROOT / "tests" / "fixtures" / "vol_rn18_synth.npz")), 18))
+    criterion = factory.make_criterion(config)
+    optimizer = factory.make_optimizer(config, model)
+    batch = _fixture_ddp_batch(dev)
+    net, group = model, None
+    if data_parallel:
+        net = mesh.data_parallel(model, dev)
+        group = mesh.data_group(net)
+        batch = mesh.shard_batch(batch)
+    with deterministic_cudnn():
+        kp, _ = steps.eval_step(net, criterion, config, batch)
+    res = {"keypoints": mesh.gather_rows(kp, group).cpu(), "steps": []}
+    before = {k: p.detach().clone() for k, p in model.named_parameters()}
+    _build.reset_launches()
+    for _ in range(2):
+        with deterministic_cudnn():
+            metrics = steps.train_step(net, optimizer, criterion, config,
+                                       batch)
+        res["steps"].append({
+            "loss": metrics["total_loss"],
+            "grads": {k: p.grad.detach().cpu().clone()
+                      for k, p in model.named_parameters()
+                      if p.grad is not None},
+            "stats": {k: v.detach().cpu().clone()
+                      for k, v in model.state_dict().items()
+                      if "running" in k}})
+    res["launches"] = {k: _build.LAUNCHES[k] for k in TRAIN_KERNELS}
+    res["moved"] = {k: (p.detach() - before[k]).cpu()
+                    for k, p in model.named_parameters()}
+    return res
+
+
+def _ddp_rank_main(rank, port, out_prefix):
+    """A rank of [ddp 2 ranks]: gloo over the one card."""
+    sys.path.insert(0, str(ROOT))
+    import torch
+    import torch.distributed as dist
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            rank=rank, world_size=2)
+    try:
+        torch.save(fixture_ddp_run(dev, True), f"{out_prefix}{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def _ddp_distances(got, ref):
+    """Distances of one fixture_ddp_run from another: the eval keypoints
+    (max mm), and over both steps the loss (max relative), each of
+    GRAD_MODULES' gradients (max relative L2), the BatchNorm statistics
+    (max relative), the parameters' move (relative L2)."""
+    d = {"keypoints": (got["keypoints"] - ref["keypoints"]).abs().max()
+         .item(), "loss": 0.0, "stats": 0.0,
+         **{p: 0.0 for p in GRAD_MODULES}}
+    for g, e in zip(got["steps"], ref["steps"]):
+        d["loss"] = max(d["loss"], abs(g["loss"] - e["loss"]) / abs(e["loss"]))
+        for prefix in GRAD_MODULES:
+            d[prefix] = max(d[prefix], _grad_l2(g["grads"], e["grads"],
+                                                prefix))
+        d["stats"] = max(d["stats"], max(rel_err(g["stats"][k], v)[1]
+                                         for k, v in e["stats"].items()))
+    d["moved"] = _grad_l2(got["moved"], ref["moved"], GRAD_MODULES)
+    return d
+
+
+def ddp_two_ranks(dev, smi):
+    """[ddp 2 ranks]: fixture_ddp_run in two processes on the one card
+    (gloo: NCCL refuses two ranks on one GPU) against one process on the
+    same samples and rotations, and the one process against a second run
+    of itself (K6's atomics sum in no fixed order: the floor).  Each
+    distance of _ddp_distances within its DDP_LIMITS; K1, K5 and K6
+    launched once a step on every rank."""
+    import tempfile
+
+    import torch
+    import torch.multiprocessing as mp
+
+    t0 = time.perf_counter()
+    log(f"[ddp 2 ranks] {SYNTH_YAML} on vol_rn18_synth.npz, global batch "
+        f"{DDP_BATCH}, float32, cuDNN's deterministic algorithms: two ranks "
+        f"(gloo, one card) against one process")
+    ref = fixture_ddp_run(dev, False)
+    floor = _ddp_distances(fixture_ddp_run(dev, False), ref)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        prefix = str(Path(tmp) / "rank")
+        ctx = mp.start_processes(_ddp_rank_main, args=(_free_port(), prefix),
+                                 nprocs=2, join=False, start_method="spawn")
+        deadline = time.monotonic() + 300.0
+        while not ctx.join(timeout=1.0):
+            if time.monotonic() > deadline:
+                for proc in ctx.processes:
+                    proc.kill()
+                raise AssertionError("[ddp 2 ranks]: the ranks did not end "
+                                     "in 300 s")
+        ranks = [torch.load(f"{prefix}{r}.pt", weights_only=False)
+                 for r in range(2)]
+    for r, got in enumerate(ranks):
+        if any(n != 2 for n in got["launches"].values()):
+            raise AssertionError(f"[ddp 2 ranks] rank {r}: launches "
+                                 f"{got['launches']} in two steps")
+        d = _ddp_distances(got, ref)
+        log(f"  rank {r} (launches {got['launches']}), distance from one "
+            f"process / one process's from itself / limit:")
+        for k, limit in DDP_LIMITS.items():
+            log(f"    {k}: {d[k]:.3e} / {floor[k]:.3e} / {limit}")
+        bad = [k for k, limit in DDP_LIMITS.items() if d[k] > limit]
+        if bad:
+            raise AssertionError(f"[ddp 2 ranks] rank {r}: {bad} beyond "
+                                 f"their limits")
+    log(f"  the phase took {time.perf_counter() - t0:.1f} s; on {smi}")
+
+
+class _Recorder:
+    """A stand-in for a tensorboard writer that keeps the shape of each
+    image and the size of each histogram it is given."""
+
+    def __init__(self):
+        self.images, self.histograms = {}, {}
+
+    def add_image(self, tag, image, global_step=None):
+        self.images[tag] = tuple(image.shape)
+
+    def add_histogram(self, tag, values, global_step=None):
+        self.histograms[tag] = values.size
+
+
+def vis_phase(dev, smi):
+    """[vis]: the flagship's vis step (the eval-mode forward of
+    ``engine.steps.vis_step``: K1-K4) at TRAIN_BATCH, then
+    ``engine.train.log_vis_panels`` as the master calls it every
+    ``vis_freq`` steps (the vis step, the outputs and parameters to the
+    host, the panels where matplotlib imports), timed on the host, into a
+    writer that keeps what it is given (the card's installation may have
+    no tensorboardX: the engine then has no writer and draws nothing)."""
+    import importlib.util
+
+    import torch
+
+    from lt_tpu_torch.engine import factory, steps
+    from lt_tpu_torch.engine.train import log_vis_panels
+    from lt_tpu_torch.ops.kernels import _build
+    from lt_tpu_torch.utils import cfg
+    from lt_tpu_torch.utils.example import example_train_batch
+
+    config = cfg.load_config(str(ROOT / TRAIN_YAML),
+                             {"model.backbone.init_weights": False})
+    model = factory.make_model(config, device=dev, seed=0)
+    batch = example_train_batch(TRAIN_BATCH, config.image_shape[0], 17,
+                                seed=3)
+    tensors = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+    steps.vis_step(model, config, tensors)              # packs the weights
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    out = steps.vis_step(model, config, tensors)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3
+    missing = [k for k in EVAL_KERNELS["float32"] if not _build.LAUNCHES[k]]
+    if missing or not bool(out.volumes.isfinite().all()):
+        raise AssertionError(f"[vis] the vis step: kernels not launched "
+                             f"{missing}, or non-finite volumes")
+    have = {m: importlib.util.find_spec(m) is not None
+            for m in ("matplotlib", "tensorboardX")}
+    writer = _Recorder()
+    t0 = time.perf_counter()
+    log_vis_panels(writer, model, batch, tensors, config, 0)
+    total_ms = (time.perf_counter() - t0) * 1e3
+    n_params = len(list(model.parameters()))
+    want = 2 * min(TRAIN_BATCH, config.get("vis_n_elements", 2))
+    if len(writer.histograms) != n_params or (
+            have["matplotlib"] and len(writer.images) != want):
+        raise AssertionError(f"[vis] {len(writer.images)} panels and "
+                             f"{len(writer.histograms)} histograms, want "
+                             f"{want} and {n_params}")
+    log(f"[vis] {TRAIN_YAML} at batch {TRAIN_BATCH}: the vis step "
+        f"{step_ms:.1f} ms (host clock, K1-K4 launched); log_vis_panels "
+        f"{total_ms:.1f} ms: {len(writer.images)} panels "
+        f"{sorted(set(writer.images.values()))}, {len(writer.histograms)} "
+        f"histograms' values; installed {have}; on {smi}")
+
+
+# ---------------------------------------------------------------------------
 # The algebraic and RANSAC families (no kernel of the port on their path)
 # ---------------------------------------------------------------------------
 
@@ -2804,7 +3189,7 @@ def _dataset_path(config, yaml, overrides, per_forward, packing, dev, what,
     direct, idx, kp_errs, vol_rels = [], [], [], []
     with torch.no_grad(), deterministic_cudnn():
         for batch in it.epoch(0):
-            t, n_real = engine.device_batch(batch, dev, pad_to=val_bs)
+            t, n_real = engine.device_batch(batch, dev)
             pelvis = (t["keypoints_3d"] if config.model.get("use_gt_pelvis")
                       else t["pred_keypoints_3d"])
             args = (t["images"], t["proj_matrices"], pelvis)
@@ -2816,7 +3201,7 @@ def _dataset_path(config, yaml, overrides, per_forward, packing, dev, what,
             vol_rels.append(rel_err(vols, ref.volumes[:n_real])[1]
                             if bool(vols.isfinite().all()) else math.inf)
             direct.append(out.keypoints_3d[:n_real].cpu().numpy())
-            idx.append(batch["indexes"])
+            idx.append(batch["indexes"][:n_real])
             del out, ref
     direct = np.concatenate(direct)
     log(f"  kernel path vs the plain path, each batch of "
@@ -2848,7 +3233,7 @@ def _dataset_path(config, yaml, overrides, per_forward, packing, dev, what,
                                   DATA_SEED, train=False)
         it.prefetch = prefetch
         t0 = time.perf_counter()
-        count = sum(b["images"].shape[0] for b in it.epoch(0))
+        count = sum(int((b["indexes"] >= 0).sum()) for b in it.epoch(0))
         secs = time.perf_counter() - t0
         log(f"  loader alone (decode, crop, resize, normalize, collate; "
             f"{it.num_workers} threads, prefetch {prefetch}): {count} "
@@ -3408,6 +3793,12 @@ def main(argv=None) -> int:
 
     # Phase 9: the CLI's run on the synthetic config, one epoch, then resume.
     train_cli(dev)
+
+    # Phase 9b: data parallelism (one NCCL rank; two gloo ranks on the
+    # card) and the training panels.
+    ddp_nccl(dev, smi)
+    ddp_two_ranks(dev, smi)
+    vis_phase(dev, smi)
 
     # Phase 10: the algebraic and RANSAC families at the flagship width, on
     # the trained fixture, and the algebraic training step and CLI.

@@ -80,12 +80,32 @@ def prepare_batch(batch: Dict[str, np.ndarray]):
             batch["view_mask"])
 
 
+def _pad_rows(batch: Dict[str, np.ndarray], n: int, n_real: int) -> Dict:
+    """``batch`` with its last row repeated up to ``n`` rows (from its
+    first where it holds ``n_real`` = 0 real ones); the copies' ``indexes``
+    are -1."""
+    out = {k: np.concatenate([v[:n_real], np.repeat(v[-1:], n - n_real,
+                                                      axis=0)])
+           for k, v in batch.items()}
+    out["indexes"][n_real:] = -1
+    return out
+
+
 class BatchIterator:
     """Shuffled (or ordered) batches of a dataset, one epoch at a time,
     assembled ahead of the consumer.
 
     ``shard_id`` / ``num_shards`` take every ``num_shards``-th sample of
     the epoch's order, from ``shard_id`` (one shard a process).
+    ``rank`` / ``world_size`` (data parallelism): ``batch_size`` is the
+    global batch, and rank r loads only its rows [r b, (r + 1) b) of each,
+    b = batch_size / world_size, as ``lt_tpu``'s ``batch_sharding`` lays
+    the leading axis over its mesh.  Every rank consumes the one-process
+    iterator's random stream (the shuffle, ``randomize_n_views``' view
+    count and choice), so the ranks' rows together are its batches.
+    ``pad_last`` (with ``drop_last=False``) pads the last, short batch to
+    ``batch_size`` with copies of its last sample, whose ``indexes`` are
+    -1, so that every rank holds as many rows.
     ``prefetch > 0`` assembles up to that many batches ahead on a worker
     thread, so that decoding overlaps the device's work.  A dataset whose
     ``native_batches`` is true (Human3.6M with the native pipeline) loads
@@ -100,7 +120,12 @@ class BatchIterator:
                  randomize_n_views: bool = False,
                  min_n_views: Optional[int] = None,
                  max_n_views: Optional[int] = None,
-                 prefetch: int = 2, num_workers: int = 8):
+                 prefetch: int = 2, num_workers: int = 8,
+                 rank: int = 0, world_size: int = 1,
+                 pad_last: bool = False):
+        if batch_size % world_size:
+            raise ValueError(f"batch size {batch_size} does not split over "
+                             f"{world_size} ranks")
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -113,6 +138,9 @@ class BatchIterator:
         self.max_n_views = max_n_views
         self.prefetch = prefetch
         self.num_workers = num_workers
+        self.rank = rank
+        self.world_size = world_size
+        self.pad_last = pad_last
         self._pool = None
 
     def __len__(self):
@@ -145,8 +173,14 @@ class BatchIterator:
         order = order[self.shard_id::self.num_shards]
         n_full = len(order) // self.batch_size
         limit = n_full * self.batch_size if self.drop_last else len(order)
+        n = self.batch_size // self.world_size
         for start in range(0, limit, self.batch_size):
-            out = self._make_batch(order[start:start + self.batch_size], rng)
+            idxs = order[start:start + self.batch_size]
+            rows = idxs[self.rank * n:(self.rank + 1) * n]
+            pad = n - len(rows) if self.pad_last else 0
+            out = self._make_batch(rows if len(rows) else idxs[-1:], rng)
+            if out is not None and pad:
+                out = _pad_rows(out, n, len(rows))
             if out is not None:
                 yield out
 

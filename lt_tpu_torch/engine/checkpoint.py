@@ -4,6 +4,12 @@ augmentation generator, with ``torch.save``.
 Port of ``lt_tpu/engine/checkpoint.py`` (Orbax there): a checkpoint is the
 whole train state, so a run resumes exactly where it stopped.  Epoch
 directories are ``checkpoints/{epoch:04d}`` as in ``lt_tpu``.
+
+Under data parallelism every rank calls :func:`save_checkpoint`: the
+master writes and the others wait for it at a barrier; every rank
+restores.  A ``DistributedDataParallel`` model is saved and restored as
+the module inside it, so its names carry no ``module.`` and a checkpoint
+resumes on any world size.
 """
 
 from __future__ import annotations
@@ -13,19 +19,24 @@ from typing import Optional
 
 import torch
 
+from lt_tpu_torch.parallel.mesh import barrier, is_master, unwrap
+
 STATE_FILE = "state.pt"
 
 
 def save_checkpoint(directory: str, model, optimizer, step: int,
                     generator: torch.Generator) -> str:
-    """Write the train state to ``directory/state.pt``; returns the path."""
-    os.makedirs(directory, exist_ok=True)
+    """Write the train state to ``directory/state.pt`` on the master, then
+    wait for it on every rank; returns the path."""
     path = os.path.join(directory, STATE_FILE)
-    tmp = path + ".tmp"
-    torch.save({"model": model.state_dict(),
-                "optimizer": optimizer.state_dict(), "step": int(step),
-                "generator": generator.get_state()}, tmp)
-    os.replace(tmp, path)
+    if is_master():
+        os.makedirs(directory, exist_ok=True)
+        tmp = path + ".tmp"
+        torch.save({"model": unwrap(model).state_dict(),
+                    "optimizer": optimizer.state_dict(), "step": int(step),
+                    "generator": generator.get_state()}, tmp)
+        os.replace(tmp, path)
+    barrier()
     return path
 
 
@@ -45,7 +56,7 @@ def restore_checkpoint(directory: str, model, optimizer,
     """Load a state written by :func:`save_checkpoint` into ``model``,
     ``optimizer`` and ``generator``; returns the step."""
     state = _load_state(directory)
-    model.load_state_dict(state["model"])
+    unwrap(model).load_state_dict(state["model"])
     optimizer.load_state_dict(state["optimizer"])
     generator.set_state(state["generator"])
     return state["step"]

@@ -5,6 +5,11 @@ volumetric model, the weighted volumetric CE and ``base_point_l2``, with
 the reference's keypoint scaling, and the ``l2`` metric; one train step is
 forward, loss, backward, clipping and the Adam update.  The model family
 is ``config.model.name``: only 'vol' takes a pelvis and rotations.
+
+A model that ``lt_tpu_torch.parallel.mesh.data_parallel`` wrapped trains
+on this rank's rows of the global batch as ``lt_tpu`` trains on a batch
+sharded over its mesh: the losses' normalizers and the logged metrics are
+global, and the gradient is the global loss's.
 """
 
 from __future__ import annotations
@@ -15,6 +20,9 @@ from typing import Dict, Optional
 import torch
 
 from lt_tpu_torch.models import losses
+from lt_tpu_torch.models.triangulation import draw_rotation_thetas
+from lt_tpu_torch.parallel.mesh import (all_sum, data_group, rank, unwrap,
+                                        world_size)
 
 
 def model_outputs(model, batch: Dict[str, torch.Tensor], config,
@@ -80,10 +88,12 @@ def _single_view_relative(kp_pred, kp_gt, base_joint: int):
     return pred, gt
 
 
-def compute_losses(criterion, config, out, batch):
+def compute_losses(criterion, config, out, batch, group=None):
     """(total loss, metrics): the criterion on scaled keypoints, plus for
     the volumetric model the weighted volumetric CE where
-    ``opt.use_volumetric_ce_loss`` and ``base_point_l2``."""
+    ``opt.use_volumetric_ce_loss`` and ``base_point_l2``.  With a
+    data-parallel ``group`` every normalizer is global and each value is
+    this rank's share of the global one (their sum over the ranks)."""
     vol = config.model.name == "vol"
     kp_pred = out.keypoints_3d
     kp_gt = batch["keypoints_3d"][:, :, :3]
@@ -95,13 +105,13 @@ def compute_losses(criterion, config, out, batch):
         kp_pred, kp_gt = _single_view_relative(kp_pred, kp_gt, base_joint)
 
     metrics = {}
-    loss = criterion(kp_pred * scale, kp_gt * scale, validity)
+    loss = criterion(kp_pred * scale, kp_gt * scale, validity, group=group)
     metrics[config.opt.criterion] = loss
     total = loss
 
     if vol and config.opt.get("use_volumetric_ce_loss", False):
         ce = losses.volumetric_ce_loss(out.coord_volumes, out.volumes, kp_gt,
-                                       validity)
+                                       validity, group)
         metrics["volumetric_ce_loss"] = ce
         total = total + config.opt.get("volumetric_ce_loss_weight", 1.0) * ce
 
@@ -117,11 +127,11 @@ def compute_losses(criterion, config, out, batch):
         # Samples with no valid joint (a padded eval tail) count for nothing.
         w = (validity.sum((1, 2)) > 0.0).to(validity.dtype)
         metrics["base_point_l2"] = ((diff ** 2).sum(-1).sqrt() * w).sum() \
-            / w.sum().clamp_min(1.0)
+            / all_sum(w.sum(), group).clamp_min(1.0)
 
     metrics["total_loss"] = total
     metrics["l2"] = losses.keypoints_l2_loss(kp_pred * scale, kp_gt * scale,
-                                             validity)
+                                             validity, group)
     return total, metrics
 
 
@@ -136,6 +146,17 @@ def train_step(model, optimizer, criterion, config,
     loss that no parameter reaches (RANSAC's hard argmax) has gradients of
     0, as in ``lt_tpu``: the step then updates only the BatchNorm
     statistics.
+
+    ``model`` may be a ``data_parallel`` wrapper: ``batch`` is then this
+    rank's rows, the volumetric model's rotations are this rank's rows of
+    the global batch's draw, each rank's backward starts from the world
+    size times its share of the global loss (the wrapper averages the
+    gradients over the ranks), and the norm and the clipping see the
+    reduced gradients.
+
+    ``debug_nans: true`` in the config: a non-finite metric (before the
+    backward) or gradient norm (before Adam) raises
+    ``FloatingPointError``, as ``jax_debug_nans`` stops ``lt_tpu``.
 
     ``bf16: true`` on the CPU: the volumetric model's step raises
     ``RuntimeError`` where :func:`cpu_bf16_conv3d_fault` finds this
@@ -152,44 +173,67 @@ def train_step(model, optimizer, criterion, config,
                 f"bfloat16 conv3d weight gradient is wrong at V2V's 2^3 "
                 f"level ({fault}); train in float32 on the CPU, or on the "
                 f"card")
+    group = data_group(model)
+    if (group is not None and config.model.name == "vol"
+            and generator is not None and "rotation_thetas" not in batch):
+        batch = {**batch, "rotation_thetas": draw_rotation_thetas(
+            batch["images"].shape[0], generator, rank(group),
+            world_size(group))}
     model.train()
     out = model_outputs(model, batch, config, generator)
-    total, metrics = compute_losses(criterion, config, out, batch)
+    total, metrics = compute_losses(criterion, config, out, batch, group)
+    names = list(metrics)
+    values = all_sum(torch.stack([metrics[k].detach().double()
+                                  for k in names]), group)
+    debug = bool(config.get("debug_nans", False))
+    if debug and not bool(values.isfinite().all()):
+        raise FloatingPointError(f"debug_nans: non-finite metrics "
+                                 f"{dict(zip(names, values.tolist()))}")
     optimizer.zero_grad(set_to_none=True)
-    params = [p for group in optimizer.param_groups for p in group["params"]]
+    params = [p for g in optimizer.param_groups for p in g["params"]]
     if total.requires_grad:
-        total.backward()
+        (total if group is None else total * world_size(group)).backward()
     else:
         for p in params:
             p.grad = torch.zeros_like(p)
     lr = config.opt.lr
     norm = torch.nn.utils.get_total_norm(
         [p.grad for p in params if p.grad is not None])
-    if (_bf16(config) and not norm.is_cuda
+    if ((debug or (_bf16(config) and not norm.is_cuda))
             and not bool(torch.isfinite(norm))):
         raise FloatingPointError(
-            f"bf16: true on the CPU: the gradients' norm is {float(norm)}; "
-            f"the step is refused (torch {torch.__version__}: see "
+            f"the gradients' norm is {float(norm)}; the step is refused "
+            f"({'debug_nans: true' if debug else 'bf16: true on the CPU'}"
+            f", torch {torch.__version__}: see "
             f"lt_tpu_torch.engine.steps.train_step)")
     if config.opt.get("grad_clip") is not None:
         max_norm = config.opt.grad_clip / lr
         torch.nn.utils.clip_grads_with_norm_(params, max_norm, norm)
         norm = norm.clamp_max(max_norm)
     optimizer.step()
-    metrics["grad_norm_times_lr"] = norm * lr
-    return _to_floats(metrics)
+    values = torch.cat([values, (norm * lr).double().view(1).to(
+        values.device)])
+    return dict(zip(names + ["grad_norm_times_lr"], values.tolist()))
 
 
 @torch.no_grad()
 def eval_step(model, criterion, config, batch: Dict[str, torch.Tensor]):
-    """(keypoints (B, J, 3), metrics as floats) of the eval forward."""
-    model.eval()
-    out = model_outputs(model, batch, config)
-    _, metrics = compute_losses(criterion, config, out, batch)
-    return out.keypoints_3d, _to_floats(metrics)
+    """(keypoints (B, J, 3), metrics as floats) of the eval forward; for a
+    ``data_parallel`` model, this rank's keypoints and the global
+    metrics."""
+    group = data_group(model)
+    net = unwrap(model).eval()
+    out = model_outputs(net, batch, config)
+    _, metrics = compute_losses(criterion, config, out, batch, group)
+    values = all_sum(torch.stack([v.detach().double()
+                                  for v in metrics.values()]), group)
+    return out.keypoints_3d, dict(zip(metrics, values.tolist()))
 
 
-def _to_floats(metrics: dict) -> dict:
-    """Scalar tensors -> floats with one device-to-host copy."""
-    values = torch.stack([v.detach().double() for v in metrics.values()])
-    return dict(zip(metrics, values.tolist()))
+@torch.no_grad()
+def vis_step(model, config, batch: Dict[str, torch.Tensor]):
+    """The eval-mode forward's whole output (heatmaps or volumes,
+    confidences, base points) for the training panels: ``lt_tpu``'s
+    ``make_vis_step`` (``lt_tpu/engine/steps.py:171-182``).  No collective
+    runs: one rank may call it alone."""
+    return model_outputs(unwrap(model).eval(), batch, config)

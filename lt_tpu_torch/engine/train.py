@@ -11,10 +11,22 @@ Panoptic and synthetic datasets and the three model families of
 reference ``.pth`` (whole-model or backbone), an ``lt_tpu`` ``.npz``
 fixture or one of the port's checkpoint directories
 (:func:`init_model_state`).
+
+Under ``torchrun`` (``lt_tpu_torch.parallel``) the run is data parallel
+as ``lt_tpu``'s mesh is: ``opt.batch_size`` is the global batch, each rank
+loads, trains on and evaluates its rows of it, and the master writes.
+Besides ``metrics.jsonl`` the master's scalars go to a tensorboard writer
+under ``tb/`` (where tensorboardX imports), with the config's text and,
+every ``vis_freq`` training steps, the keypoint, heatmap and volume panels
+and the parameters' histograms.  ``debug_nans: true`` runs under autograd's
+anomaly mode and refuses a step with a non-finite loss or gradient norm;
+``profile_dir`` holds a ``torch.profiler`` trace of the first epoch's
+training steps.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import pickle
@@ -31,16 +43,20 @@ from lt_tpu_torch import resolve_device
 from lt_tpu_torch.data.batch import BatchIterator, prepare_batch
 from lt_tpu_torch.engine import checkpoint as ckpt
 from lt_tpu_torch.engine import factory
-from lt_tpu_torch.engine.steps import eval_step, train_step
+from lt_tpu_torch.engine.steps import eval_step, train_step, vis_step
+from lt_tpu_torch.parallel import mesh
 from lt_tpu_torch.utils import cfg as cfg_lib
 from lt_tpu_torch.utils import weights
 
 
-def setup_experiment(config_path: str, logdir: str, title: str,
-                     model_name: str, is_train: bool = True) -> str:
+def setup_experiment(config, config_path: str, logdir: str,
+                     model_name: str, is_train: bool = True):
     """Create ``logdir/[eval_]<title>_<model_name>@<time>`` (the model's
     class name) with a ``checkpoints/`` directory and a copy of the
-    config."""
+    config; returns it and a tensorboardX writer under its ``tb/`` that
+    holds the config's text, or None where tensorboardX does not
+    import."""
+    title = config.get("title", "")
     name = "{}{}{}@{}".format(
         "" if is_train else "eval_", f"{title}_" if title else "",
         model_name, datetime.now().strftime("%d.%m.%Y-%H.%M.%S"))
@@ -48,23 +64,37 @@ def setup_experiment(config_path: str, logdir: str, title: str,
     os.makedirs(os.path.join(experiment_dir, "checkpoints"), exist_ok=True)
     if config_path and os.path.isfile(config_path):
         shutil.copy(config_path, os.path.join(experiment_dir, "config.yaml"))
-    return experiment_dir
+    try:
+        from tensorboardX import SummaryWriter
+    except ImportError as e:
+        print(f"No tensorboard writer: {e}")
+        return experiment_dir, None
+    writer = SummaryWriter(os.path.join(experiment_dir, "tb"))
+    writer.add_text("config", cfg_lib.config_to_str(config), 0)
+    return experiment_dir, writer
 
 
 class MetricLogger:
-    """JSON-lines scalar log: one ``{"tag", "step", ...}`` record a line."""
+    """Scalars to ``metrics.jsonl`` (one ``{"tag", "step", ...}`` record a
+    line) and, as ``<tag>/<name>``, to a tensorboard ``writer``."""
 
-    def __init__(self, experiment_dir: str):
+    def __init__(self, experiment_dir: str, writer=None):
+        self.writer = writer
         self.file = open(os.path.join(experiment_dir, "metrics.jsonl"), "a")
 
     def log(self, tag: str, scalars: dict, step: int) -> None:
-        record = {"tag": tag, "step": step,
-                  **{k: float(v) for k, v in scalars.items()}}
-        self.file.write(json.dumps(record) + "\n")
+        scalars = {k: float(v) for k, v in scalars.items()}
+        if self.writer is not None:
+            for name, value in scalars.items():
+                self.writer.add_scalar(f"{tag}/{name}", value, step)
+        self.file.write(json.dumps({"tag": tag, "step": step, **scalars})
+                        + "\n")
         self.file.flush()
 
     def close(self) -> None:
         self.file.close()
+        if self.writer is not None:
+            self.writer.close()
 
 
 def make_datasets(config, is_train: bool = True):
@@ -125,22 +155,25 @@ def make_datasets(config, is_train: bool = True):
 
 
 def make_iterator(dataset, split_cfg, batch_size: int, seed: int,
-                  train: bool) -> BatchIterator:
-    """The split's iterator: training shuffles (``shuffle``, default on),
-    drops the ragged tail and masks views (``randomize_n_views``,
-    ``min_n_views``, ``max_n_views``); evaluation keeps the order and the
-    tail.  ``num_workers`` sizes the loading pool of a dataset that reads
-    files (default 8)."""
-    workers = split_cfg.get("num_workers") or 8
+                  train: bool, rank: int = 0,
+                  world_size: int = 1) -> BatchIterator:
+    """The split's iterator of global batches of ``batch_size``, of which
+    it loads rank ``rank``'s rows: training shuffles (``shuffle``, default
+    on), drops the ragged tail and masks views (``randomize_n_views``,
+    ``min_n_views``, ``max_n_views``); evaluation keeps the order and pads
+    the tail to ``batch_size`` (rows whose ``indexes`` are -1).
+    ``num_workers`` sizes the loading pool of a dataset that reads files
+    (default 8)."""
+    common = dict(seed=seed, num_workers=split_cfg.get("num_workers") or 8,
+                  rank=rank, world_size=world_size)
     if not train:
         return BatchIterator(dataset, batch_size, shuffle=False,
-                             drop_last=False, seed=seed, num_workers=workers)
+                             drop_last=False, pad_last=True, **common)
     return BatchIterator(
         dataset, batch_size, shuffle=split_cfg.get("shuffle", True),
-        seed=seed, randomize_n_views=split_cfg.get("randomize_n_views",
-                                                   False),
+        randomize_n_views=split_cfg.get("randomize_n_views", False),
         min_n_views=split_cfg.get("min_n_views"),
-        max_n_views=split_cfg.get("max_n_views"), num_workers=workers)
+        max_n_views=split_cfg.get("max_n_views"), **common)
 
 
 def _load_matching(model: torch.nn.Module, src: dict) -> int:
@@ -211,11 +244,11 @@ def init_model_state(config, model: torch.nn.Module) -> dict:
     return report
 
 
-def device_batch(batch: dict, device, pad_to: Optional[int] = None):
+def device_batch(batch: dict, device):
     """A collated numpy batch -> the step's dict of tensors on ``device``,
-    and the count of real samples.  ``pad_to`` repeats the last sample up
-    to that size with zero keypoint validity, so that the padding counts
-    for nothing in any loss or metric."""
+    and the count of real samples.  The padding rows of an eval batch
+    (``indexes`` -1, copies of its last sample) get zero keypoint
+    validity, so that they count for nothing in any loss or metric."""
     images, kp_gt, validity, proj, view_mask = prepare_batch(batch)
     out = {"images": images,
            "keypoints_3d": np.concatenate([kp_gt, validity], -1),
@@ -223,22 +256,25 @@ def device_batch(batch: dict, device, pad_to: Optional[int] = None):
            "view_mask": view_mask}
     if "pred_keypoints_3d" in batch:
         out["pred_keypoints_3d"] = np.asarray(batch["pred_keypoints_3d"])
-    n_real = int(images.shape[0])
-    if pad_to is not None and n_real < pad_to:
-        pad = pad_to - n_real
-        out = {k: np.concatenate([v, np.repeat(v[-1:], pad, axis=0)])
-               for k, v in out.items()}
-        out["keypoints_validity"][n_real:] = 0.0
-        out["keypoints_3d"][n_real:, :, 3:] = 0.0
+    pad = np.asarray(batch["indexes"]) < 0
+    if pad.any():
+        out["keypoints_validity"] = np.where(pad[:, None, None], 0.0,
+                                             validity)
+        out["keypoints_3d"] = out["keypoints_3d"].copy()
+        out["keypoints_3d"][pad, :, 3:] = 0.0
     return ({k: torch.from_numpy(np.ascontiguousarray(v, np.float32)).to(
-        device) for k, v in out.items()}, n_real)
+        device) for k, v in out.items()}, int((~pad).sum()))
 
 
 def train_epoch(model, optimizer, criterion, config, iterator, epoch: int,
-                generator: torch.Generator, logger: MetricLogger,
+                generator: torch.Generator, logger: Optional[MetricLogger],
                 n_iters_total: int, device) -> int:
-    """One training epoch; returns the updated step count."""
+    """One training epoch on this rank's rows; returns the updated step
+    count.  The master logs each step's global metrics and, every
+    ``vis_freq`` steps where it has a writer, the panels of
+    :func:`log_vis_panels`."""
     n_iters = config.opt.get("n_iters_per_epoch")
+    vis_freq = config.get("vis_freq")
     end = time.time()
     for i, batch in enumerate(iterator.epoch(epoch)):
         if n_iters is not None and i >= n_iters:
@@ -247,19 +283,77 @@ def train_epoch(model, optimizer, criterion, config, iterator, epoch: int,
         tensors, _ = device_batch(batch, device)
         metrics = train_step(model, optimizer, criterion, config, tensors,
                              generator)
-        logger.log("train", {**metrics, "batch_time": time.time() - end,
-                             "data_time": data_time,
-                             "batch_size": batch["images"].shape[0],
-                             "n_views": batch["images"].shape[1]},
-                   n_iters_total)
+        if logger is not None:
+            logger.log("train", {**metrics, "batch_time": time.time() - end,
+                                 "data_time": data_time,
+                                 "batch_size": iterator.batch_size,
+                                 "n_views": batch["images"].shape[1]},
+                       n_iters_total)
+            if (vis_freq and logger.writer is not None
+                    and n_iters_total % vis_freq == 0):
+                log_vis_panels(logger.writer, model, batch, tensors, config,
+                               n_iters_total)
         end = time.time()
         n_iters_total += 1
-    _print_fallbacks(iterator.dataset)
+    if logger is not None:
+        _print_fallbacks(iterator.dataset)
     return n_iters_total
 
 
+def log_vis_panels(writer, model, batch, tensors, config, step: int) -> None:
+    """``lt_tpu``'s training panels (``lt_tpu/engine/train.py:363-411``)
+    for the first ``vis_n_elements`` samples of ``batch`` (default 2):
+    ``train/keypoints_vis/<i>`` (with the volumetric model's cuboid),
+    ``train/heatmaps_vis/<i>`` and ``train/volumes_vis/<i>`` where the
+    model outputs them, and a ``model/<name>`` histogram of each
+    parameter.  The eval-mode forward runs outside any handler; where
+    the panels cannot be drawn (no matplotlib) it prints why and goes
+    on."""
+    out = vis_step(model, config, tensors)
+    kp_pred = out.keypoints_3d.float().cpu().numpy()
+    cuboids = None
+    if config.model.name == "vol":
+        side = config.model.get("cuboid_side", 2500.0)
+        sides = np.array([side] * 3, np.float32)
+        cuboids = (out.base_points.float().cpu().numpy() - sides / 2.0,
+                   sides)
+    maps = {name: getattr(out, name, None)
+            for name in ("keypoints_2d", "confidences", "heatmaps",
+                         "volumes")}
+    maps = {k: None if v is None else v.float().cpu().numpy()
+            for k, v in maps.items()}
+    params = {name.replace(".", "/"): p.detach().float().cpu().numpy()
+              for name, p in mesh.unwrap(model).named_parameters()}
+    kind = config.get("kind", "human36m")
+    n = min(batch["images"].shape[0], config.get("vis_n_elements", 2))
+    try:
+        from lt_tpu_torch.utils import vis
+
+        for bi in range(n):
+            panels = {"keypoints": vis.visualize_batch(
+                batch["images"], None, maps["keypoints_2d"],
+                batch["proj_matrices"], batch["keypoints_3d"][:, :, :3],
+                kp_pred, kind=kind, confidences=maps["confidences"],
+                cuboids=cuboids, batch_index=bi)}
+            if maps["heatmaps"] is not None:
+                panels["heatmaps"] = vis.visualize_heatmaps(
+                    batch["images"], maps["heatmaps"], kind=kind,
+                    batch_index=bi)
+            if maps["volumes"] is not None:
+                panels["volumes"] = vis.visualize_volumes(
+                    batch["images"], maps["volumes"],
+                    batch["proj_matrices"], kind=kind, batch_index=bi)
+            for name, panel in panels.items():
+                writer.add_image(f"train/{name}_vis/{bi}",
+                                 panel.transpose(2, 0, 1), global_step=step)
+    except Exception as e:  # the panels never stop training (lt_tpu :410)
+        print("vis logging failed:", repr(e))
+    for name, value in params.items():
+        writer.add_histogram(f"model/{name}", value, step)
+
+
 def eval_epoch(model, criterion, config, iterator, dataset, epoch: int,
-               experiment_dir: str, logger: MetricLogger, device):
+               experiment_dir: str, logger: Optional[MetricLogger], device):
     """One eval pass over ``iterator``: the dataset's evaluation of the
     predictions in the dataset's order (``_partial_evaluate`` where the
     pass covers a subset), the per-batch metrics weighted by real samples,
@@ -267,25 +361,35 @@ def eval_epoch(model, criterion, config, iterator, dataset, epoch: int,
     Each batch's ``data_time`` (waiting on the loader) and ``batch_time``
     go to ``metrics.jsonl`` as a ``val_batch`` record.  Where the
     evaluation fails it prints why and carries on with a metric of 0 and
-    an empty ``metric.json``, as the reference does."""
+    an empty ``metric.json``, as the reference does.
+
+    Under data parallelism each rank runs its rows of each (padded) batch
+    and every rank gathers the keypoints and evaluates; the master writes
+    (``logger`` None elsewhere)."""
+    group = mesh.data_group(model)
     results = defaultdict(list)
     metric_means = defaultdict(list)
     end = time.time()
     for batch in iterator.epoch(0):
         data_time = time.time() - end
-        tensors, n_real = device_batch(batch, device,
-                                       pad_to=iterator.batch_size)
+        tensors, _ = device_batch(batch, device)
         keypoints, metrics = eval_step(model, criterion, config, tensors)
-        results["keypoints_3d"].append(keypoints.cpu().numpy()[:n_real])
-        results["indexes"].append(np.asarray(batch["indexes"]))
+        keypoints = mesh.gather_rows(keypoints, group)
+        indexes = mesh.gather_rows(torch.as_tensor(
+            np.asarray(batch["indexes"], np.int64), device=keypoints.device),
+            group)
+        real = indexes >= 0
+        results["keypoints_3d"].append(keypoints[real].cpu().numpy())
+        results["indexes"].append(indexes[real].cpu().numpy())
+        n_real = int(real.sum())
         for k, v in metrics.items():
             metric_means[k].append((v, n_real))
-        logger.log("val_batch", {"data_time": data_time,
-                                 "batch_time": time.time() - end,
-                                 "batch_size": n_real}, epoch)
+        if logger is not None:
+            logger.log("val_batch", {"data_time": data_time,
+                                     "batch_time": time.time() - end,
+                                     "batch_size": n_real}, epoch)
         end = time.time()
     results = {k: np.concatenate(v) for k, v in results.items()}
-    _print_fallbacks(dataset)
 
     scalar, full = 0.0, {}
     try:
@@ -299,7 +403,10 @@ def eval_epoch(model, criterion, config, iterator, dataset, epoch: int,
                 kind=config.get("kind", "human36m"))
     except Exception as e:  # the reference's behaviour (train.py:342-346)
         print("Failed to evaluate. Reason:", e)
+    if logger is None:
+        return scalar, full
 
+    _print_fallbacks(dataset)
     checkpoint_dir = os.path.join(experiment_dir, "checkpoints",
                                   f"{epoch:04}")
     os.makedirs(checkpoint_dir, exist_ok=True)
@@ -348,17 +455,38 @@ def run(config_path: str, logdir: str, eval_only: bool = False,
         max_epochs: Optional[int] = None, resume_dir: Optional[str] = None,
         overrides: Optional[dict] = None, device="cuda") -> float:
     """Train (or, with ``eval_only``, evaluate) the configured model on
-    ``device``; returns the last validation metric (rel MPJPE, mm)."""
+    ``device``; returns the last validation metric (rel MPJPE, mm).
+
+    In a process group of several ranks (``lt_tpu_torch.train`` under
+    ``torchrun``) the run is data parallel unless ``data_parallel: false``
+    (then every rank runs the whole batch and only the master writes):
+    ``opt.batch_per_device: true`` scales both batch sizes by the world
+    size, which must divide them (``ValueError`` otherwise: a rank cannot
+    idle, as ``lt_tpu``'s spare devices do)."""
     dev = resolve_device(device)
     config = cfg_lib.load_config(config_path, overrides)
+    ranks = mesh.world_size() if config.get("data_parallel", True) else 1
+    if config.opt.get("batch_per_device") and ranks > 1:
+        config.opt.batch_size *= ranks
+        if config.opt.get("val_batch_size") is not None:
+            config.opt.val_batch_size *= ranks
+    val_batch = config.opt.get("val_batch_size", config.opt.batch_size)
+    if config.opt.batch_size % ranks or val_batch % ranks:
+        raise ValueError(
+            f"{ranks} ranks do not divide the batch sizes (opt.batch_size "
+            f"{config.opt.batch_size}, opt.val_batch_size {val_batch}): each "
+            f"rank holds as many rows of a global batch; pick sizes "
+            f"divisible by {ranks} or set opt.batch_per_device: true")
     if config.opt.get("n_objects_per_epoch") is not None:
         config.opt.n_iters_per_epoch = (config.opt.n_objects_per_epoch
                                         // config.opt.batch_size)
+    master = mesh.is_master()
 
     model = factory.make_model(config, device=dev, seed=seed)
     for part, r in init_model_state(config, model).items():
-        print(f"Loaded {part} weights from {r['path']}: {r['loaded']} "
-              f"tensors, {len(r['unused'])} of its entries unused")
+        if master:
+            print(f"Loaded {part} weights from {r['path']}: {r['loaded']} "
+                  f"tensors, {len(r['unused'])} of its entries unused")
     criterion = factory.make_criterion(config)
     optimizer = factory.make_optimizer(config, model)
     generator = torch.Generator().manual_seed(seed + 1)
@@ -366,16 +494,16 @@ def run(config_path: str, logdir: str, eval_only: bool = False,
     need_train = (not eval_only) or eval_dataset == "train"
     train_ds, val_ds = make_datasets(config, is_train=need_train)
     decoder = getattr(val_ds, "decoder", None)
-    if decoder:
+    if decoder and master:
         print(f"Image decoder: {decoder}")
+    shard = dict(rank=mesh.rank() if ranks > 1 else 0, world_size=ranks)
     train_it = None
     if train_ds is not None:
         train_it = make_iterator(train_ds, config.dataset.train,
-                                 config.opt.batch_size, seed, train=True)
-    val_it = make_iterator(val_ds, config.dataset.val,
-                           config.opt.get("val_batch_size",
-                                          config.opt.batch_size),
-                           seed, train=False)
+                                 config.opt.batch_size, seed, train=True,
+                                 **shard)
+    val_it = make_iterator(val_ds, config.dataset.val, val_batch, seed,
+                           train=False, **shard)
 
     step, start_epoch = 0, 0
     path = config.model.get("checkpoint")
@@ -383,38 +511,78 @@ def run(config_path: str, logdir: str, eval_only: bool = False,
             and not path.endswith((".pth", ".npz"))):
         latest = ckpt.resolve_checkpoint_dir(path)
         step = ckpt.restore_checkpoint(latest, model, optimizer, generator)
-        print(f"Restored the train state of {latest} (step {step})")
+        if master:
+            print(f"Restored the train state of {latest} (step {step})")
     if resume_dir:
         latest = ckpt.resolve_checkpoint_dir(resume_dir)
         step = ckpt.restore_checkpoint(latest, model, optimizer, generator)
         start_epoch = int(os.path.basename(latest)) + 1
-        print(f"Resumed from {latest} (epoch {start_epoch}, step {step})")
+        if master:
+            print(f"Resumed from {latest} (epoch {start_epoch}, step "
+                  f"{step})")
+    net = model
+    if ranks > 1:
+        net = mesh.data_parallel(model, dev)
+        if master:
+            print(f"Data parallel over {ranks} ranks "
+                  f"({config.opt.batch_size // ranks} samples a rank)")
 
-    experiment_dir = setup_experiment(config_path, logdir,
-                                      config.get("title", ""),
-                                      type(model).__name__,
-                                      is_train=not eval_only)
-    logger = MetricLogger(experiment_dir)
+    experiment_dir, logger = None, None
+    if master:
+        experiment_dir, writer = setup_experiment(
+            config, config_path, logdir, type(model).__name__,
+            is_train=not eval_only)
+        logger = MetricLogger(experiment_dir, writer)
+    experiment_dir = mesh.broadcast_object(experiment_dir)
+    profile_dir = config.get("profile_dir")
     try:
-        if eval_only:
-            it, ds = ((train_it, train_ds) if eval_dataset == "train"
-                      else (val_it, val_ds))
-            scalar, _ = eval_epoch(model, criterion, config, it, ds, 0,
-                                   experiment_dir, logger, dev)
-            print(f"Eval metric (MPJPE rel, mm): {scalar:.3f}")
+        with torch.autograd.set_detect_anomaly(
+                bool(config.get("debug_nans", False))):
+            if eval_only:
+                it, ds = ((train_it, train_ds) if eval_dataset == "train"
+                          else (val_it, val_ds))
+                scalar, _ = eval_epoch(net, criterion, config, it, ds, 0,
+                                       experiment_dir, logger, dev)
+                if master:
+                    print(f"Eval metric (MPJPE rel, mm): {scalar:.3f}")
+                return scalar
+            n_epochs = config.opt.n_epochs if max_epochs is None else min(
+                config.opt.n_epochs, max_epochs)
+            scalar = None
+            for epoch in range(start_epoch, n_epochs):
+                with _profiled(profile_dir if epoch == start_epoch else None,
+                               dev):
+                    step = train_epoch(net, optimizer, criterion, config,
+                                       train_it, epoch, generator, logger,
+                                       step, dev)
+                scalar, _ = eval_epoch(net, criterion, config, val_it,
+                                       val_ds, epoch, experiment_dir, logger,
+                                       dev)
+                ckpt.save_checkpoint(os.path.join(
+                    experiment_dir, "checkpoints", f"{epoch:04}"), net,
+                    optimizer, step, generator)
+                if master:
+                    print(f"epoch {epoch}: val MPJPE rel = {scalar:.3f} mm")
             return scalar
-        n_epochs = config.opt.n_epochs if max_epochs is None else min(
-            config.opt.n_epochs, max_epochs)
-        scalar = None
-        for epoch in range(start_epoch, n_epochs):
-            step = train_epoch(model, optimizer, criterion, config, train_it,
-                               epoch, generator, logger, step, dev)
-            scalar, _ = eval_epoch(model, criterion, config, val_it, val_ds,
-                                   epoch, experiment_dir, logger, dev)
-            ckpt.save_checkpoint(os.path.join(
-                experiment_dir, "checkpoints", f"{epoch:04}"), model,
-                optimizer, step, generator)
-            print(f"epoch {epoch}: val MPJPE rel = {scalar:.3f} mm")
-        return scalar
     finally:
-        logger.close()
+        if logger is not None:
+            logger.close()
+
+
+@contextlib.contextmanager
+def _profiled(profile_dir: Optional[str], device):
+    """A ``torch.profiler`` trace (CPU, and CUDA on a GPU) of the block,
+    written under ``profile_dir`` for tensorboard's profiler (one
+    ``*.pt.trace.json`` a rank); nothing where ``profile_dir`` is None."""
+    if not profile_dir:
+        yield
+        return
+    from torch.profiler import (ProfilerActivity, profile,
+                                tensorboard_trace_handler)
+
+    activities = [ProfilerActivity.CPU]
+    if device.type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities,
+                 on_trace_ready=tensorboard_trace_handler(profile_dir)):
+        yield

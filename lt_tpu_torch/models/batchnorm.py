@@ -13,6 +13,13 @@ the input is bfloat16 and the weights and running statistics float32:
 ``F.batch_norm`` reduces and normalizes in float32 and rounds its output
 to bfloat16 once, and the running statistics stay float32, as
 ``lt_tpu/models/backbone.py:42-60`` keeps them.
+
+Under data parallelism (``lt_tpu_torch.parallel``) a :class:`BatchNorm`
+whose ``process_group`` is set takes its training statistics over the
+global batch, every rank's rows, as ``lt_tpu``'s BatchNorm does on a batch
+sharded over its mesh: the mean, then the biased variance about it, each
+a sum over the ranks that the backward sums again, so that the input
+gradient sees every rank's samples.
 """
 
 from __future__ import annotations
@@ -20,6 +27,7 @@ from __future__ import annotations
 import contextvars
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
@@ -44,6 +52,8 @@ class BatchNorm(nn.modules.batchnorm._BatchNorm):
     def __init__(self, num_features: int, eps: float = BN_EPS,
                  momentum: float = BN_MOMENTUM):
         super().__init__(num_features, eps=eps, momentum=momentum)
+        #: The ranks whose rows form the batch (None: this process's own).
+        self.process_group = None
 
     def _check_input_dim(self, x: torch.Tensor) -> None:
         if x.dim() < 2:
@@ -53,6 +63,8 @@ class BatchNorm(nn.modules.batchnorm._BatchNorm):
         if not self.training:
             return F.batch_norm(x, self.running_mean, self.running_var,
                                 self.weight, self.bias, False, 0.0, self.eps)
+        if self.process_group is not None:
+            return self._forward_global(x)
         # One reduction.  F.batch_norm moves a copy of the running variance
         # to (1 - m) r + m var n / (n - 1); then
         # r <- r (1 - m) / n + copy (n - 1) / n  =  (1 - m) r + m var,
@@ -72,6 +84,47 @@ class BatchNorm(nn.modules.batchnorm._BatchNorm):
                     moved, alpha=(n - 1) / n)
                 self.num_batches_tracked.add_(1)
         return y
+
+    def _forward_global(self, x: torch.Tensor) -> torch.Tensor:
+        """Training over the global batch of ``process_group``'s ranks,
+        each holding as many rows: statistics in float32 (or the input's
+        wider type), the output in the input's type."""
+        group = self.process_group
+        xf = x.float() if x.dtype in (torch.bfloat16, torch.float16) else x
+        dims = [0] + list(range(2, x.dim()))
+        shape = [1, -1] + [1] * (x.dim() - 2)
+        n = x.numel() // x.shape[1] * dist.get_world_size(group)
+        mean = _SumOverRanks.apply(xf.sum(dims), group) / n
+        xc = xf - mean.view(shape)
+        var = _SumOverRanks.apply((xc * xc).sum(dims), group) / n
+        scale = torch.rsqrt(var + self.eps) * self.weight
+        y = xc * scale.view(shape) + self.bias.view(shape)
+        if not _RECOMPUTING.get():
+            with torch.no_grad():
+                m = self.momentum
+                self.running_mean.mul_(1.0 - m).add_(mean, alpha=m)
+                self.running_var.mul_(1.0 - m).add_(var, alpha=m)
+                self.num_batches_tracked.add_(1)
+        return y.to(x.dtype)
+
+
+class _SumOverRanks(torch.autograd.Function):
+    """The sum of a tensor over a group's ranks, in every rank.  Each rank's
+    backward gets its own loss's cotangent; the global loss's is their sum
+    over the ranks."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        y = x.clone()
+        dist.all_reduce(y, group=group)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.clone()
+        dist.all_reduce(g, group=ctx.group)
+        return g, None
 
 
 def bn_fed_biases(model: nn.Module) -> set:

@@ -200,6 +200,18 @@ class AlgebraicTriangulationNet(_PoseNet):
                                conf)
 
 
+def draw_rotation_thetas(n: int, generator: torch.Generator,
+                         rank: int = 0, ranks: int = 1) -> torch.Tensor:
+    """(n,) training cuboid rotations, U[0, 2 pi) from ``generator``.
+
+    Under data parallelism every one of ``ranks`` ranks draws the global
+    batch's ``n * ranks`` rotations and keeps rank ``rank``'s rows: the
+    rotations are the one-process run's and the generator advances as
+    there, so a checkpoint resumes exactly on any world size."""
+    thetas = torch.rand((n * ranks,), generator=generator) * (2.0 * math.pi)
+    return thetas[rank * n:(rank + 1) * n]
+
+
 class KernelUnprojection(nn.Module):
     """The kernel path's unprojection step, :func:`unproject_heatmaps_affine`
     (K1, or in training K5 per view where K1 has no backward), as a module
@@ -282,8 +294,7 @@ class VolumetricTriangulationNet(nn.Module):
             if generator is None:
                 raise ValueError("training draws cuboid rotations: pass "
                                  "rotation_thetas or a torch.Generator")
-            rotation_thetas = torch.rand(
-                (images.shape[0],), generator=generator) * (2.0 * math.pi)
+            rotation_thetas = draw_rotation_thetas(images.shape[0], generator)
         return self._forward(images, proj_matrices, pelvis_keypoints,
                              view_mask, rotation_thetas.to(images.device))
 

@@ -8,6 +8,12 @@ The flags of the repository's ``train.py``:
     python -m lt_tpu_torch.train --config experiments/synthetic/alg_tiny.yaml --logdir ./logs
     python -m lt_tpu_torch.train --eval --eval_dataset val --config ... --logdir ...
     python -m lt_tpu_torch.train --resume ./logs/<experiment> --config ...
+
+Data parallel over N GPUs of one machine (``lt_tpu``'s mesh semantics:
+``opt.batch_size`` is the global batch, which N must divide; rank r on
+``cuda:r``, NCCL; with ``--device cpu``, gloo):
+
+    torchrun --nproc_per_node N -m lt_tpu_torch.train --config ... --logdir ./logs
 """
 
 from __future__ import annotations
@@ -15,6 +21,7 @@ from __future__ import annotations
 import argparse
 
 from lt_tpu_torch.engine.train import run
+from lt_tpu_torch.parallel.mesh import initialize_distributed
 
 
 def parse_args(argv=None):
@@ -39,10 +46,11 @@ def parse_args(argv=None):
 
 def main(argv=None) -> float:
     args = parse_args(argv)
+    device = initialize_distributed(args.device)
     return run(args.config, args.logdir, eval_only=args.eval,
                eval_dataset=args.eval_dataset, seed=args.seed,
                max_epochs=args.max_epochs, resume_dir=args.resume,
-               device=args.device)
+               device=device)
 
 
 if __name__ == "__main__":

@@ -56,3 +56,16 @@ def load_config(path: str, overrides: Optional[dict] = None) -> AttrDict:
             node = node[p]
         node[leaf] = value
     return config
+
+
+def config_to_str(config) -> str:
+    """The config as YAML text (tensorboard's config panel)."""
+    return yaml.dump(_plain(config))
+
+
+def _plain(value):
+    if isinstance(value, dict):
+        return {k: _plain(v) for k, v in value.items()}
+    if isinstance(value, (list, tuple)):
+        return [_plain(v) for v in value]
+    return value

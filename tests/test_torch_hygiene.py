@@ -4,7 +4,8 @@
   ``flax``, ``optax``, ``orbax`` or ``lt_tpu`` (AST scan).
 - No module of the port reads an environment switch (``lt_tpu`` selects
   its kernel paths with ``LT_TPU_*`` variables; the port takes arguments):
-  the only read is ``CUDA_HOME`` in the kernels' build.
+  the only reads are ``CUDA_HOME`` in the kernels' build and, in
+  ``parallel/mesh.py``, the rendezvous variables ``torchrun`` exports.
 - Without CUDA the default device raises instead of running on the CPU.
 """
 
@@ -68,7 +69,10 @@ def _environment_reads(path: pathlib.Path):
 @pytest.mark.parametrize("path", PORT_FILES,
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_port_reads_no_environment_switch(path):
-    allowed = {"CUDA_HOME"} if path.name == "_build.py" else set()
+    from lt_tpu_torch.parallel.mesh import TORCHRUN_ENV
+
+    allowed = {"_build.py": {"CUDA_HOME"},
+               "mesh.py": set(TORCHRUN_ENV)}.get(path.name, set())
     reads = set(_environment_reads(path))
     assert reads <= allowed, f"{path.relative_to(ROOT)} reads {reads}"
 
@@ -93,6 +97,15 @@ def test_data_modules_are_part_of_the_port():
         "utils/img.py", "native/__init__.py")} <= port
     from lt_tpu_torch import native
     assert native.lib_path().parent == ROOT / "build" / "native"
+
+
+def test_parallel_and_engine_utils_are_part_of_the_port():
+    """Data parallelism and the training engine's utilities are in the
+    scans above."""
+    port = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    assert {f"lt_tpu_torch/{m}" for m in (
+        "parallel/__init__.py", "parallel/mesh.py", "utils/vis.py",
+        "utils/misc.py", "utils/cfg.py")} <= port
 
 
 def test_default_device_raises_without_cuda(monkeypatch, tmp_path):
