@@ -49,7 +49,13 @@ step, with both steps' ms and peak memory; ``[ddp 2 ranks]`` trains the
 trained fixture in two processes on the card (gloo) and holds the loss,
 gradients, BatchNorm statistics, Adam's moves and the gathered eval
 keypoints to one process's; ``[vis]`` times the flagship's vis step and
-the training panels' host work.  Then the algebraic and
+the training panels' host work.  ``[spatial 2 ranks]`` splits each
+sample's volume of the flagship eval forward on X over two processes on
+the card (gloo; float32 and bfloat16) and holds each rank's K1 slab (bit
+for bit), V2V rows and keypoints to the unsharded forward in its process;
+``[kernels spatial]`` replays K1 on slabs of 32 and 16 X planes against
+its plain version and the whole grid's rows (the kernels line's K1 row
+carries them under ``slab``).  Then the algebraic and
 RANSAC families, which launch no kernel of the port (``lt_tpu`` computes
 them with XLA only): AlgebraicTriangulationNet at the flagship width in
 float32 and bfloat16 and RANSACTriangulationNet in float32 (batch 8,
@@ -214,6 +220,18 @@ DDP_BATCH = 4
 DDP_LIMITS = {"keypoints": KP_TOL_MM, "loss": 1e-4, "process_features": 1e-2,
               "backbone.deconv_layers": 1e-2, "volume_net.front_layers": 1e-2,
               "stats": 4e-3, "moved": 4e-2}
+# [spatial 2 ranks]: the flagship eval forward with its volume split on X
+# over two processes on the card (gloo), against the unsharded forward in
+# the same process: V2V's output rows (max |diff| over max |unsharded|)
+# and the keypoints (mm + relative), per type.  The float32 V2V limit is
+# the CPU test's (tests/test_torch_spatial.py) and the keypoints' lt_tpu's
+# own between its sharded and unsharded forward (tests/test_parallel.py);
+# bfloat16 takes the kernels' two-ulp limit and half a millimetre.
+SPATIAL_RANKS = 2
+SPATIAL_V2V_TOL = {"float32": 1e-5, "bfloat16": REL_TOL_BF16}
+SPATIAL_KP_TOL = {"float32": (1e-3, 1e-4), "bfloat16": (0.5, 0.0)}
+# K1's slab widths replayed: the 2-rank path's (64 / 2) and a 4-rank one's.
+K1_SLABS = (32, 16)
 # [train fixture bf16]: the bfloat16 kernel path's mean distance from the
 # plain float32 step (loss; relative L2 of each of GRAD_MODULES' gradients)
 # over the plain bfloat16 path's, at most (tests/test_torch_bf16_train.py's
@@ -556,24 +574,26 @@ def make_case(name, args, geometry, dev, gen):
         return case
     if name == "unproject_agg":
         _, _, _, conf_ptr, _, b, v, h, w, c, s, method = args[:12]
+        x0, sx = args[-2:]          # the slab: X planes [x0, x0 + sx)
+        slab = None if sx == s else (x0, sx)
         names = {0: "softmax", 1: "sum", 2: "max", 3: "conf"}
         feats = randn(b, v, h, w, c)
         m = geometry(b)
         mask = torch.ones(b, v, device=dev)
         conf = (randn(b, v, c, dtype=torch.float32).abs() if conf_ptr
                 else None)
-        n = b * s ** 3
+        n = b * sx * s ** 2
 
         def run(plan=None):
             return unproject.unproject_agg(feats, m, mask, conf,
-                                           names[method], s, plan)
+                                           names[method], s, plan, slab)
 
         # Ops counted as if every voxel's 4 taps were in the map for every
         # view (the most the data could need); the bytes bound is larger.
         case = Case(
             run,
             lambda: unproject.unproject_agg_plain(feats, m, mask, conf,
-                                                  names[method], s),
+                                                  names[method], s, slab),
             None, f * (feats.numel() + n * c) + 4 * (m.numel() + mask.numel()),
             n * v * (30.0 + 8.0 * c + 4.0 * c))
         # The same kernel with and without staged windows (the default
@@ -581,8 +601,20 @@ def make_case(name, args, geometry, dev, gen):
         budget = unproject.AGG_WINDOW
         other = 0 if unproject.unproject_plan(c, s, f).window else budget
         case.variants["windows" if other else "no windows"] = (
-            functools.partial(run, unproject.unproject_plan(c, s, f, other)))
-        px = unproject.brick_windows(m, s, h, w)[1]
+            functools.partial(run, unproject.unproject_plan(
+                c, s, f, other, x_extent=slab and sx)))
+        if slab is not None:
+            # A slab's rows of the whole grid's launch, to the bit.
+            whole = unproject.unproject_agg(feats, m, mask, conf,
+                                            names[method], s)
+            rows = whole.view(b, s, -1, c)[:, x0:x0 + sx]
+            if not torch.equal(run().view(rows.shape), rows):
+                raise AssertionError(f"unproject_agg slab {slab} != the "
+                                     f"grid's rows")
+            log(f"  unproject_agg slab {slab} == the {s}^3 grid's rows, bit "
+                f"for bit")
+            del whole, rows
+        px = unproject.brick_windows(m, s, h, w, slab=slab)[1]
         log(f"  unproject_agg windows at this geometry (4x8x8 bricks, plain "
             f"PyTorch): pixels p50 {px.double().median().item():.0f} max "
             f"{px.max().item()}, {int((px > budget).sum())} of {px.numel()}"
@@ -772,9 +804,10 @@ def _shape_str(name, args):
                 f"{'vector' if vec > 1 else 'scalar'} instance plan "
                 f"vec={vec} block={bx}x{by} grid={gx}x{gy}x{gz}")
     if name == "unproject_agg":
-        window, smem, grid, chunks = ints[10:]
-        return (f"({','.join(map(str, ints[:7]))}) plan window={window} px "
-                f"smem={smem} B grid={grid}x{ints[0]}x{chunks}")
+        window, smem, grid, chunks, x0, sx = ints[10:]
+        slab = f" slab x=[{x0},{x0 + sx})" if sx != ints[5] else ""
+        return (f"({','.join(map(str, ints[:7]))}){slab} plan window="
+                f"{window} px smem={smem} B grid={grid}x{ints[0]}x{chunks}")
     return "(" + ",".join(f"{a:g}" if isinstance(a, float) else str(a)
                           for a in ints) + ")"
 
@@ -2315,6 +2348,222 @@ def ddp_two_ranks(dev, smi):
     log(f"  the phase took {time.perf_counter() - t0:.1f} s; on {smi}")
 
 
+def spatial_rank_run(dev, b):
+    """One rank of [spatial 2 ranks], in float32 and bfloat16: the flagship
+    model (seed 0) unsharded and with its volume split on X over the
+    launch's group, from the same weights, each warmed up once (the V2V
+    weights' packing); under cuDNN's deterministic algorithms both forwards
+    with K1's and V2V's outputs hooked; then one forward of each with the
+    launch counts (and the sharded one's collectives) set to 0 just before
+    and read just after; then REQUESTS timed forwards of each."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from lt_tpu_torch.models.triangulation import VolumetricTriangulationNet
+    from lt_tpu_torch.ops.kernels import _build
+    from lt_tpu_torch.utils.example import example_batch
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    fl = FLAGSHIP
+    images, proj, pelvis = (torch.from_numpy(a).to(dev) for a in
+                            example_batch(b, 4, fl["image"], 17))
+    res = {}
+    for dt in (torch.float32, torch.bfloat16):
+        kind = str(dt).replace("torch.", "")
+        kw = dict(num_joints=17, num_layers=fl["layers"],
+                  volume_size=fl["volume"], cuboid_side=2500.0,
+                  volume_aggregation_method="softmax", kind="mpii",
+                  device=dev, seed=0, compute_dtype=dt)
+        nets = {"whole": VolumetricTriangulationNet(**kw),
+                "slab": VolumetricTriangulationNet(
+                    **kw, volume_axis_sharding=dist.group.WORLD)}
+        nets["slab"].load_state_dict(nets["whole"].state_dict())
+        g = nets["slab"].volume_axis_sharding
+        x0, sx = g.slab(fl["volume"])
+        seen = {name: {} for name in nets}
+        for name, net in nets.items():
+            net(images, proj, pelvis)                       # warm-up
+            hooks = [getattr(net, mod).register_forward_hook(
+                lambda m, a, out, mod=mod, name=name:
+                seen[name].__setitem__(mod, out))
+                for mod in ("unproject", "volume_net")]
+            with deterministic_cudnn():
+                seen[name]["keypoints"] = net(images, proj,
+                                              pelvis).keypoints_3d
+            for h in hooks:
+                h.remove()
+        whole, slab = seen["whole"], seen["slab"]
+        kp_ref = whole["keypoints"]
+        r = {"slab": (x0, sx),
+             "k1_equal": torch.equal(slab["unproject"],
+                                     whole["unproject"][:, x0:x0 + sx]),
+             "v2v": rel_err(slab["volume_net"].float(),
+                            whole["volume_net"][:, x0:x0 + sx].float()),
+             "kp_err": (slab["keypoints"] - kp_ref).abs().max().item(),
+             "kp_excess": ((slab["keypoints"] - kp_ref).abs()
+                           - SPATIAL_KP_TOL[kind][1] * kp_ref.abs()
+                           ).max().item(),
+             "finite": bool(slab["keypoints"].isfinite().all())}
+        del seen, whole, slab
+        for name, net in nets.items():
+            torch.cuda.synchronize()
+            _build.reset_launches()
+            g.reset_stats()
+            net(images, proj, pelvis)
+            torch.cuda.synchronize()
+            r[f"launches_{name}"] = {k: v for k, v in
+                                     _build.LAUNCHES.items() if v}
+        r["stats"] = dict(g.stats)
+        for name, net in nets.items():
+            times = []
+            for _ in range(REQUESTS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                net(images, proj, pelvis)
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+            r[f"ms_{name}"] = float(np.median(times))
+            r[f"times_{name}"] = times
+        res[kind] = r
+        del nets, g
+        torch.cuda.empty_cache()
+    return res
+
+
+def _spatial_rank_main(rank, port, out_prefix, b):
+    """A rank of [spatial 2 ranks]: gloo over the one card."""
+    sys.path.insert(0, str(ROOT))
+    import torch
+    import torch.distributed as dist
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            rank=rank, world_size=SPATIAL_RANKS)
+    try:
+        torch.save(spatial_rank_run(dev, b), f"{out_prefix}{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def spatial_two_ranks(smi, b):
+    """[spatial 2 ranks]: the flagship eval forward (fused kernel path,
+    float32 and bfloat16, batch ``b``) with each sample's volume split on
+    X over two processes on the one card (gloo: NCCL refuses two ranks on
+    one GPU), each rank against the unsharded forward in its own process
+    (spatial_rank_run): K1's slab equal to the unsharded K1's rows bit for
+    bit, V2V's output rows within SPATIAL_V2V_TOL, the keypoints within
+    SPATIAL_KP_TOL, every eval kernel of the type launched as often as in
+    the unsharded forward.  Prints each rank's launches per forward by
+    kernel, its halo bytes per forward and ms per request (gloo over the
+    host: printed, not a target).  Returns the launches of one sharded
+    forward per type, summed over the ranks."""
+    import tempfile
+
+    import torch
+    import torch.multiprocessing as mp
+
+    t0 = time.perf_counter()
+    log(f"[spatial 2 ranks] the flagship eval forward, fused kernel path, "
+        f"batch {b}, float32 and bfloat16: each sample's {FLAGSHIP['volume']}"
+        f"^3 volume split on X over {SPATIAL_RANKS} processes on the card "
+        f"(gloo), against the unsharded forward in each process")
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        prefix = str(Path(tmp) / "rank")
+        ctx = mp.start_processes(_spatial_rank_main,
+                                 args=(_free_port(), prefix, b),
+                                 nprocs=SPATIAL_RANKS, join=False,
+                                 start_method="spawn")
+        deadline = time.monotonic() + 400.0
+        while not ctx.join(timeout=1.0):
+            if time.monotonic() > deadline:
+                for proc in ctx.processes:
+                    proc.kill()
+                raise AssertionError("[spatial 2 ranks]: the ranks did not "
+                                     "end in 400 s")
+        ranks = [torch.load(f"{prefix}{r}.pt", weights_only=False)
+                 for r in range(SPATIAL_RANKS)]
+    bad, launches = [], {}
+    for kind in ("float32", "bfloat16"):
+        for r, res in enumerate(ranks):
+            e = res[kind]
+            v2v_err, v2v_rel = e["v2v"]
+            kp_abs, kp_rel = SPATIAL_KP_TOL[kind]
+            log(f"  {kind} rank {r}, X planes [{e['slab'][0]}, "
+                f"{sum(e['slab'])}): K1 slab == unsharded K1's rows: "
+                f"{e['k1_equal']}; V2V rows max abs {v2v_err:.3e}, rel "
+                f"{v2v_rel:.3e} (limit {SPATIAL_V2V_TOL[kind]}); keypoints "
+                f"max |sharded - unsharded| {e['kp_err']:.3e} mm (limit "
+                f"{kp_abs} mm + {kp_rel} relative)")
+            log(f"    launches per forward: sharded {e['launches_slab']}, "
+                f"unsharded {e['launches_whole']}")
+            st = e["stats"]
+            log(f"    collectives per forward: {st['exchanges']} halo "
+                f"exchanges, {st['halo_bytes']} halo bytes received, "
+                f"{st['gathers']} gathers ({st['gather_bytes']} bytes), "
+                f"{st['reductions']} soft-argmax reductions")
+            log(f"    ms per request (median of {REQUESTS}): sharded "
+                f"{e['ms_slab']:.1f} {[round(t, 1) for t in e['times_slab']]},"
+                f" unsharded {e['ms_whole']:.1f} (both ranks on the card at "
+                f"once; gloo over the host)")
+            missing = [k for k in EVAL_KERNELS[kind]
+                       if not e["launches_slab"].get(k)]
+            if not e["k1_equal"]:
+                bad.append(f"{kind} rank {r}: K1's slab")
+            if v2v_rel > SPATIAL_V2V_TOL[kind]:
+                bad.append(f"{kind} rank {r}: V2V rows")
+            if not e["finite"] or e["kp_excess"] > kp_abs:
+                bad.append(f"{kind} rank {r}: keypoints")
+            if missing or e["launches_slab"] != e["launches_whole"]:
+                bad.append(f"{kind} rank {r}: launches (missing {missing})")
+            for k, n in e["launches_slab"].items():
+                launches[k] = launches.get(k, 0) + n
+    if bad:
+        raise AssertionError(f"[spatial 2 ranks] failed: {bad}")
+    log(f"  the phase took {time.perf_counter() - t0:.1f} s; on {smi}")
+    return launches
+
+
+def k1_slab_replay(b, geometry, dev):
+    """K1 on slabs of K1_SLABS widths at the flagship shapes, in float32 and
+    bfloat16 (the replay of make_case: against the plain version, the
+    whole grid's rows bit for bit, kernel / plain times and the bound).
+    Returns {width: {type: numbers, "launches": 0}}: the caller counts
+    the launches of its path's width."""
+    import torch
+
+    from lt_tpu_torch.ops.kernels import unproject
+
+    s = FLAGSHIP["volume"]
+    m = geometry(b)
+    mask = torch.ones(b, 4, device=dev)
+    out = {}
+    for sx in K1_SLABS:
+        for dt in (torch.float32, torch.bfloat16):
+            feats = torch.zeros((b, 4, FLAGSHIP["heatmap"],
+                                 FLAGSHIP["heatmap"], 32), dtype=dt,
+                                device=dev)
+            calls = [("unproject_agg slab", name, args)
+                     for _, name, args in record_launches(
+                         lambda: unproject.unproject_agg(
+                             feats, m, mask, None, "softmax", s,
+                             slab=(s - sx, sx)))]
+            per_kernel, _ = replay(calls, geometry, dev)
+            k = per_kernel["unproject_agg"]
+            b_ms = k["bound_ms"]
+            out.setdefault(str(sx), {"launches": 0})[
+                str(dt).replace("torch.", "")] = {
+                "x0": s - sx, "max_abs_err": k["max_abs_err"],
+                "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": b_ms,
+                "bound_by": max(k["bound_by"], key=k["bound_by"].get),
+                "library_ms": None}
+            del feats
+    return out
+
+
 class _Recorder:
     """A stand-in for a tensorboard writer that keeps the shape of each
     image and the size of each histogram it is given."""
@@ -3253,6 +3502,112 @@ def _dataset_path(config, yaml, overrides, per_forward, packing, dev, what,
     return launches
 
 
+def _memory_sampler(period_s=0.2):
+    """(start, stop): a thread that samples every card's used memory
+    (``nvidia-smi``, MiB) every ``period_s``; stop() returns the largest
+    reading of each card."""
+    import threading
+
+    peaks, done = {}, threading.Event()
+
+    def sample():
+        while not done.is_set():
+            out = subprocess.run(
+                ["nvidia-smi", "--query-gpu=index,memory.used",
+                 "--format=csv,noheader,nounits"], capture_output=True,
+                text=True).stdout
+            for line in out.strip().splitlines():
+                i, used = (int(x) for x in line.split(","))
+                peaks[i] = max(peaks.get(i, 0), used)
+            done.wait(period_s)
+
+    thread = threading.Thread(target=sample, daemon=True)
+
+    def stop():
+        done.set()
+        thread.join()
+        return dict(sorted(peaks.items()))
+
+    return thread.start, stop
+
+
+def spatial_cards(n, smi):
+    """``--spatial-cards N``: human36m_vol_softmax.yaml --eval at its width
+    (val batch 20, float32) on a write_h36m_tree tree, from a whole-model
+    .pth of the seeded model, first in one process on card 0, then under
+    ``torchrun --nproc_per_node N`` with ``model.volume_axis_sharding:
+    true`` (each sample's volume split on X over N cards, NCCL).  Prints
+    each eval batch's request ms (batch time less data time, the master's
+    metrics.jsonl), every card's peak used memory (nvidia-smi, sampled
+    every 0.2 s, the CUDA context included) and the keypoints' distance
+    between the two runs; fails past 1e-3 mm + 1e-4 relative (the
+    sharded forward's limit against the unsharded one) or where the metric
+    differs by 1e-3 mm."""
+    import tempfile
+
+    import numpy as np
+
+    from lt_tpu_torch.engine import factory
+    from lt_tpu_torch.utils import cfg
+
+    log(f"[spatial {n} cards] {H36M_EVAL_YAML} --eval, float32, one card "
+        f"against torchrun --nproc_per_node {n} with "
+        f"model.volume_axis_sharding: true (NCCL)")
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        tree = write_h36m_tree(Path(tmp) / "h36m", seed=0)
+        pth = str(Path(tmp) / "human36m_vol_softmax.pth")
+        overrides = {**h36m_overrides(tree), "model.checkpoint": pth}
+        config = cfg.load_config(H36M_EVAL_YAML, overrides)
+        save_ddp_pth(factory.make_model(config, seed=7), pth)
+        runs, metrics = {}, {}
+        for name, prefix in (
+                ("1 card", [sys.executable, "-m", "lt_tpu_torch.train"]),
+                (f"{n} cards", [sys.executable, "-m",
+                                "torch.distributed.run",
+                                f"--nproc_per_node={n}", "-m",
+                                "lt_tpu_torch.train"])):
+            config.model.volume_axis_sharding = name != "1 card"
+            yaml = Path(tmp) / f"{len(runs)}.yaml"
+            yaml.write_text(cfg.config_to_str(config))
+            logdir = Path(tmp) / f"logs{len(runs)}"
+            start, stop = _memory_sampler()
+            start()
+            t0 = time.perf_counter()
+            proc = subprocess.run(
+                prefix + ["--eval", "--config", str(yaml), "--logdir",
+                          str(logdir), "--seed", str(DATA_SEED)],
+                cwd=ROOT, capture_output=True, text=True, timeout=900)
+            secs = time.perf_counter() - t0
+            peaks = stop()
+            for line in proc.stdout.splitlines()[-8:]:
+                log(f"  {name}: {line}")
+            if proc.returncode:
+                log(proc.stderr[-4000:])
+                raise AssertionError(f"[spatial {n} cards] {name}: exit "
+                                     f"{proc.returncode}")
+            results, metric, records = _experiment(logdir)
+            reqs = [1e3 * (r["batch_time"] - r["data_time"])
+                    for r in records if r["tag"] == "val_batch"]
+            log(f"  {name}: the process(es) took {secs:.1f} s; request ms "
+                f"per eval batch of 20 {[round(x, 1) for x in reqs]}; peak "
+                f"used memory per card (GiB) "
+                f"{ {i: round(m / 1024, 2) for i, m in peaks.items()} }")
+            order = np.argsort(results["indexes"])
+            runs[name] = results["keypoints_3d"][order].astype(np.float64)
+            metrics[name] = metric["per_pose_error_relative"]["Average"][
+                "Average"]
+        one, many = runs["1 card"], runs[f"{n} cards"]
+        d = np.abs(many - one)
+        excess = (d - 1e-4 * np.abs(one)).max()
+        log(f"  keypoints max |{n} cards - 1 card| {d.max():.3e} mm over "
+            f"{len(one)} poses (limit 1e-3 mm + 1e-4 relative); eval metric "
+            f"{metrics}; on {smi}")
+        if excess > 1e-3 or abs(metrics["1 card"]
+                                - metrics[f"{n} cards"]) > 1e-3:
+            raise AssertionError(f"[spatial {n} cards]: the sharded eval "
+                                 f"differs from one card")
+
+
 def check_h36m_metric(metric, results, ds):
     """[h36m]: metric.json has the per-subject (S9, S11) and per-action
     (trials merged) breakdown of both errors, and its relative MPJPE is a
@@ -3359,6 +3714,9 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--batch", type=int, default=8,
                     help="flagship batch (bench.py's is 8)")
+    ap.add_argument("--spatial-cards", type=int, default=0,
+                    help="only the human36m eval split on X over this many "
+                         "cards (torchrun, NCCL) against one card")
     args = ap.parse_args(argv)
 
     if not (ROOT / "lt_tpu_torch" / "ops" / "kernels" / "csrc").is_dir():
@@ -3396,6 +3754,13 @@ def main(argv=None) -> int:
 
     # Phase 1: build.
     secs = _build.build()
+    if args.spatial_cards:
+        spatial_cards(args.spatial_cards, smi)
+        log(smi)
+        log(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
     log(f"[build] {len(_build.SOURCES)} sources ({len(_build.KERNELS)} "
         f"kernels) in {secs:.1f} s (parallel nvcc)")
     for name, text in _build.BUILD_LOG.items():
@@ -3799,6 +4164,17 @@ def main(argv=None) -> int:
     ddp_nccl(dev, smi)
     ddp_two_ranks(dev, smi)
     vis_phase(dev, smi)
+
+    # Phase 9c: volume-axis sharding of the flagship eval forward over two
+    # ranks on the card, and K1 on slabs in the replay.
+    add_path("spatial", spatial_two_ranks(smi, b))
+    log(f"[kernels spatial] K1 on slabs of {K1_SLABS} X planes of the "
+        f"{FLAGSHIP['volume']}^3 grid, flagship shapes: kernel vs plain, "
+        f"vs the grid's rows")
+    k1_row = next(r for r in rows if r["name"] == "unproject_agg")
+    k1_row["slab"] = k1_slab_replay(b, geometry, dev)
+    k1_row["slab"][str(FLAGSHIP["volume"] // SPATIAL_RANKS)]["launches"] = \
+        k1_row["launches_by_path"]["spatial"]
 
     # Phase 10: the algebraic and RANSAC families at the flagship width, on
     # the trained fixture, and the algebraic training step and CLI.

@@ -12,11 +12,13 @@ lr`` clipping convention, and the volumetric model's frozen backbone
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 
 from lt_tpu_torch.models import losses
 from lt_tpu_torch.models.triangulation import (AlgebraicTriangulationNet,
                                                RANSACTriangulationNet,
                                                VolumetricTriangulationNet)
+from lt_tpu_torch.parallel.mesh import world_size
 
 MODEL_NAMES = ("ransac", "alg", "vol")
 #: The volumetric model's optimizer groups, in the order the optimizer holds
@@ -36,7 +38,12 @@ def make_model(config, device="cuda", use_kernels="fused", seed: int = 0):
     parameters stay float32 (the master weights, which Adam updates from
     float32 gradients and checkpoints save), the convolutions run in
     bfloat16.  ``opt.remat`` recomputes the backbone's (and V2V's) blocks in
-    the backward."""
+    the backward.  ``model.volume_axis_sharding: true`` splits the
+    volumetric model's volume on X over the launch's ranks
+    (``parallel/spatial.py``) where the process group has more than one,
+    as ``lt_tpu``'s key does over its mesh
+    (``lt_tpu/engine/factory.py:52-66``); on one rank it changes
+    nothing."""
     m = config.model
     bf16 = bool(config.get("bf16", m.get("bf16", False)))
     backbone = m.backbone
@@ -61,11 +68,23 @@ def make_model(config, device="cuda", use_kernels="fused", seed: int = 0):
             cuboid_side=m.get("cuboid_side", 2500.0),
             kind=m.get("kind", "mpii"),
             transfer_cmu_to_human36m=m.get("transfer_cmu_to_human36m", False),
-            use_kernels=use_kernels, **common)
+            use_kernels=use_kernels,
+            volume_axis_sharding=(dist.group.WORLD
+                                  if spatial_sharding(config) else None),
+            **common)
     if m.name == "ransac":
         return RANSACTriangulationNet(
             direct_optimization=m.get("direct_optimization", True), **common)
     raise ValueError(f"Unknown model name: {m.name}")
+
+
+def spatial_sharding(config) -> bool:
+    """Whether ``config`` runs the volumetric model with its volume split
+    on X over the launch's ranks: ``model.volume_axis_sharding`` set, model
+    'vol', more than one rank."""
+    return bool(config.model.name == "vol"
+                and config.model.get("volume_axis_sharding")
+                and world_size() > 1)
 
 
 def make_criterion(config):

@@ -220,10 +220,16 @@ def train_step(model, optimizer, criterion, config,
 def eval_step(model, criterion, config, batch: Dict[str, torch.Tensor]):
     """(keypoints (B, J, 3), metrics as floats) of the eval forward; for a
     ``data_parallel`` model, this rank's keypoints and the global
-    metrics."""
+    metrics.  Under volume-axis sharding the volumetric CE (where
+    configured) is taken on the whole volume, gathered from the ranks'
+    slabs."""
     group = data_group(model)
     net = unwrap(model).eval()
     out = model_outputs(net, batch, config)
+    slabs = getattr(net, "volume_axis_sharding", None)
+    if slabs is not None and config.opt.get("use_volumetric_ce_loss"):
+        out = out._replace(volumes=slabs.gather_x(out.volumes, dim=2),
+                           coord_volumes=slabs.gather_x(out.coord_volumes))
     _, metrics = compute_losses(criterion, config, out, batch, group)
     values = all_sum(torch.stack([v.detach().double()
                                   for v in metrics.values()]), group)

@@ -45,6 +45,7 @@ from lt_tpu_torch.engine import checkpoint as ckpt
 from lt_tpu_torch.engine import factory
 from lt_tpu_torch.engine.steps import eval_step, train_step, vis_step
 from lt_tpu_torch.parallel import mesh
+from lt_tpu_torch.parallel.spatial import NOT_PORTED
 from lt_tpu_torch.utils import cfg as cfg_lib
 from lt_tpu_torch.utils import weights
 
@@ -462,10 +463,22 @@ def run(config_path: str, logdir: str, eval_only: bool = False,
     (then every rank runs the whole batch and only the master writes):
     ``opt.batch_per_device: true`` scales both batch sizes by the world
     size, which must divide them (``ValueError`` otherwise: a rank cannot
-    idle, as ``lt_tpu``'s spare devices do)."""
+    idle, as ``lt_tpu``'s spare devices do).  ``model.volume_axis_sharding:
+    true`` takes precedence, as in ``lt_tpu``: every rank loads the whole
+    batch, the volumetric model splits each sample's volume on X over the
+    ranks (``engine.factory.spatial_sharding``), every rank gets the
+    whole batch's keypoints and the master writes; it evaluates only
+    (``NotImplementedError`` for training)."""
     dev = resolve_device(device)
     config = cfg_lib.load_config(config_path, overrides)
-    ranks = mesh.world_size() if config.get("data_parallel", True) else 1
+    spatial = factory.spatial_sharding(config)
+    if spatial and not eval_only:
+        raise NotImplementedError(
+            f"model.volume_axis_sharding: true over {mesh.world_size()} "
+            f"ranks evaluates only (--eval); training on slabs is "
+            f"{NOT_PORTED}")
+    ranks = (mesh.world_size() if config.get("data_parallel", True)
+             and not spatial else 1)
     if config.opt.get("batch_per_device") and ranks > 1:
         config.opt.batch_size *= ranks
         if config.opt.get("val_batch_size") is not None:
@@ -483,6 +496,8 @@ def run(config_path: str, logdir: str, eval_only: bool = False,
     master = mesh.is_master()
 
     model = factory.make_model(config, device=dev, seed=seed)
+    if spatial and master:
+        print(f"Spatial (volume-X) sharding over {mesh.world_size()} ranks")
     for part, r in init_model_state(config, model).items():
         if master:
             print(f"Loaded {part} weights from {r['path']}: {r['loaded']} "

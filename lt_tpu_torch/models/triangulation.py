@@ -27,6 +27,13 @@ bfloat16 (in training its output leaves in float32), and the soft-argmax
 widens its volume to float32.  Cameras, grids, the projection arithmetic,
 heatmaps, keypoints, the DLT and the losses are float32 throughout; the
 training backward of the fused aggregation runs K5 and K6 in bfloat16.
+
+``volume_axis_sharding`` (a process group) is ``lt_tpu``'s key of that
+name (``triangulation.py:210-214, 284-336``) for the volumetric eval
+forward on the fused kernel path: every rank runs the backbone on the
+whole batch, K1 fills the rank's slab of the volume on X, V2V runs on
+slabs (``models/v2v.py``) and the soft-argmax reduces over the group, so
+every rank returns the whole batch's keypoints (``parallel/spatial.py``).
 """
 
 from __future__ import annotations
@@ -45,6 +52,7 @@ from lt_tpu_torch.ops import geometry
 from lt_tpu_torch.ops import heatmaps as hm_ops
 from lt_tpu_torch.ops import volumetric as vol_ops
 from lt_tpu_torch.ops.kernels.unproject import unproject_heatmaps_affine
+from lt_tpu_torch.parallel.spatial import NOT_PORTED, slab_group
 
 
 class AlgebraicOutput(NamedTuple):
@@ -62,6 +70,9 @@ class RansacOutput(NamedTuple):
 
 
 class VolumetricOutput(NamedTuple):
+    """Under volume-axis sharding ``volumes`` and ``coord_volumes`` are the
+    rank's slab on X, (B, J, S / ranks, S, S) and (B, S / ranks, S, S, 3):
+    ``SlabGroup.gather_x`` gives the whole volume (dim 2, dim 1)."""
     keypoints_3d: torch.Tensor          # (B, J, 3) world mm
     features: torch.Tensor              # (B, V, h, w, C) processed features
     volumes: torch.Tensor               # (B, J, S, S, S) post-softmax
@@ -234,6 +245,13 @@ class VolumetricTriangulationNet(nn.Module):
     unfused module graph (used to hold the kernel path to account).  The
     backbone's ``final_layer`` is frozen by the optimizer
     (``engine.factory.make_optimizer``), as in ``lt_tpu``.
+
+    ``volume_axis_sharding``: a process group of more than one rank
+    splits each sample's volume on X over it in the eval forward of the
+    "fused" path (``self.volume_axis_sharding``, a
+    ``parallel.spatial.SlabGroup``; None where the group has one rank,
+    which is the unsharded model).  Other paths and training raise
+    ``NotImplementedError``.
     """
 
     def __init__(self, num_joints: int = 17, num_layers: int = 152,
@@ -244,7 +262,8 @@ class VolumetricTriangulationNet(nn.Module):
                  kind: str = "mpii", transfer_cmu_to_human36m: bool = False,
                  use_kernels="fused", remat: bool = False,
                  device="cuda", seed: int = 0,
-                 compute_dtype: torch.dtype = torch.float32):
+                 compute_dtype: torch.dtype = torch.float32,
+                 volume_axis_sharding=None):
         super().__init__()
         dev = resolve_device(device)
         _check_dtype(compute_dtype)
@@ -257,6 +276,13 @@ class VolumetricTriangulationNet(nn.Module):
         self.kind = kind
         self.transfer_cmu_to_human36m = transfer_cmu_to_human36m
         self.use_kernels = kernel_path(use_kernels)
+        self.volume_axis_sharding = slab_group(volume_axis_sharding,
+                                               volume_size)
+        if self.volume_axis_sharding and self.use_kernels != "fused":
+            raise NotImplementedError(
+                f"volume-axis sharding runs the fused kernel path only, not "
+                f"use_kernels={self.use_kernels!r}: the rest is "
+                f"{NOT_PORTED}")
         self.backbone = PoseResNet(
             num_joints, num_layers, style, alg_confidences=False,
             vol_confidences=volume_aggregation_method.startswith("conf"),
@@ -290,6 +316,9 @@ class VolumetricTriangulationNet(nn.Module):
             with torch.no_grad():
                 return self._forward(images, proj_matrices, pelvis_keypoints,
                                      view_mask, rotation_thetas)
+        if self.volume_axis_sharding is not None:
+            raise NotImplementedError(
+                f"training under volume-axis sharding: {NOT_PORTED}")
         if rotation_thetas is None:
             if generator is None:
                 raise ValueError("training draws cuboid rotations: pass "
@@ -322,7 +351,9 @@ class VolumetricTriangulationNet(nn.Module):
         axis = (0.0, 1.0, 0.0) if self.kind == "coco" else (0.0, 0.0, 1.0)
         cv_args = (base_points, self.cuboid_side, self.volume_size,
                    rotation_thetas, axis, self.transfer_cmu_to_human36m)
-        coord_volumes = vol_ops.build_coord_volumes(*cv_args)
+        slabs = self.volume_axis_sharding
+        slab = None if slabs is None else slabs.slab(self.volume_size)
+        coord_volumes = vol_ops.build_coord_volumes(*cv_args, slab=slab)
 
         with compute_context(features, self.compute_dtype):
             features = self.process_features(features)
@@ -344,7 +375,7 @@ class VolumetricTriangulationNet(nn.Module):
                 vol_confidences=vol_conf, view_mask=view_mask,
                 channels_last=True, fuse_aggregation=fuse,
                 aggregation_dtype=(None if self.compute_dtype == torch.float32
-                                   else self.compute_dtype))
+                                   else self.compute_dtype), slab=slab)
         else:
             volumes = vol_ops.unproject_heatmaps(
                 features, proj_hm, coord_volumes,
@@ -352,11 +383,12 @@ class VolumetricTriangulationNet(nn.Module):
                 vol_confidences=vol_conf, view_mask=view_mask)
             volumes = volumes.permute(0, 2, 3, 4, 1).contiguous()
 
-        volumes = self.volume_net(volumes)
+        volumes = (self.volume_net(volumes) if slabs is None
+                   else self.volume_net(volumes, slabs=slabs))
         keypoints_3d, volumes = \
             hm_ops.integrate_tensor_3d_with_coordinates_channels_last(
                 volumes * self.volume_multiplier, coord_volumes,
-                softmax=self.volume_softmax)
+                softmax=self.volume_softmax, slabs=slabs)
         return VolumetricOutput(keypoints_3d, features, volumes, vol_conf,
                                 coord_volumes, base_points)
 

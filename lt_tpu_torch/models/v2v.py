@@ -29,6 +29,15 @@ switches, ``lt_tpu/models/v2v.py:52-96``; the port reads no environment):
 - ``False``: the reference's unfused module graph (PyTorch Conv3d and the
   shared ``models/batchnorm.BatchNorm``), the plain path.
 
+Under volume-axis sharding (``forward(x, slabs=)``, a
+``parallel.spatial.SlabGroup``) the fused path runs on each rank's slab of
+the volume on X, each fused call on the slab extended by the call's reach
+in X planes (one exchange a call), its output cut back to the slab; a
+level too thin for its call runs whole on every rank
+(:meth:`V2VModel._forward_fused_slabs`).  Only the eval forward of the
+fused path is sharded: training and the other paths raise
+``NotImplementedError``.
+
 BN is folded into the weights in float32 once per weight version, device
 and compute dtype, not on every call; with ``compute_dtype=torch.bfloat16``
 the eval kernel paths cast the folded weights to bfloat16 once there,
@@ -70,6 +79,7 @@ from lt_tpu_torch.ops.kernels.res3d import (res3d_block_fused,
 from lt_tpu_torch.ops.kernels.updown import (max_pool3d_2x,
                                              pack_upsample_weights,
                                              upsample3d_2x)
+from lt_tpu_torch.parallel.spatial import NOT_PORTED
 
 KERNEL_PATHS = ("fused", "conv", False)
 
@@ -281,9 +291,17 @@ class V2VModel(nn.Module):
         p["tail"] = tail
         return p
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, slabs=None) -> torch.Tensor:
         """(B, X, Y, Z, C_in) -> (B, X, Y, Z, output_channels), in the
-        compute dtype in eval and in float32 in training."""
+        compute dtype in eval and in float32 in training.  With ``slabs``
+        (a ``parallel.spatial.SlabGroup``) x and the output are this
+        rank's slab on X, (B, X / ranks, Y, Z, C)."""
+        if slabs is not None and (self.training
+                                  or self.use_kernels != "fused"):
+            raise NotImplementedError(
+                f"V2V on slabs runs the fused eval forward only "
+                f"(use_kernels={self.use_kernels!r}, training="
+                f"{self.training}): the rest is {NOT_PORTED}")
         if self.training or not self.use_kernels:
             with compute_context(x, self.compute_dtype):
                 y = self._forward_modules(x)
@@ -296,6 +314,8 @@ class V2VModel(nn.Module):
             x = x.contiguous()
             if self.use_kernels == "conv":
                 return self._forward_conv(x)
+            if slabs is not None:
+                return self._forward_fused_slabs(x, slabs)
             return self._forward_fused(x)
 
     def _forward_modules(self, x: torch.Tensor) -> torch.Tensor:
@@ -324,6 +344,70 @@ class V2VModel(nn.Module):
                                      skips[i - 1], [p[f"decoder_res{i - 1}"]])
         return upsample_res3d_fused(x, *p["decoder_upsample1"], skips[0],
                                     [p["back_res"]], tail=p["tail"])
+
+    def _forward_fused_slabs(self, x: torch.Tensor, g) -> torch.Tensor:
+        """:meth:`_forward_fused` on this rank's slab ``x`` of the volume.
+
+        Each fused call's reach, the X planes of its input that one output
+        plane depends on (k = 3 adds 1 a conv, k = 7 adds 3, k = 1 and
+        the k = 2 upsample 0): ``conv3d_mp`` 3; the front chain (8 convs,
+        then its pool) 8; an encoder pair (4 convs) 4; a single block 2;
+        an upsample-headed call 1 plane of its input and 2 of its skip.
+        A call runs on the slab extended by its reach where
+        ``g.fits`` (reach at most the slab's width; even widths where the
+        call pools or upsamples), and its output is cut back to the slab.
+        From the first level on the way down that does not fit, the volume
+        is gathered and that level and every deeper one run whole on every
+        rank; on the way up, a decoder call that fits takes each rank's
+        rows of whatever is whole."""
+        p = self.packed_params()
+        whole = False
+
+        def down(fn, x, reach, halves=False):
+            nonlocal whole
+            if not whole and not g.fits(x.shape[1] * g.ranks, reach,
+                                        halves):
+                x, whole = g.gather_x(x), True
+            if whole:
+                return fn(x)
+            out = fn(g.extend_x(x, reach))
+            if halves:
+                return g.crop_x(out[0], reach), g.crop_x(out[1], reach // 2)
+            return g.crop_x(out, reach)
+
+        x = down(lambda t: conv3d_mp(t, *p["front"], relu=True), x, 3)
+        skip, x = down(lambda t: res3d_chain_fused(
+            t, p["front_chain"], emit_pooled=True), x, 8, halves=True)
+        skips = [(skip, whole)]
+        for i in range(1, 5):
+            blocks = [p[f"encoder_res{i}"], p[f"skip_res{i + 1}"]]
+            skip, x = down(lambda t: res3d_chain_fused(
+                t, blocks, emit_pooled=True), x, 4, halves=True)
+            skips.append((skip, whole))
+        for name in ("encoder_res5", "mid_res", "decoder_res5"):
+            x = down(lambda t: res3d_block_fused(t, *p[name][:4]), x, 2)
+
+        for i in range(5, 0, -1):
+            skip, skip_whole = skips[i - 1]
+            blocks, tail = (([p[f"decoder_res{i - 1}"]], ()) if i > 1
+                            else ([p["back_res"]], p["tail"]))
+
+            def call(t, s):
+                return upsample_res3d_fused(t, *p[f"decoder_upsample{i}"],
+                                            s, blocks, tail=tail)
+
+            extent = skip.shape[1] * (1 if skip_whole else g.ranks)
+            if not g.fits(extent, 2, halves=True):
+                x = call(x if whole else g.gather_x(x),
+                         skip if skip_whole else g.gather_x(skip))
+                whole = True
+                continue
+            extended = iter(g.exchange([(t, r) for t, w, r in (
+                (x, whole, 1), (skip, skip_whole, 2)) if not w]))
+            x = call(g.take_slab(x, 1) if whole else next(extended),
+                     g.take_slab(skip, 2) if skip_whole else next(extended))
+            x, whole = g.crop_x(x, 2), False
+        return g.take_slab(x) if whole else x
 
     def _forward_conv(self, x: torch.Tensor) -> torch.Tensor:
         """The per-conv configuration: one kernel launch per layer of the

@@ -12,6 +12,7 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.distributed as dist
 
 
 def _widen(x: torch.Tensor) -> torch.Tensor:
@@ -82,12 +83,19 @@ def integrate_tensor_3d_with_coordinates(volumes: torch.Tensor,
 
 def integrate_tensor_3d_with_coordinates_channels_last(
         volumes: torch.Tensor, coord_volumes: torch.Tensor,
-        softmax: bool = True):
+        softmax: bool = True, slabs=None):
     """Channels-last twin: (B, X, Y, Z, J) volumes straight from the NDHWC
     V2V net.  Softmax is normalized after the reductions,
     E[x] = sum(e * x) / sum(e) with e = exp(l - max), as in ``lt_tpu``.  A
     bfloat16 volume is widened to float32 before the maximum, the
     exponential and the sums; keypoints and volumes come back float32.
+
+    ``slabs``: a ``parallel.spatial.SlabGroup`` whose ranks each hold a
+    slab of the volume on X (and the coordinates' same rows): the maximum
+    is reduced over the group (``all_reduce`` MAX), then the exponential
+    sums and the weighted coordinate sums (SUM, in the widened type), so
+    that every rank returns the whole volume's keypoints and its own slab
+    of the normalized volume.
 
     Returns (keypoints (B, J, 3), normalized volumes (B, J, X, Y, Z)).
     """
@@ -97,13 +105,22 @@ def integrate_tensor_3d_with_coordinates_channels_last(
         flat = flat.float()
     cv = coord_volumes.reshape(b, -1, 1, 3)
     if softmax:
-        e = torch.exp(flat - flat.amax(1, keepdim=True))
+        mx = flat.amax(1, keepdim=True)
+        if slabs is not None:
+            mx = slabs.all_reduce(mx, dist.ReduceOp.MAX)
+        e = torch.exp(flat - mx)
         den = e.sum(1)                                   # (B, J)
-        coords = (e[..., None] * cv).sum(1) / den[..., None]
+        num = (e[..., None] * cv).sum(1)                 # (B, J, 3)
+        if slabs is not None:
+            sums = slabs.all_reduce(torch.cat([num, den[..., None]], -1))
+            num, den = sums[..., :3], sums[..., 3]
+        coords = num / den[..., None]
         vols = e / den[:, None, :]
     else:
         vols = torch.relu(flat)
         coords = (vols[..., None] * cv).sum(1)
+        if slabs is not None:
+            coords = slabs.all_reduce(coords)
     vols = vols.reshape(b, xs, ys, zs, j)
     return coords, vols.permute(0, 4, 1, 2, 3)
 

@@ -1,13 +1,17 @@
 // K1: fused projective unprojection with cross-view aggregation.
 //
-// For every voxel n = (gx*S + gy)*S + gz of an S^3 grid and every view v:
-//   (u, v, w) = m[b, v] @ (gx, gy, gz, 1)    (m = P @ [A; 0 0 0 1], 3x4)
+// For every voxel n = (gx*S + gy)*S + gz of a slab of the S^3 grid, its X
+// planes [ox, ox + nx) (the whole grid: ox = 0, nx = S; gx counts from the
+// slab's first plane), and every view v:
+//   (u, v, w) = m[b, v] @ (ox + gx, gy, gz, 1)    (m = P @ [A; 0 0 0 1], 3x4)
 //   sample    = 0 where w <= 0, else the bilinear (align_corners=True, zero
 //               padding) sample of features[b, v] (H, W, C) at
 //               x = u/w * (W-1)/W, y = v/w * (H-1)/H
 // then aggregate over views: softmax (masked logits -1e9), sum, max (-inf ->
 // 0) or conf (per-view, per-channel confidences), with view_mask removing
-// views.  Output (B, S^3, C): NDHWC, channels fastest.  The features and the
+// views.  Output (B, nx * S^2, C): NDHWC, channels fastest.  A voxel's
+// arithmetic does not depend on the slab: a slab's output is the grid's
+// rows [ox * S^2, (ox + nx) * S^2) bit for bit.  The features and the
 // output are float32 or bfloat16 (one type for both); m, the mask, the
 // confidences and all projection and aggregation arithmetic are float32,
 // rounded once at the store.
@@ -77,6 +81,7 @@ struct AggArgs {
   const float* conf;
   void* out;
   int V, H, W, C, S;
+  int ox, nx;    // the slab: X planes [ox, ox + nx) of the S^3 grid
   float sx, sy;
   int nby, nbz;  // bricks along y and z
   int window;    // pixels of one staged view window
@@ -153,7 +158,7 @@ unproject_agg_kernel(const AggArgs p) {
     gz = bzi * kBz + j % kBz;
     gy = byi * kBy + (j / kBz) % kBy;
     gx = bxi * kBx + j / (kBz * kBy);
-    return gx < p.S && gy < p.S && gz < p.S;
+    return gx < p.nx && gy < p.S && gz < p.S;
   };
   int gx, gy, gz;
   const bool mine = voxel(tid, gx, gy, gz);
@@ -245,7 +250,7 @@ unproject_agg_kernel(const AggArgs p) {
       const int bv = b * p.V + v;
       LtkTaps tp{};
       if (mine && (METHOD == kConf || p.mask[bv] > 0.f))
-        tp = ltk_voxel_taps(p.m + bv * 12, static_cast<float>(gx),
+        tp = ltk_voxel_taps(p.m + bv * 12, static_cast<float>(p.ox + gx),
                             static_cast<float>(gy), static_cast<float>(gz),
                             p.H, p.W, p.sx, p.sy);
       int x0 = INT_MAX, x1 = INT_MIN, y0 = INT_MAX, y1 = INT_MIN;
@@ -318,7 +323,7 @@ unproject_agg_kernel(const AggArgs p) {
   }
 
   if (!active) return;
-  const int64_t N = static_cast<int64_t>(p.S) * p.S * p.S;
+  const int64_t N = static_cast<int64_t>(p.nx) * p.S * p.S;
 #pragma unroll
   for (int it = 0; it < IPT; ++it) {
     if (it >= nit) break;
@@ -369,26 +374,29 @@ int launch_method(int method, const AggArgs& a, dim3 grid, int smem,
 
 }  // namespace
 
-// features (B, V, H, W, C) and out (B, S^3, C) of type dtype (kLtkF32 or
-// kLtkBF16); m (B, V, 3, 4), mask (B, V) and conf (B, V, C, 'conf' only)
+// features (B, V, H, W, C) and out (B, nx * S^2, C) of type dtype (kLtkF32
+// or kLtkBF16); m (B, V, 3, 4), mask (B, V) and conf (B, V, C, 'conf' only)
 // float32.  window (pixels of a staged view, 0 for none), smem, grid
-// (4 x 8 x 8 bricks) and chunks (of 32 channels: grid z) are the launch
-// plan (unproject.unproject_plan); a plan that does not fit the shapes is
-// refused with cudaErrorInvalidValue before anything runs.
+// (4 x 8 x 8 bricks of the slab) and chunks (of 32 channels: grid z) are
+// the launch plan (unproject.unproject_plan); ox, nx the slab (X planes
+// [ox, ox + nx) of the S^3 grid; 0, S for the whole grid).  A plan that
+// does not fit the shapes is refused with cudaErrorInvalidValue before
+// anything runs.
 extern "C" int unproject_agg(const void* feats, const float* m,
                              const float* mask, const float* conf, void* out,
                              int B, int V, int H, int W, int C, int S,
                              int method, float sx, float sy, int dtype,
                              int window, int smem, int grid, int chunks,
-                             void* stream) {
+                             int ox, int nx, void* stream) {
   if (dtype != kLtkF32 && dtype != kLtkBF16) return kLtkBadDtype;
   const int bad = static_cast<int>(cudaErrorInvalidValue);
   const int elem = dtype == kLtkF32 ? 4 : 2;
   if (B < 1 || B > 65535 || V < 1 || H < 1 || W < 1 || C < 1 || S < 1 ||
       method < kSoftmax || method > kConf || window < 0 ||
-      window > kSmemMax || (method == kConf && !conf))
+      window > kSmemMax || (method == kConf && !conf) || ox < 0 || nx < 1 ||
+      nx > S - ox)
     return bad;
-  const int64_t nb = static_cast<int64_t>((S + kBx - 1) / kBx) *
+  const int64_t nb = static_cast<int64_t>((nx + kBx - 1) / kBx) *
                      ((S + kBy - 1) / kBy) * ((S + kBz - 1) / kBz);
   if (static_cast<int64_t>(H) * W * C >= INT_MAX ||
       static_cast<int64_t>(S) * S * S >= INT_MAX || nb != grid ||
@@ -398,6 +406,7 @@ extern "C" int unproject_agg(const void* feats, const float* m,
   AggArgs a;
   a.feats = feats, a.m = m, a.mask = mask, a.conf = conf, a.out = out;
   a.V = V, a.H = H, a.W = W, a.C = C, a.S = S, a.sx = sx, a.sy = sy;
+  a.ox = ox, a.nx = nx;
   a.nby = (S + kBy - 1) / kBy, a.nbz = (S + kBz - 1) / kBz;
   a.window = window;
   a.vec = (C * elem) % 16 == 0 && aligned16(feats) && aligned16(out);

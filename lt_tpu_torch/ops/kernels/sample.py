@@ -30,7 +30,7 @@ from __future__ import annotations
 
 import functools
 import math
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -116,9 +116,12 @@ def _check_affine(affine: torch.Tensor, bv: int) -> None:
         raise ValueError(f"affine {tuple(affine.shape)} != {(bv, 3, 4)}")
 
 
-def _project(affine: torch.Tensor, grid_size: int) -> torch.Tensor:
-    """(BV, 3, 4) -> homogeneous pixels (BV, S^3, 3) of every voxel."""
-    grid = index_grid(grid_size, affine.device, affine.dtype).reshape(-1, 4)
+def _project(affine: torch.Tensor, grid_size: int,
+             slab: Optional[Tuple[int, int]] = None) -> torch.Tensor:
+    """(BV, 3, 4) -> homogeneous pixels (BV, S^3, 3) of every voxel (of the
+    X planes [x0, x0 + sx) where ``slab`` is (x0, sx))."""
+    grid = index_grid(grid_size, affine.device, affine.dtype,
+                      slab).reshape(-1, 4)
     return (affine[:, None, :, :] * grid[None, :, None, :]).sum(-1)
 
 

@@ -10,13 +10,18 @@ launched with the plan of :func:`unproject_plan`;
 ``lt_tpu``'s sampler, the kernel reads a tap off the map at its pixel
 clamped to the map, with weight 0.  The backward of
 :func:`sample_views_agg` runs kernels K5 and K6 (``sample.py``).
+
+K1 and its plain version also fill a slab of the grid, ``slab = (x0,
+sx)``: the X planes [x0, x0 + sx) of the S^3 grid, (B, sx * S^2, C), each
+voxel computed as in the whole grid (``parallel/spatial.py``'s volume-axis
+sharding, eval only).
 """
 
 from __future__ import annotations
 
 import functools
 import math
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -67,24 +72,27 @@ class AggPlan(NamedTuple):
 
 @functools.lru_cache(maxsize=None)
 def unproject_plan(channels: int, grid_size: int, elem: int,
-                   window: Optional[int] = None) -> AggPlan:
+                   window: Optional[int] = None,
+                   x_extent: Optional[int] = None) -> AggPlan:
     """The launch plan of unproject_agg for C = ``channels``, an S^3 grid
-    and ``elem``-byte features: one block per AGG_BRICK and chunk of
-    AGG_CHUNK channels; ``window`` pixels of staged window (0: every
-    view's taps from device memory), by default AGG_WINDOW where
-    AGG_STAGED says so for ``elem``, else 0."""
+    (or ``x_extent`` of its X planes, a slab) and ``elem``-byte features:
+    one block per AGG_BRICK and chunk of AGG_CHUNK channels; ``window``
+    pixels of staged window (0: every view's taps from device memory), by
+    default AGG_WINDOW where AGG_STAGED says so for ``elem``, else 0."""
     if window is None:
         window = AGG_WINDOW if AGG_STAGED.get(elem) else 0
     smem = agg_smem_bytes(math.prod(AGG_BRICK), window, elem)
     if smem > AGG_SMEM_MAX:
         raise ValueError(f"unproject_agg: a {window}-pixel window does not "
                          f"fit {AGG_SMEM_MAX} bytes of shared memory")
-    bricks = math.prod(math.ceil(grid_size / n) for n in AGG_BRICK)
+    extents = (x_extent or grid_size, grid_size, grid_size)
+    bricks = math.prod(math.ceil(e / n) for e, n in zip(extents, AGG_BRICK))
     return AggPlan(window, smem, bricks, math.ceil(channels / AGG_CHUNK))
 
 
 def brick_windows(m: torch.Tensor, grid_size: int, h: int, w: int,
-                  clamped: bool = False):
+                  clamped: bool = False,
+                  slab: Optional[Tuple[int, int]] = None):
     """The boxes of K1's staged windows (``clamped=True``) or of K6's and
     K8's pre-reduction (the default), on the same brick, in plain PyTorch:
     for each sample, view and brick (in the kernel's grid order: z fastest,
@@ -98,22 +106,25 @@ def brick_windows(m: torch.Tensor, grid_size: int, h: int, w: int,
 
     Args:
       m: (B, V, 3, 4) composed grid-index -> pixel matrices.
+      slab: (x0, sx): the bricks of the X planes [x0, x0 + sx) only, as
+        K1 launched on that slab takes them.
     Returns:
       boxes (B, V, bricks, 4) and pixels (B, V, bricks), int64.
     """
     b, v = m.shape[:2]
     s = grid_size
+    sx = slab[1] if slab else s
     bx, by, bz = AGG_BRICK
     nby, nbz = math.ceil(s / by), math.ceil(s / bz)
-    uvw = _project(m.reshape(b * v, 3, 4), s)              # (BV, N, 3)
+    uvw = _project(m.reshape(b * v, 3, 4), s, slab)        # (BV, N, 3)
     z = uvw[..., 2]
     z_safe = torch.where(z == 0.0, torch.ones_like(z), z)
     x0 = torch.floor(uvw[..., 0] / z_safe * ((w - 1) / w))
     y0 = torch.floor(uvw[..., 1] / z_safe * ((h - 1) / h))
     g = torch.arange(s, device=m.device)
-    gx, gy, gz = torch.meshgrid(g, g, g, indexing="ij")
+    gx, gy, gz = torch.meshgrid(g[:sx], g, g, indexing="ij")
     brick_of = ((gx // bx * nby + gy // by) * nbz + gz // bz).reshape(-1)
-    nb = math.ceil(s / bx) * nby * nbz
+    nb = math.ceil(sx / bx) * nby * nbz
     big = torch.iinfo(torch.int64).max
     lo = torch.full((b * v, nb, 2), big, dtype=torch.int64, device=m.device)
     hi = torch.full_like(lo, -big)
@@ -155,10 +166,14 @@ def compose_grid_projection(proj_matrices: torch.Tensor,
 def unproject_agg_plain(features: torch.Tensor, m: torch.Tensor,
                         view_mask: torch.Tensor,
                         vol_confidences: Optional[torch.Tensor],
-                        method: str, grid_size: int) -> torch.Tensor:
-    """Plain version of K1: (B, V, H, W, C), m (B, V, 3, 4) -> (B, S^3, C).
-    bfloat16 features are widened to float32 and the result rounded once."""
-    grid = index_grid(grid_size, features.device, m.dtype).reshape(-1, 4)
+                        method: str, grid_size: int,
+                        slab: Optional[Tuple[int, int]] = None
+                        ) -> torch.Tensor:
+    """Plain version of K1: (B, V, H, W, C), m (B, V, 3, 4) -> (B, S^3, C),
+    or the slab's (B, sx * S^2, C).  bfloat16 features are widened to
+    float32 and the result rounded once."""
+    grid = index_grid(grid_size, features.device, m.dtype,
+                      slab).reshape(-1, 4)
     uvw = (m[:, :, None, :, :] * grid[None, None, :, None, :]).sum(-1)
     wide = features.dtype == torch.bfloat16
     out = aggregate_views(
@@ -171,7 +186,8 @@ def unproject_agg(features: torch.Tensor, m: torch.Tensor,
                   view_mask: torch.Tensor,
                   vol_confidences: Optional[torch.Tensor],
                   method: str, grid_size: int,
-                  plan: Optional[AggPlan] = None) -> torch.Tensor:
+                  plan: Optional[AggPlan] = None,
+                  slab: Optional[Tuple[int, int]] = None) -> torch.Tensor:
     """K1 on a CUDA tensor, its plain version on a CPU tensor.
 
     Args:
@@ -182,16 +198,21 @@ def unproject_agg(features: torch.Tensor, m: torch.Tensor,
       vol_confidences: (B, V, C) for 'conf' / 'conf_norm', else None.
       plan: the launch plan; default :func:`unproject_plan`'s for these
         shapes (another window budget computes the same values).
+      slab: (x0, sx): fill only the X planes [x0, x0 + sx) of the grid.
     Returns:
-      (B, S^3, C) with voxel n = (gx * S + gy) * S + gz.
+      (B, S^3, C) with voxel n = (gx * S + gy) * S + gz; for a slab
+      (B, sx * S^2, C), gx counted from x0: the grid's rows, to the bit.
     """
     if method not in METHODS:
         raise ValueError(f"Unknown volume_aggregation_method: {method}")
     if method.startswith("conf") and vol_confidences is None:
         raise ValueError(f"{method!r} aggregation needs vol_confidences")
+    x0, sx = slab or (0, grid_size)
+    if not (0 <= x0 and 1 <= sx <= grid_size - x0):
+        raise ValueError(f"slab {slab} is not inside a {grid_size}^3 grid")
     if not features.is_cuda:
         return unproject_agg_plain(features, m, view_mask, vol_confidences,
-                                   method, grid_size)
+                                   method, grid_size, slab)
     b, v, h, w, c = features.shape
     _build.check_cuda(features, "features", 5, dtypes=_build.F32_BF16)
     m = m.contiguous()
@@ -209,16 +230,19 @@ def unproject_agg(features: torch.Tensor, m: torch.Tensor,
             raise ValueError(f"vol_confidences {tuple(vol_confidences.shape)}"
                              f" != {(b, v, c)}")
         conf_ptr = vol_confidences.data_ptr()
-    out = torch.empty((b, grid_size ** 3, c), dtype=features.dtype,
+    out = torch.empty((b, sx * grid_size ** 2, c), dtype=features.dtype,
                       device=features.device)
-    plan = (plan or unproject_plan(c, grid_size,
-                                   features.element_size())).args
+    plan = (plan or unproject_plan(
+        c, grid_size, features.element_size(),
+        x_extent=None if sx == grid_size else sx)).args
     p, i, f = _build.ptr, _build.i32, _build.f32
     _build.launch("unproject_agg", features.device,
-        [p, p, p, p, p, i, i, i, i, i, i, i, f, f, i] + [i] * len(plan),
+        [p, p, p, p, p, i, i, i, i, i, i, i, f, f, i] + [i] * len(plan)
+        + [i, i],
         features.data_ptr(), m.data_ptr(), view_mask.data_ptr(), conf_ptr,
         out.data_ptr(), b, v, h, w, c, grid_size, METHODS[method],
-        (w - 1) / w, (h - 1) / h, _build.DTYPE_CODES[features.dtype], *plan)
+        (w - 1) / w, (h - 1) / h, _build.DTYPE_CODES[features.dtype], *plan,
+        x0, sx)
     return out
 
 
@@ -288,7 +312,8 @@ def unproject_heatmaps_affine(features: torch.Tensor,
                               view_mask: Optional[torch.Tensor] = None,
                               channels_last: bool = False,
                               fuse_aggregation: bool = True,
-                              aggregation_dtype: Optional[torch.dtype] = None
+                              aggregation_dtype: Optional[torch.dtype] = None,
+                              slab: Optional[Tuple[int, int]] = None
                               ) -> torch.Tensor:
     """Fused-unprojection equivalent of ``volumetric.unproject_heatmaps``,
     as ``lt_tpu``'s ``unproject_heatmaps_affine``
@@ -310,6 +335,9 @@ def unproject_heatmaps_affine(features: torch.Tensor,
         (``volumetric.aggregate_views``), as ``lt_tpu`` does.  None: K1
         writes the features' type; the unfused path samples in float32
         (float64 features: float64, on the CPU).
+      slab: (x0, sx): only the X planes [x0, x0 + sx) of the grid,
+        (B, sx, S, S, C) channels-last, through K1 without a gradient (the
+        eval forward of volume-axis sharding).
     """
     b, v, h, w, c = features.shape
     m = compose_grid_projection(proj_matrices, grid_affine)
@@ -317,7 +345,15 @@ def unproject_heatmaps_affine(features: torch.Tensor,
         view_mask = torch.ones((b, v), dtype=torch.float32,
                                device=features.device)
     method = volume_aggregation_method
-    if not fuse_aggregation:
+    if slab is not None:
+        if not fuse_aggregation or (torch.is_grad_enabled()
+                                    and features.requires_grad):
+            raise NotImplementedError(
+                "K1 fills a slab in the eval forward only: training on "
+                "slabs (K5 / K6 on a slab) is ROADMAP Queue A item 8")
+        volume = unproject_agg(features, m, view_mask, vol_confidences,
+                               method, grid_size, slab=slab)
+    elif not fuse_aggregation:
         out_dtype = aggregation_dtype or (
             torch.float32 if features.dtype == torch.bfloat16
             else features.dtype)
@@ -334,6 +370,7 @@ def unproject_heatmaps_affine(features: torch.Tensor,
     if aggregation_dtype is not None:
         volume = volume.to(aggregation_dtype)
     s = grid_size
+    sx = slab[1] if slab else s
     if channels_last:
-        return volume.reshape(b, s, s, s, c)
-    return volume.transpose(1, 2).reshape(b, c, s, s, s)
+        return volume.reshape(b, sx, s, s, c)
+    return volume.transpose(1, 2).reshape(b, c, sx, s, s)

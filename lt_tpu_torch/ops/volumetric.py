@@ -9,7 +9,7 @@ computes the same volumes from the affine form of the coordinate volume.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -79,11 +79,15 @@ def coord_volume_affine(base_points: torch.Tensor, cuboid_side: float,
     return torch.cat([lin, offset[..., None]], dim=-1)
 
 
-def index_grid(s: int, device, dtype=torch.float32) -> torch.Tensor:
+def index_grid(s: int, device, dtype=torch.float32,
+               slab: Optional[Tuple[int, int]] = None) -> torch.Tensor:
     """(S, S, S, 4) homogeneous voxel indices (gx, gy, gz, 1); flattened,
-    voxel n = (gx * S + gy) * S + gz."""
+    voxel n = (gx * S + gy) * S + gz.  ``slab`` (x0, sx): only the X
+    planes [x0, x0 + sx), (sx, S, S, 4), gx counting from x0 up (the
+    grid's rows, to the bit)."""
     g = torch.arange(s, dtype=dtype, device=device)
-    gx, gy, gz = torch.meshgrid(g, g, g, indexing="ij")
+    x0, sx = slab or (0, s)
+    gx, gy, gz = torch.meshgrid(g[x0:x0 + sx], g, g, indexing="ij")
     return torch.stack([gx, gy, gz, torch.ones_like(gx)], -1)
 
 
@@ -91,13 +95,15 @@ def build_coord_volumes(base_points: torch.Tensor, cuboid_side: float,
                         volume_size: int,
                         thetas: Optional[torch.Tensor] = None,
                         axis=(0.0, 0.0, 1.0),
-                        transfer_cmu_to_human36m: bool = False
+                        transfer_cmu_to_human36m: bool = False,
+                        slab: Optional[Tuple[int, int]] = None
                         ) -> torch.Tensor:
-    """(B, S, S, S, 3) pelvis-centred world-mm voxel centres."""
+    """(B, S, S, S, 3) pelvis-centred world-mm voxel centres; with ``slab``
+    (x0, sx) the cube's rows [x0, x0 + sx) on X, (B, sx, S, S, 3)."""
     s = volume_size
     affine = coord_volume_affine(base_points, cuboid_side, volume_size,
                                  thetas, axis, transfer_cmu_to_human36m)
-    grid = index_grid(s, affine.device, affine.dtype)
+    grid = index_grid(s, affine.device, affine.dtype, slab)
     return (affine[:, None, None, None, :, :]
             * grid[None, :, :, :, None, :]).sum(-1)
 

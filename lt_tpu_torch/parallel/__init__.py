@@ -1,4 +1,9 @@
-"""Data parallelism for the port (``lt_tpu/parallel``'s counterpart):
-one process per GPU under ``torchrun``, ``lt_tpu``'s global-batch
-semantics.  ``lt_tpu``'s volume-axis sharding (``parallel/spatial.py``)
-has no counterpart yet."""
+"""Parallelism for the port (``lt_tpu/parallel``'s counterpart): data
+parallelism, one process per GPU under ``torchrun`` with ``lt_tpu``'s
+global-batch semantics (``mesh.py``), and volume-axis (spatial) sharding
+of one sample's volume over the ranks for the volumetric eval forward
+(``spatial.py``)."""
+
+from lt_tpu_torch.parallel.spatial import SlabGroup, slab_group
+
+__all__ = ["SlabGroup", "slab_group"]

@@ -17,9 +17,9 @@ those semantics:
 - the losses' normalizers are global sums (:func:`all_sum`), and eval
   gathers each rank's rows (:func:`gather_rows`).
 
-Both collectives are ``all_reduce``: the one collective that gloo offers
-for CUDA tensors besides ``broadcast``, and NCCL's for every tensor.  The
-master (rank 0) writes logs and checkpoints (:func:`is_master`).
+Both collectives are ``all_reduce``, which NCCL and gloo take for CUDA
+tensors (gloo's ``all_gather`` takes them too: ``parallel/spatial.py``).
+The master (rank 0) writes logs and checkpoints (:func:`is_master`).
 """
 
 from __future__ import annotations

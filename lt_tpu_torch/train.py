@@ -14,6 +14,10 @@ Data parallel over N GPUs of one machine (``lt_tpu``'s mesh semantics:
 ``cuda:r``, NCCL; with ``--device cpu``, gloo):
 
     torchrun --nproc_per_node N -m lt_tpu_torch.train --config ... --logdir ./logs
+
+With ``model.volume_axis_sharding: true`` in the config, ``--eval`` under
+``torchrun`` splits each sample's volume on X over the N ranks instead
+(``lt_tpu_torch/parallel/spatial.py``; every rank loads the whole batch).
 """
 
 from __future__ import annotations

@@ -1237,6 +1237,39 @@ def test_unproject_agg_plans_agree_bit_for_bit(dev, scene, dt):
         assert torch.equal(got, ref), plan
 
 
+@pytest.mark.parametrize("dt", [torch.float32, BF16])
+@pytest.mark.parametrize("scene", ["flagship", "over_budget", "s10", "c40",
+                                   "straddles_w0"])
+def test_unproject_agg_slab_is_the_grids_rows(dev, scene, dt):
+    """K1 on a slab of the grid's X planes (volume-axis sharding), on
+    slabs that start on a brick and slabs that do not, with windows staged
+    or not: the whole grid's rows bit for bit, and its plain version's
+    slab within the usual tolerance."""
+    from lt_tpu_torch.ops.kernels import unproject
+
+    if scene == "flagship":
+        feats, m = _flagship_k1_inputs(dev)
+        feats, s = feats.to(dt), FLAG
+    else:
+        feats, m, s = _k1_scene(dev, scene, dt)
+    b, c, f = feats.shape[0], feats.shape[-1], feats.element_size()
+    mask = torch.ones(feats.shape[:2], device=dev)
+    mask[0, 1] = 0.0
+    cube = unproject.unproject_agg(feats, m, mask, None, "softmax", s)
+    cube = cube.view(b, s, s * s, c)
+    for x0, sx in ((0, s // 2), (s // 2, s - s // 2), (1, s - 2), (s - 1, 1)):
+        for window in (0, 384):
+            plan = unproject.unproject_plan(c, s, f, window, x_extent=sx)
+            got = unproject.unproject_agg(feats, m, mask, None, "softmax", s,
+                                          plan, slab=(x0, sx))
+            torch.cuda.synchronize()
+            assert torch.equal(got.view(b, sx, s * s, c),
+                               cube[:, x0:x0 + sx]), (x0, sx, window)
+        _close(got, unproject.unproject_agg_plain(
+            feats, m, mask, None, "softmax", s, slab=(x0, sx)),
+            REL if dt == torch.float32 else REL_BF16)
+
+
 def _offset(t):
     """A contiguous copy of ``t`` one element off a 16-byte boundary."""
     buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)

@@ -100,11 +100,12 @@ def test_data_modules_are_part_of_the_port():
 
 
 def test_parallel_and_engine_utils_are_part_of_the_port():
-    """Data parallelism and the training engine's utilities are in the
-    scans above."""
+    """Data parallelism, volume-axis sharding and the training engine's
+    utilities are in the scans above."""
     port = {str(p.relative_to(ROOT)) for p in PORT_FILES}
     assert {f"lt_tpu_torch/{m}" for m in (
-        "parallel/__init__.py", "parallel/mesh.py", "utils/vis.py",
+        "parallel/__init__.py", "parallel/mesh.py", "parallel/spatial.py",
+        "utils/vis.py",
         "utils/misc.py", "utils/cfg.py")} <= port
 
 

@@ -98,6 +98,74 @@ def test_unproject_plan_fits(c, s, elem):
         assert plan.chunks == math.ceil(c / AGG_CHUNK) <= 65535
 
 
+@pytest.mark.parametrize("elem", [4, 2])
+@pytest.mark.parametrize("s, parts", [(FLAG_S, 2), (FLAG_S, 4), (32, 2),
+                                      (32, 4), (16, 4)])
+def test_unproject_plan_of_a_slab(s, parts, elem):
+    """A slab of SX = S / parts X planes (volume-axis sharding) launches
+    the cube's plan with its bricks of those rows: the same window and
+    shared memory, the cube's grid over ``parts``; SX = S is the cube's
+    plan itself."""
+    cube = unproject_plan(FLAG_C, s, elem)
+    slab = unproject_plan(FLAG_C, s, elem, x_extent=s // parts)
+    assert slab._replace(grid=cube.grid) == cube
+    assert slab.grid * parts == cube.grid
+    assert unproject_plan(FLAG_C, s, elem, x_extent=s) == cube
+
+
+@pytest.mark.parametrize("parts", [2, 4])
+def test_flagship_slab_windows_are_the_cubes(parts):
+    """At the flagship geometry (sample 0 of 8), each slab's K1 windows
+    and scatter boxes, brick by brick in its own grid order, are the
+    cube's bricks over the slab's rows."""
+    m = _flagship_m()[:1]
+    sx = FLAG_S // parts
+    per_x = (FLAG_S // AGG_BRICK[1]) * (FLAG_S // AGG_BRICK[2])
+    for clamped in (True, False):
+        cube = brick_windows(m, FLAG_S, FLAG_HM, FLAG_HM, clamped=clamped)
+        for x0 in range(0, FLAG_S, sx):
+            got = brick_windows(m, FLAG_S, FLAG_HM, FLAG_HM,
+                                clamped=clamped, slab=(x0, sx))
+            rows = slice(x0 // AGG_BRICK[0] * per_x,
+                         (x0 + sx) // AGG_BRICK[0] * per_x)
+            assert got[0].shape[2] == unproject_plan(
+                FLAG_C, FLAG_S, 4, x_extent=sx).grid
+            assert torch.equal(got[0], cube[0][:, :, rows])
+            assert torch.equal(got[1], cube[1][:, :, rows])
+
+
+@pytest.mark.parametrize("s, slab", [(10, (4, 5)), (13, (0, 7)),
+                                     (16, (8, 4)), (9, (3, 6))])
+def test_k1_slab_is_the_cubes_rows(s, slab):
+    """The plain K1 on a slab, also one whose planes do not start on a
+    brick, equals the cube's rows, NaN and infinities on the maps' edges
+    included: bit for bit in 'sum' and 'max' (the projection and the
+    sampling are per voxel); in 'softmax' within 1e-7 of the largest, as
+    ``torch.softmax`` on the CPU rounds the exponential of a vector's
+    tail otherwise than its body (the kernel is per voxel there too)."""
+    m, h, w = _scene(s, seed=s)
+    feats = _edge_features(2, 3, h, w, 9, seed=s)
+    mask = torch.ones(2, 3)
+    x0, sx = slab
+    for method in ("softmax", "sum", "max"):
+        cube = unproject.unproject_agg(feats, m, mask, None, method, s)
+        got = unproject.unproject_agg(feats, m, mask, None, method, s,
+                                      slab=slab)
+        rows = cube.reshape(2, s, s * s, 9)[:, x0:x0 + sx]
+        got = got.reshape(rows.shape)
+        assert torch.equal(got.isnan(), rows.isnan())
+        fin = ~rows.isnan()
+        if method == "softmax":
+            torch.testing.assert_close(
+                got[fin], rows[fin], rtol=0,
+                atol=1e-7 * rows[rows.isfinite()].abs().max().item())
+        else:
+            assert torch.equal(got[fin], rows[fin])
+    with pytest.raises(ValueError, match="not inside"):
+        unproject.unproject_agg(feats, m, mask, None, "sum", s,
+                                slab=(s - 1, 2))
+
+
 def test_unproject_plan_default_holds_two_blocks_an_sm():
     """The plans with staged windows (4 x 8 x 8, 384 pixels, 32 channels)
     leave room for two blocks on an SM in float32 and three in bfloat16;
@@ -130,6 +198,10 @@ def test_unproject_kernel_constants_are_the_plans():
     assert const("kChunk") == AGG_CHUNK
     assert ("constexpr int kBx = {}, kBy = {}, kBz = {}, kNT = kBx * kBy * "
             "kBz;".format(*AGG_BRICK)) in src
+    # A slab's bricks: its own X extent nx, the grid's along y and z.
+    assert ("const int64_t nb = static_cast<int64_t>((nx + kBx - 1) / kBx) *"
+            in src)
+    assert "return gx < p.nx && gy < p.S && gz < p.S;" in src
 
 
 def test_flagship_windows_fit_the_budget():
