@@ -55,7 +55,17 @@ the card (gloo; float32 and bfloat16) and holds each rank's K1 slab (bit
 for bit), V2V rows and keypoints to the unsharded forward in its process;
 ``[kernels spatial]`` replays K1 on slabs of 32 and 16 X planes against
 its plain version and the whole grid's rows (the kernels line's K1 row
-carries them under ``slab``).  Then the algebraic and
+carries them under ``slab``).  ``[spatial train 2 ranks]`` splits the
+flagship training step the same way (float32 and ``bf16: true``) and
+holds each rank's step to the unsharded step in its process (float32:
+the loss and each optimizer group's gradient within four times the
+unsharded step's spread under cuDNN's default algorithms; bfloat16 at
+fixed limits; in both, the gradients summed over the ranks and each
+rank's own gradients must fail them), K1, K5 and K6 launched once a step
+on the rank's slab; ``[kernels spatial]`` then
+replays K5 and K6 on slabs of 32 and 16 planes against their plain
+versions, the grid's rows (K5) and the grid's dF summed over the slabs
+(K6) (their rows carry them under ``slab``).  Then the algebraic and
 RANSAC families, which launch no kernel of the port (``lt_tpu`` computes
 them with XLA only): AlgebraicTriangulationNet at the flagship width in
 float32 and bfloat16 and RANSACTriangulationNet in float32 (batch 8,
@@ -75,7 +85,7 @@ direct forward, that forward held to the plain path at the run's own
 shapes (batch 20, 17 or 19 joints), metric.json's breakdown, and the
 loader's rate beside the request's.
 
-    python3 chip_smoke.py [--batch N]
+    python3 chip_smoke.py [--batch N] [--spatial-cards N]
 
 Run from the repository root.  Without CUDA, or outside a checkout of the
 repository, it exits non-zero and prints no result.  Its last three lines
@@ -232,6 +242,23 @@ SPATIAL_V2V_TOL = {"float32": 1e-5, "bfloat16": REL_TOL_BF16}
 SPATIAL_KP_TOL = {"float32": (1e-3, 1e-4), "bfloat16": (0.5, 0.0)}
 # K1's slab widths replayed: the 2-rank path's (64 / 2) and a 4-rank one's.
 K1_SLABS = (32, 16)
+# [spatial train 2 ranks]: the flagship training step (TRAIN_YAML, batch
+# TRAIN_BATCH) with its volume split on X over two processes on the card,
+# each against the unsharded step in its process under cuDNN's
+# deterministic algorithms.  float32: the loss, and the gradients of each
+# optimizer group in relative L2, within SPATIAL_TRAIN_SPREAD times the
+# unsharded step's distance from itself under cuDNN's default algorithms
+# (floor DDP_SPREAD_FLOOR), as [ddp nccl] holds its step.  bfloat16: no
+# algorithm choice moves V2V's backward (that spread is 0), while the
+# sharded step's other sums move it 4.9e-2 and the backbone 1.25e-1 (an
+# H100, PERF.md, PR 16), so its limits are fixed: SPATIAL_TRAIN_BF16,
+# about twice the largest reading.  Two faults of the gradient accounting
+# are run in every type as controls and must fail the limits: the
+# gradients summed over the group instead of averaged (off by the number
+# of ranks), and each rank's own gradients, not combined.
+SPATIAL_TRAIN_SPREAD = 4.0
+SPATIAL_TRAIN_BF16 = {"loss": 1e-4, "grads": 0.25}
+SPATIAL_TRAIN_GROUPS = ("volume_net.", "process_features.", "backbone.")
 # [train fixture bf16]: the bfloat16 kernel path's mean distance from the
 # plain float32 step (loss; relative L2 of each of GRAD_MODULES' gradients)
 # over the plain bfloat16 path's, at most (tests/test_torch_bf16_train.py's
@@ -1206,14 +1233,15 @@ def nan_checks(batch, geometry, dev):
 # ---------------------------------------------------------------------------
 
 
-def _library_grid(m, s, hm):
-    """``F.grid_sample``'s (BV, 1, N, 2) grid of the projected voxels, those
-    at w <= 0 moved off the map."""
+def _library_grid(m, s, hm, slab=None):
+    """``F.grid_sample``'s (BV, 1, N, 2) grid of the projected voxels (of
+    the X planes [x0, x0 + sx) where ``slab`` is (x0, sx)), those at w <= 0
+    moved off the map."""
     import torch
 
     from lt_tpu_torch.ops.kernels import sample
 
-    uvw = sample._project(m, s)
+    uvw = sample._project(m, s, slab)
     w = uvw[..., 2]
     gx = 2.0 * uvw[..., 0] / (w * hm) - 1.0
     gy = 2.0 * uvw[..., 1] / (w * hm) - 1.0
@@ -1903,10 +1931,10 @@ def _fixture_unprojection(model, batch, config):
     seen = []
     agg = unproject.sample_views_agg
 
-    def spy(features, m, view_mask, method, grid_size):
+    def spy(features, m, view_mask, method, grid_size, slab=None):
         seen.append((features.detach(), m.detach(), view_mask.detach(),
                      grid_size))
-        return agg(features, m, view_mask, method, grid_size)
+        return agg(features, m, view_mask, method, grid_size, slab)
 
     unproject.sample_views_agg = spy
     try:
@@ -2562,6 +2590,324 @@ def k1_slab_replay(b, geometry, dev):
                 "library_ms": None}
             del feats
     return out
+
+
+def k56_slab_replay(geometry, dev):
+    """[kernels spatial] K5 and K6 on slabs of K1_SLABS widths (the last
+    planes of the grid) at the flagship training shapes (TRAIN_BATCH x 4
+    views of 96^2 x 32 into 64^3): K5 in float32 and bfloat16 -> bfloat16,
+    K6 on a float32 and a bfloat16 g, each against its plain version on
+    the slab (REL_TOL, REL_TOL_BF16 for K5's bfloat16 output), K5 against
+    the whole grid's launch's rows bit for bit and K6's slabs, tiling the
+    grid, summed against the whole grid's dF (REL_TOL: K6's atomics);
+    kernel, plain and library times (F.grid_sample on the slab's grid and
+    its input gradient) and the bound.  Returns {kernel: {width: {type:
+    numbers, "launches": 0}}}: the caller counts its path's launches."""
+    import torch
+    import torch.nn.functional as F
+
+    from lt_tpu_torch.ops.kernels import sample
+
+    b, s, hm, c = TRAIN_BATCH, FLAGSHIP["volume"], FLAGSHIP["heatmap"], 32
+    bv = b * 4
+    gen = torch.Generator(device=dev).manual_seed(6)
+    feats = torch.randn((bv, hm, hm, c), generator=gen, device=dev)
+    m = geometry(b).reshape(bv, 3, 4).contiguous()
+    shape = tuple(feats.shape)
+    g_cube = torch.randn((bv, c, s ** 3), generator=gen, device=dev)
+    out = {"sample_views_t": {}, "sample_views_grad_t": {}}
+    for sx in K1_SLABS:
+        x0 = s - sx
+        slab, n = (x0, sx), sx * s * s
+        grid = _library_grid(m, s, hm, slab)
+        for kind, dt in (("float32", torch.float32),
+                         ("bfloat16", torch.bfloat16)):
+            x = feats.to(dt)
+            x_nchw = x.permute(0, 3, 1, 2).contiguous().requires_grad_()
+            lib_out = F.grid_sample(x_nchw, grid.to(dt), align_corners=True)
+            g = g_cube[..., x0 * s * s:].to(dt).contiguous()
+            tol5 = REL_TOL if dt == torch.float32 else REL_TOL_BF16
+            ops = bv * n * (30.0 + 8.0 * c)
+            cases = {
+                "sample_views_t": (
+                    lambda: sample.sample_views_t(x, m, s, out_dtype=dt,
+                                                  slab=slab),
+                    lambda: sample.sample_views_t_plain(x, m, s, dt, slab),
+                    lambda: F.grid_sample(x_nchw.detach(), grid.to(dt),
+                                          align_corners=True),
+                    x.element_size() * (x.numel() + bv * c * n)
+                    + 4.0 * m.numel(), tol5),
+                "sample_views_grad_t": (
+                    lambda: sample.sample_views_grad_t(g, m, shape, s,
+                                                       slab=slab),
+                    lambda: sample.sample_views_grad_t_plain(g, m, shape, s,
+                                                             slab),
+                    lambda: torch.autograd.grad(lib_out, x_nchw,
+                                                g[:, :, None],
+                                                retain_graph=True),
+                    g.element_size() * g.numel()
+                    + 4.0 * (m.numel() + feats.numel()), REL_TOL)}
+            # K5's slab: the whole grid's rows; K6's slabs of this width,
+            # tiling the grid, sum to the whole grid's dF.
+            whole = sample.sample_views_t(x, m, s, out_dtype=dt)
+            if not torch.equal(cases["sample_views_t"][0](),
+                               whole[..., x0 * s * s:]):
+                raise AssertionError(f"sample_views_t {kind} slab {slab} "
+                                     f"!= the grid's rows")
+            del whole
+            total = sum(sample.sample_views_grad_t(
+                g_cube[..., k * n:(k + 1) * n].to(dt).contiguous(), m,
+                shape, s, slab=(k * sx, sx)) for k in range(s // sx))
+            check(f"sample_views_grad_t {kind} slabs of {sx} summed",
+                  total, sample.sample_views_grad_t(g_cube.to(dt), m, shape,
+                                                    s), REL_TOL)
+            del total
+            for name, (run, plain, library, nbytes, tol) in cases.items():
+                ref = plain()
+                err, rel = check(f"{name} {kind} slab {slab}", run(), ref,
+                                 tol)
+                del ref
+                ms, plain_ms, lib_ms = (cuda_ms(fn) for fn in
+                                        (run, plain, library))
+                b_ms, b_by = bound(nbytes, ops)
+                log(f"  {name}({bv},{hm},{hm},{c},S={s}) {kind} slab "
+                    f"x=[{x0},{s}): kernel {ms:.4f} ms  plain "
+                    f"{plain_ms:.4f} ms  library {lib_ms:.4f} ms  bound "
+                    f"{b_ms:.4f} ms ({b_by}); max_abs_err {err:.3e} rel "
+                    f"{rel:.3e}")
+                out[name].setdefault(str(sx), {"launches": 0})[kind] = {
+                    "x0": x0, "max_abs_err": err, "ms": ms,
+                    "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+                    "library_ms": lib_ms}
+            log(f"  K5 slab {slab} {kind} == the grid's rows bit for bit; "
+                f"K6's {s // sx} slabs of {sx} sum to the grid's dF")
+            del x, x_nchw, lib_out, g, cases
+            torch.cuda.empty_cache()
+    del feats, g_cube
+    torch.cuda.empty_cache()
+    return out
+
+
+def _train_grads(model, config, batch, state):
+    """One ``engine.steps.train_step`` of ``model`` from ``state`` with a
+    fresh optimizer: (metrics, every gradient as the step leaves it: under
+    volume-axis sharding averaged over the group)."""
+    from lt_tpu_torch.engine import factory, steps
+
+    model.load_state_dict(state)
+    optimizer = factory.make_optimizer(config, model)
+    metrics = steps.train_step(model, optimizer,
+                               factory.make_criterion(config), config, batch)
+    return metrics, {k: p.grad.detach().clone() for k, p in
+                     model.named_parameters() if p.grad is not None}
+
+
+def spatial_train_rank_run(dev):
+    """One rank of [spatial train 2 ranks], in float32 and with bf16: true:
+    the unsharded flagship step (TRAIN_YAML, TRAIN_BATCH, seed 0) twice
+    from the same weights (cuDNN's deterministic algorithms; its default
+    ones: the spread), TRAIN_STEPS timed steps of it (ms, peak GiB); the
+    reference freed; then the step with the volume split on X over the
+    launch's group from the same weights (deterministic), its kernel
+    launches recorded (the launch counts set to 0 just before and read
+    just after), the same step with each rank's own gradients, not
+    combined over the group (a control), and TRAIN_STEPS timed sharded
+    steps."""
+    import torch
+
+    from lt_tpu_torch.engine import factory, steps
+    from lt_tpu_torch.ops.kernels import _build
+    from lt_tpu_torch.utils import cfg
+    from lt_tpu_torch.utils.example import example_train_batch
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    res = {}
+    for bf16 in (False, True):
+        kind = "bfloat16" if bf16 else "float32"
+        r = {}
+        for sharded in (False, True):
+            config = cfg.load_config(str(ROOT / TRAIN_YAML), {
+                "model.backbone.init_weights": False, "bf16": bf16,
+                "model.volume_axis_sharding": sharded})
+            batch = {k: torch.from_numpy(v).to(dev) for k, v in
+                     example_train_batch(TRAIN_BATCH, config.image_shape[0],
+                                         17, seed=3).items()}
+            model = factory.make_model(config, device=dev, seed=0)
+            state = {k: v.clone() for k, v in model.state_dict().items()}
+            g = model.volume_axis_sharding
+            if sharded:
+                torch.cuda.synchronize()
+                _build.reset_launches()
+                g.reset_stats()
+                with deterministic_cudnn():
+                    calls = record_launches(lambda: r.__setitem__(
+                        "sharded", _train_grads(model, config, batch,
+                                                state)))
+                torch.cuda.synchronize()
+                r["launches"] = {k: v for k, v in _build.LAUNCHES.items()
+                                 if v}
+                r["slabs"] = sorted({(name, tuple(args[-2:]))
+                                     for _, name, args in calls
+                                     if name in TRAIN_KERNELS})
+                r["slab"] = g.slab(config.model.volume_size)
+                r["stats"] = dict(g.stats)
+                g.average_grads = lambda params: None
+                with deterministic_cudnn():
+                    r["own"] = _train_grads(model, config, batch, state)
+                del g.average_grads
+            else:
+                with deterministic_cudnn():
+                    r["whole"] = _train_grads(model, config, batch, state)
+                r["default"] = _train_grads(model, config, batch, state)
+            model.load_state_dict(state)
+            optimizer = factory.make_optimizer(config, model)
+            criterion = factory.make_criterion(config)
+            steps.train_step(model, optimizer, criterion, config, batch)
+            ms, times, losses, _, peak = _timed_steps(
+                model, optimizer, criterion, config, batch)
+            label = "sharded" if sharded else "whole"
+            r[f"ms_{label}"], r[f"times_{label}"] = ms, times
+            r[f"peak_{label}"], r[f"losses_{label}"] = peak, losses
+            del model, optimizer, state, batch
+            torch.cuda.empty_cache()
+        res[kind] = r
+    return res
+
+
+def _spatial_train_rank_main(rank, port, out_prefix):
+    """A rank of [spatial train 2 ranks]: gloo over the one card."""
+    sys.path.insert(0, str(ROOT))
+    import torch
+    import torch.distributed as dist
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            rank=rank, world_size=SPATIAL_RANKS)
+    try:
+        torch.save(spatial_train_rank_run(dev), f"{out_prefix}{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def _relative(got, ref):
+    """Relative distance of a float or of a gradient group's tensors."""
+    if isinstance(ref, float):
+        return abs(got - ref) / max(abs(ref), 1e-30)
+    return _grad_l2(got[0], ref[0], got[1])
+
+
+def spatial_train_two_ranks(smi):
+    """[spatial train 2 ranks]: the flagship training step (TRAIN_YAML,
+    batch TRAIN_BATCH, float32 and bf16: true) with each sample's volume
+    split on X over two processes on the one card (gloo), each rank
+    against the unsharded step in its own process (spatial_train_rank_run):
+    the loss and each optimizer group's gradient within SPATIAL_TRAIN_SPREAD
+    times the unsharded step's spread under cuDNN's default algorithms
+    (floor DDP_SPREAD_FLOOR) in float32, within SPATIAL_TRAIN_BF16 in
+    bfloat16; the gradients summed over the ranks instead of averaged, and
+    each rank's own gradients, outside those limits; K1, K5 and K6
+    launched once a step on the rank's slab, both ranks' losses equal.  Prints step ms and peak GiB per rank
+    beside the unsharded step's, and the collectives per step.  Returns
+    the launches of one sharded step of each type, summed over the
+    ranks."""
+    import tempfile
+
+    import torch
+    import torch.multiprocessing as mp
+
+    t0 = time.perf_counter()
+    log(f"[spatial train 2 ranks] {TRAIN_YAML} at batch {TRAIN_BATCH}, "
+        f"float32 and bf16: true, seed 0, random weights: each sample's "
+        f"{FLAGSHIP['volume']}^3 volume split on X over {SPATIAL_RANKS} "
+        f"processes on the card (gloo), against the unsharded step in each "
+        f"process")
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        prefix = str(Path(tmp) / "rank")
+        ctx = mp.start_processes(_spatial_train_rank_main,
+                                 args=(_free_port(), prefix),
+                                 nprocs=SPATIAL_RANKS, join=False,
+                                 start_method="spawn")
+        deadline = time.monotonic() + 500.0
+        while not ctx.join(timeout=1.0):
+            if time.monotonic() > deadline:
+                for proc in ctx.processes:
+                    proc.kill()
+                raise AssertionError("[spatial train 2 ranks]: the ranks "
+                                     "did not end in 500 s")
+        ranks = [torch.load(f"{prefix}{r}.pt", weights_only=False)
+                 for r in range(SPATIAL_RANKS)]
+    bad, launches = [], {}
+    for kind in ("float32", "bfloat16"):
+        losses = []
+        for r, res in enumerate(ranks):
+            e = res[kind]
+            (m_w, g_w), (m_s, g_s) = e["whole"], e["sharded"]
+            (_, g_d), (_, g_o) = e["default"], e["own"]
+            losses.append(m_s["total_loss"])
+            log(f"  {kind} rank {r}, X planes [{e['slab'][0]}, "
+                f"{sum(e['slab'])}):")
+            checks = [("loss", m_s["total_loss"], m_w["total_loss"],
+                       e["default"][0]["total_loss"])]
+            checks += [(grp, (g_s, grp), (g_w, grp), (g_d, grp))
+                       for grp in SPATIAL_TRAIN_GROUPS]
+            for what, got, ref, default in checks:
+                dist_, spread = _relative(got, ref), _relative(default, ref)
+                if kind == "float32":
+                    limit = max(SPATIAL_TRAIN_SPREAD * spread,
+                                DDP_SPREAD_FLOOR)
+                else:
+                    limit = SPATIAL_TRAIN_BF16[
+                        "loss" if what == "loss" else "grads"]
+                log(f"    {what}: sharded vs unsharded {dist_:.3e}; "
+                    f"unsharded under cuDNN's default algorithms "
+                    f"{spread:.3e} (limit {limit:.3e})")
+                if not dist_ <= limit:
+                    bad.append(f"{kind} rank {r}: {what}")
+                if what == "loss":
+                    continue
+                summed = {k: v * SPATIAL_RANKS for k, v in g_s.items()}
+                controls = (_relative((summed, what), ref),
+                            _relative((g_o, what), ref))
+                log(f"      controls: summed over the ranks "
+                    f"{controls[0]:.3e}, the rank's own gradients "
+                    f"{controls[1]:.3e} (each must exceed the limit)")
+                if not min(controls) > limit:
+                    bad.append(f"{kind} rank {r}: {what}: a control passes")
+            want = {(k, tuple(e["slab"])) for k in TRAIN_KERNELS}
+            one = all(e["launches"].get(k) == 1 for k in TRAIN_KERNELS)
+            log(f"    launches in the sharded step: {e['launches']}; K1, K5, "
+                f"K6 on slabs {e['slabs']}")
+            if set(e["slabs"]) != want or not one:
+                bad.append(f"{kind} rank {r}: K1, K5, K6 not once on the "
+                           f"rank's slab")
+            st = e["stats"]
+            log(f"    collectives per step: forward {st['exchanges']} halo "
+                f"exchanges ({st['halo_bytes']} bytes received), "
+                f"{st['gathers']} gathers ({st['gather_bytes']} bytes), "
+                f"{st['reductions']} reductions; backward "
+                f"{st['back_exchanges']} exchanges, {st['back_gathers']} "
+                f"reduce-scatters, {st['back_reductions']} reductions")
+            log(f"    step ms (median of {TRAIN_STEPS}): sharded "
+                f"{e['ms_sharded']:.1f} "
+                f"{[round(t, 1) for t in e['times_sharded']]}, peak "
+                f"{e['peak_sharded']:.2f} GiB; unsharded "
+                f"{e['ms_whole']:.1f} "
+                f"{[round(t, 1) for t in e['times_whole']]}, peak "
+                f"{e['peak_whole']:.2f} GiB (both ranks on the card at once; "
+                f"gloo over the host); losses {e['losses_sharded']}")
+            if not all(math.isfinite(x) for x in e["losses_sharded"]):
+                bad.append(f"{kind} rank {r}: losses")
+            for k, n in e["launches"].items():
+                launches[k] = launches.get(k, 0) + n
+        if losses[0] != losses[1]:
+            bad.append(f"{kind}: the ranks' losses {losses}")
+    if bad:
+        raise AssertionError(f"[spatial train 2 ranks] failed: {bad}")
+    log(f"  the phase took {time.perf_counter() - t0:.1f} s; on {smi}")
+    return launches
 
 
 class _Recorder:
@@ -3531,6 +3877,15 @@ def _memory_sampler(period_s=0.2):
     return thread.start, stop
 
 
+# --spatial-cards N's training run: random weights, the tree's training
+# rows without algebraic predictions (the tree holds the test rows'), so
+# the ground-truth pelvis places the cuboid.
+SPATIAL_CARDS_TRAIN = {"model.backbone.init_weights": False,
+                       "model.volume_axis_sharding": True,
+                       "model.use_gt_pelvis": True,
+                       "dataset.train.pred_results_path": None}
+
+
 def spatial_cards(n, smi):
     """``--spatial-cards N``: human36m_vol_softmax.yaml --eval at its width
     (val batch 20, float32) on a write_h36m_tree tree, from a whole-model
@@ -3542,7 +3897,12 @@ def spatial_cards(n, smi):
     every 0.2 s, the CUDA context included) and the keypoints' distance
     between the two runs; fails past 1e-3 mm + 1e-4 relative (the
     sharded forward's limit against the unsharded one) or where the metric
-    differs by 1e-3 mm."""
+    differs by 1e-3 mm.  Then TRAIN_YAML trains one epoch (three steps
+    of batch TRAIN_BATCH on the tree's 15 training rows, then its eval)
+    under ``torchrun --nproc_per_node N`` with the key, float32, from
+    random weights: each step's ms and loss (the master's metrics.jsonl)
+    and every card's peak memory are printed; it fails only where the run
+    fails or a loss is not finite."""
     import tempfile
 
     import numpy as np
@@ -3554,7 +3914,7 @@ def spatial_cards(n, smi):
         f"against torchrun --nproc_per_node {n} with "
         f"model.volume_axis_sharding: true (NCCL)")
     with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
-        tree = write_h36m_tree(Path(tmp) / "h36m", seed=0)
+        tree = write_h36m_tree(Path(tmp) / "h36m", seed=0, n_train=15)
         pth = str(Path(tmp) / "human36m_vol_softmax.pth")
         overrides = {**h36m_overrides(tree), "model.checkpoint": pth}
         config = cfg.load_config(H36M_EVAL_YAML, overrides)
@@ -3606,6 +3966,48 @@ def spatial_cards(n, smi):
                                 - metrics[f"{n} cards"]) > 1e-3:
             raise AssertionError(f"[spatial {n} cards]: the sharded eval "
                                  f"differs from one card")
+
+        log(f"[spatial {n} cards train] {TRAIN_YAML}, one epoch of batch "
+            f"{TRAIN_BATCH}, float32, random weights, under torchrun "
+            f"--nproc_per_node {n} with model.volume_axis_sharding: true "
+            f"(NCCL)")
+        config = cfg.load_config(str(ROOT / TRAIN_YAML), {
+            **h36m_overrides(tree, "train"), **h36m_overrides(tree),
+            **SPATIAL_CARDS_TRAIN, "dataset.train.num_workers": 4,
+            "dataset.val.num_workers": 4})
+        yaml = Path(tmp) / "train.yaml"
+        yaml.write_text(cfg.config_to_str(config))
+        logdir = Path(tmp) / "logs_train"
+        start, stop = _memory_sampler()
+        start()
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "torch.distributed.run",
+             f"--nproc_per_node={n}", "-m", "lt_tpu_torch.train", "--config",
+             str(yaml), "--logdir", str(logdir), "--max_epochs", "1",
+             "--seed", str(DATA_SEED)],
+            cwd=ROOT, capture_output=True, text=True, timeout=900)
+        secs = time.perf_counter() - t0
+        peaks = stop()
+        for line in proc.stdout.splitlines()[-6:]:
+            log(f"  train: {line}")
+        if proc.returncode:
+            log(proc.stderr[-4000:])
+            raise AssertionError(f"[spatial {n} cards train]: exit "
+                                 f"{proc.returncode}")
+        _, _, records = _experiment(logdir)
+        train = [r for r in records if r["tag"] == "train"]
+        step_ms = [round(1e3 * r["batch_time"], 1) for r in train]
+        log(f"  {len(train)} steps: ms {step_ms} (the first builds and "
+            f"warms up), losses "
+            f"{[round(r['total_loss'], 4) for r in train]}; the run took "
+            f"{secs:.1f} s; peak used memory per card (GiB) "
+            f"{ {i: round(m / 1024, 2) for i, m in peaks.items()} }; on "
+            f"{smi}")
+        if not train or not all(math.isfinite(r["total_loss"])
+                                for r in train):
+            raise AssertionError(f"[spatial {n} cards train]: losses "
+                                 f"{[r['total_loss'] for r in train]}")
 
 
 def check_h36m_metric(metric, results, ds):
@@ -4175,6 +4577,17 @@ def main(argv=None) -> int:
     k1_row["slab"] = k1_slab_replay(b, geometry, dev)
     k1_row["slab"][str(FLAGSHIP["volume"] // SPATIAL_RANKS)]["launches"] = \
         k1_row["launches_by_path"]["spatial"]
+    # Phase 9d: the flagship training step on slabs over two ranks on the
+    # card, and K5 and K6 on slabs in the replay.
+    add_path("spatial_train", spatial_train_two_ranks(smi))
+    log(f"[kernels spatial] K5 and K6 on slabs of {K1_SLABS} X planes of "
+        f"the {FLAGSHIP['volume']}^3 grid, flagship training shapes: kernel "
+        f"vs plain, vs the grid's rows (K5) and sum (K6)")
+    width = str(FLAGSHIP["volume"] // SPATIAL_RANKS)
+    for name, slabs in k56_slab_replay(geometry, dev).items():
+        r = next(r for r in rows if r["name"] == name)
+        r["slab"] = slabs
+        slabs[width]["launches"] = r["launches_by_path"]["spatial_train"]
 
     # Phase 10: the algebraic and RANSAC families at the flagship width, on
     # the trained fixture, and the algebraic training step and CLI.

@@ -10,6 +10,14 @@ A model that ``lt_tpu_torch.parallel.mesh.data_parallel`` wrapped trains
 on this rank's rows of the global batch as ``lt_tpu`` trains on a batch
 sharded over its mesh: the losses' normalizers and the logged metrics are
 global, and the gradient is the global loss's.
+
+A volumetric model under volume-axis sharding (``volume_axis_sharding``, a
+``parallel.spatial.SlabGroup``) trains on the whole batch in every rank,
+each rank holding its slab of every volume: the volumetric CE gathers the
+whole volume (differentiable), the loss and metrics come out replicated,
+and the gradients are averaged over the group before the norm and the
+clipping (the convention of ``parallel/spatial.py``), so that every rank
+takes the one-process step.
 """
 
 from __future__ import annotations
@@ -88,6 +96,16 @@ def _single_view_relative(kp_pred, kp_gt, base_joint: int):
     return pred, gt
 
 
+def whole_volumes(out, slabs):
+    """A volumetric output whose ``volumes`` and ``coord_volumes`` are the
+    whole volumes, gathered from the ranks' slabs where ``slabs`` (a
+    ``SlabGroup``) is set (differentiable: ``SlabGroup.gather_x``)."""
+    if slabs is None:
+        return out
+    return out._replace(volumes=slabs.gather_x(out.volumes, dim=2),
+                        coord_volumes=slabs.gather_x(out.coord_volumes))
+
+
 def compute_losses(criterion, config, out, batch, group=None):
     """(total loss, metrics): the criterion on scaled keypoints, plus for
     the volumetric model the weighted volumetric CE where
@@ -154,6 +172,10 @@ def train_step(model, optimizer, criterion, config,
     gradients over the ranks), and the norm and the clipping see the
     reduced gradients.
 
+    Under volume-axis sharding every rank trains on the whole batch and
+    backpropagates the replicated loss; the gradients are then averaged
+    over the slab group (``SlabGroup.average_grads``).
+
     ``debug_nans: true`` in the config: a non-finite metric (before the
     backward) or gradient norm (before Adam) raises
     ``FloatingPointError``, as ``jax_debug_nans`` stops ``lt_tpu``.
@@ -179,8 +201,11 @@ def train_step(model, optimizer, criterion, config,
         batch = {**batch, "rotation_thetas": draw_rotation_thetas(
             batch["images"].shape[0], generator, rank(group),
             world_size(group))}
+    slabs = getattr(unwrap(model), "volume_axis_sharding", None)
     model.train()
     out = model_outputs(model, batch, config, generator)
+    if slabs is not None and config.opt.get("use_volumetric_ce_loss"):
+        out = whole_volumes(out, slabs)
     total, metrics = compute_losses(criterion, config, out, batch, group)
     names = list(metrics)
     values = all_sum(torch.stack([metrics[k].detach().double()
@@ -196,6 +221,8 @@ def train_step(model, optimizer, criterion, config,
     else:
         for p in params:
             p.grad = torch.zeros_like(p)
+    if slabs is not None:
+        slabs.average_grads(params)
     lr = config.opt.lr
     norm = torch.nn.utils.get_total_norm(
         [p.grad for p in params if p.grad is not None])
@@ -228,8 +255,7 @@ def eval_step(model, criterion, config, batch: Dict[str, torch.Tensor]):
     out = model_outputs(net, batch, config)
     slabs = getattr(net, "volume_axis_sharding", None)
     if slabs is not None and config.opt.get("use_volumetric_ce_loss"):
-        out = out._replace(volumes=slabs.gather_x(out.volumes, dim=2),
-                           coord_volumes=slabs.gather_x(out.coord_volumes))
+        out = whole_volumes(out, slabs)
     _, metrics = compute_losses(criterion, config, out, batch, group)
     values = all_sum(torch.stack([v.detach().double()
                                   for v in metrics.values()]), group)
@@ -241,5 +267,9 @@ def vis_step(model, config, batch: Dict[str, torch.Tensor]):
     """The eval-mode forward's whole output (heatmaps or volumes,
     confidences, base points) for the training panels: ``lt_tpu``'s
     ``make_vis_step`` (``lt_tpu/engine/steps.py:171-182``).  No collective
-    runs: one rank may call it alone."""
-    return model_outputs(unwrap(model).eval(), batch, config)
+    runs, and one rank may call it alone, except under volume-axis
+    sharding: there every rank of the slab group calls it (the forward's
+    exchanges), and each gets the whole volumes."""
+    net = unwrap(model).eval()
+    return whole_volumes(model_outputs(net, batch, config),
+                         getattr(net, "volume_axis_sharding", None))

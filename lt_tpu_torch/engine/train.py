@@ -45,7 +45,6 @@ from lt_tpu_torch.engine import checkpoint as ckpt
 from lt_tpu_torch.engine import factory
 from lt_tpu_torch.engine.steps import eval_step, train_step, vis_step
 from lt_tpu_torch.parallel import mesh
-from lt_tpu_torch.parallel.spatial import NOT_PORTED
 from lt_tpu_torch.utils import cfg as cfg_lib
 from lt_tpu_torch.utils import weights
 
@@ -269,11 +268,13 @@ def device_batch(batch: dict, device):
 
 def train_epoch(model, optimizer, criterion, config, iterator, epoch: int,
                 generator: torch.Generator, logger: Optional[MetricLogger],
-                n_iters_total: int, device) -> int:
+                n_iters_total: int, device, vis_all: bool = False) -> int:
     """One training epoch on this rank's rows; returns the updated step
     count.  The master logs each step's global metrics and, every
     ``vis_freq`` steps where it has a writer, the panels of
-    :func:`log_vis_panels`."""
+    :func:`log_vis_panels`; with ``vis_all`` (volume-axis sharding, whose
+    eval forward exchanges between the ranks) the other ranks run that
+    forward with it."""
     n_iters = config.opt.get("n_iters_per_epoch")
     vis_freq = config.get("vis_freq")
     end = time.time()
@@ -284,16 +285,18 @@ def train_epoch(model, optimizer, criterion, config, iterator, epoch: int,
         tensors, _ = device_batch(batch, device)
         metrics = train_step(model, optimizer, criterion, config, tensors,
                              generator)
+        vis_now = bool(vis_freq) and n_iters_total % vis_freq == 0
         if logger is not None:
             logger.log("train", {**metrics, "batch_time": time.time() - end,
                                  "data_time": data_time,
                                  "batch_size": iterator.batch_size,
                                  "n_views": batch["images"].shape[1]},
                        n_iters_total)
-            if (vis_freq and logger.writer is not None
-                    and n_iters_total % vis_freq == 0):
+            if vis_now and logger.writer is not None:
                 log_vis_panels(logger.writer, model, batch, tensors, config,
                                n_iters_total)
+        elif vis_now and vis_all:
+            vis_step(model, config, tensors)
         end = time.time()
         n_iters_total += 1
     if logger is not None:
@@ -467,16 +470,12 @@ def run(config_path: str, logdir: str, eval_only: bool = False,
     true`` takes precedence, as in ``lt_tpu``: every rank loads the whole
     batch, the volumetric model splits each sample's volume on X over the
     ranks (``engine.factory.spatial_sharding``), every rank gets the
-    whole batch's keypoints and the master writes; it evaluates only
-    (``NotImplementedError`` for training)."""
+    whole batch's keypoints and takes the same training step
+    (``engine.steps.train_step`` averages the gradients over the ranks),
+    and the master writes the logs and checkpoints."""
     dev = resolve_device(device)
     config = cfg_lib.load_config(config_path, overrides)
     spatial = factory.spatial_sharding(config)
-    if spatial and not eval_only:
-        raise NotImplementedError(
-            f"model.volume_axis_sharding: true over {mesh.world_size()} "
-            f"ranks evaluates only (--eval); training on slabs is "
-            f"{NOT_PORTED}")
     ranks = (mesh.world_size() if config.get("data_parallel", True)
              and not spatial else 1)
     if config.opt.get("batch_per_device") and ranks > 1:
@@ -549,6 +548,10 @@ def run(config_path: str, logdir: str, eval_only: bool = False,
             is_train=not eval_only)
         logger = MetricLogger(experiment_dir, writer)
     experiment_dir = mesh.broadcast_object(experiment_dir)
+    # Under the key the training panels' eval forward exchanges between the
+    # ranks: every rank runs it where the master draws them.
+    vis_all = spatial and mesh.broadcast_object(
+        logger is not None and logger.writer is not None)
     profile_dir = config.get("profile_dir")
     try:
         with torch.autograd.set_detect_anomaly(
@@ -569,7 +572,7 @@ def run(config_path: str, logdir: str, eval_only: bool = False,
                                dev):
                     step = train_epoch(net, optimizer, criterion, config,
                                        train_it, epoch, generator, logger,
-                                       step, dev)
+                                       step, dev, vis_all)
                 scalar, _ = eval_epoch(net, criterion, config, val_it,
                                        val_ds, epoch, experiment_dir, logger,
                                        dev)

@@ -20,6 +20,15 @@ global batch, every rank's rows, as ``lt_tpu``'s BatchNorm does on a batch
 sharded over its mesh: the mean, then the biased variance about it, each
 a sum over the ranks that the backward sums again, so that the input
 gradient sees every rank's samples.
+
+Under volume-axis sharding (``parallel/spatial.py``) V2V runs a block of a
+level split over a ``SlabGroup`` inside ``spatial.slabs_of(group)``
+(:func:`run_block`'s ``slabs``): its BatchNorm layers then take the same
+global statistics over the group's ranks, each rank's own X planes (a
+block's convolutions exchange their halo planes themselves, so BatchNorm
+never sees a halo plane).  A block that holds whole planes (a level V2V
+gathered whole, which every rank holds in full, and the backbone, which
+runs the whole batch on every rank) takes its own statistics.
 """
 
 from __future__ import annotations
@@ -31,6 +40,8 @@ import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
+
+from lt_tpu_torch.parallel import spatial
 
 BN_EPS = 1e-5
 BN_MOMENTUM = 0.1        # flax momentum 0.9 is an EMA decay: 1 - 0.1
@@ -63,8 +74,14 @@ class BatchNorm(nn.modules.batchnorm._BatchNorm):
         if not self.training:
             return F.batch_norm(x, self.running_mean, self.running_var,
                                 self.weight, self.bias, False, 0.0, self.eps)
+        slabs = spatial.on_slabs()
+        if slabs is not None:
+            return self._forward_global(x, slabs.ranks, slabs.all_reduce)
         if self.process_group is not None:
-            return self._forward_global(x)
+            group = self.process_group
+            return self._forward_global(
+                x, dist.get_world_size(group),
+                lambda t: _SumOverRanks.apply(t, group))
         # One reduction.  F.batch_norm moves a copy of the running variance
         # to (1 - m) r + m var n / (n - 1); then
         # r <- r (1 - m) / n + copy (n - 1) / n  =  (1 - m) r + m var,
@@ -85,18 +102,20 @@ class BatchNorm(nn.modules.batchnorm._BatchNorm):
                 self.num_batches_tracked.add_(1)
         return y
 
-    def _forward_global(self, x: torch.Tensor) -> torch.Tensor:
-        """Training over the global batch of ``process_group``'s ranks,
-        each holding as many rows: statistics in float32 (or the input's
-        wider type), the output in the input's type."""
-        group = self.process_group
+    def _forward_global(self, x: torch.Tensor, ranks: int,
+                        sum_over) -> torch.Tensor:
+        """Training over the global batch of ``ranks`` ranks, each holding
+        as many rows (or X planes), whose sums ``sum_over`` takes (a sum
+        over the ranks whose backward sums the cotangents): statistics in
+        float32 (or the input's wider type), the output in the input's
+        type."""
         xf = x.float() if x.dtype in (torch.bfloat16, torch.float16) else x
         dims = [0] + list(range(2, x.dim()))
         shape = [1, -1] + [1] * (x.dim() - 2)
-        n = x.numel() // x.shape[1] * dist.get_world_size(group)
-        mean = _SumOverRanks.apply(xf.sum(dims), group) / n
+        n = x.numel() // x.shape[1] * ranks
+        mean = sum_over(xf.sum(dims)) / n
         xc = xf - mean.view(shape)
-        var = _SumOverRanks.apply((xc * xc).sum(dims), group) / n
+        var = sum_over((xc * xc).sum(dims)) / n
         scale = torch.rsqrt(var + self.eps) * self.weight
         y = xc * scale.view(shape) + self.bias.view(shape)
         if not _RECOMPUTING.get():
@@ -144,21 +163,30 @@ def bn_fed_biases(model: nn.Module) -> set:
     return names
 
 
-def run_block(module: nn.Module, x: torch.Tensor, remat: bool):
+def run_block(module: nn.Module, x: torch.Tensor, remat: bool,
+              slabs=None):
     """``module(x)``; with ``remat`` in training, under
     ``torch.utils.checkpoint``: the block's activations are recomputed in
     the backward instead of kept.  The recompute leaves BatchNorm running
     statistics alone: they move once per step, as ``lt_tpu``'s ``nn.remat``
-    blocks move them."""
+    blocks move them.
+
+    ``slabs``: a ``parallel.spatial.SlabGroup`` over whose slabs x is split
+    on X (dim 2): the block runs inside ``spatial.slabs_of(slabs)``, in the
+    forward and in its recompute, which repeats the forward's exchanges and
+    reductions (every rank recomputes at the same point of its backward).
+    """
     if not (remat and module.training):
-        return module(x)
+        with spatial.slabs_of(slabs):
+            return module(x)
     calls = []
 
     def run(*a):
         token = _RECOMPUTING.set(bool(calls))
         calls.append(True)
         try:
-            return module(*a)
+            with spatial.slabs_of(slabs):
+                return module(*a)
         finally:
             _RECOMPUTING.reset(token)
 

@@ -29,11 +29,16 @@ heatmaps, keypoints, the DLT and the losses are float32 throughout; the
 training backward of the fused aggregation runs K5 and K6 in bfloat16.
 
 ``volume_axis_sharding`` (a process group) is ``lt_tpu``'s key of that
-name (``triangulation.py:210-214, 284-336``) for the volumetric eval
-forward on the fused kernel path: every rank runs the backbone on the
-whole batch, K1 fills the rank's slab of the volume on X, V2V runs on
-slabs (``models/v2v.py``) and the soft-argmax reduces over the group, so
-every rank returns the whole batch's keypoints (``parallel/spatial.py``).
+name (``triangulation.py:210-214, 284-336``) for the volumetric model on
+the fused kernel path, in eval and in training: every rank runs the
+backbone on the whole batch, K1 fills the rank's slab of the volume on X
+(in training its backward runs K5 and K6 on that slab; 'conf' and 'max'
+sample the slab with K5), V2V runs on slabs (``models/v2v.py``) and the
+soft-argmax reduces over the group, so every rank returns the whole
+batch's keypoints (``parallel/spatial.py``, which also sets out how the
+backward's gradients combine).  The "conv" and ``False`` paths are not
+sharded: ``use_kernels=False`` is the plain reference that the kernel
+path is held to, and it runs unsharded.
 """
 
 from __future__ import annotations
@@ -52,7 +57,7 @@ from lt_tpu_torch.ops import geometry
 from lt_tpu_torch.ops import heatmaps as hm_ops
 from lt_tpu_torch.ops import volumetric as vol_ops
 from lt_tpu_torch.ops.kernels.unproject import unproject_heatmaps_affine
-from lt_tpu_torch.parallel.spatial import NOT_PORTED, slab_group
+from lt_tpu_torch.parallel.spatial import slab_group
 
 
 class AlgebraicOutput(NamedTuple):
@@ -247,11 +252,14 @@ class VolumetricTriangulationNet(nn.Module):
     (``engine.factory.make_optimizer``), as in ``lt_tpu``.
 
     ``volume_axis_sharding``: a process group of more than one rank
-    splits each sample's volume on X over it in the eval forward of the
-    "fused" path (``self.volume_axis_sharding``, a
+    splits each sample's volume on X over it on the "fused" path, in eval
+    and in training (``self.volume_axis_sharding``, a
     ``parallel.spatial.SlabGroup``; None where the group has one rank,
-    which is the unsharded model).  Other paths and training raise
-    ``NotImplementedError``.
+    which is the unsharded model).  The other paths raise
+    ``NotImplementedError``: they are the references the fused path is
+    held to, and run unsharded.  In training every rank draws the whole
+    batch's rotations from its generator (seeded alike on every rank), so
+    that every rank builds the same cuboids.
     """
 
     def __init__(self, num_joints: int = 17, num_layers: int = 152,
@@ -281,8 +289,9 @@ class VolumetricTriangulationNet(nn.Module):
         if self.volume_axis_sharding and self.use_kernels != "fused":
             raise NotImplementedError(
                 f"volume-axis sharding runs the fused kernel path only, not "
-                f"use_kernels={self.use_kernels!r}: the rest is "
-                f"{NOT_PORTED}")
+                f"use_kernels={self.use_kernels!r}: 'conv' and False are "
+                f"the references the fused path is held to, and run "
+                f"unsharded (README; ROADMAP A8)")
         self.backbone = PoseResNet(
             num_joints, num_layers, style, alg_confidences=False,
             vol_confidences=volume_aggregation_method.startswith("conf"),
@@ -316,9 +325,6 @@ class VolumetricTriangulationNet(nn.Module):
             with torch.no_grad():
                 return self._forward(images, proj_matrices, pelvis_keypoints,
                                      view_mask, rotation_thetas)
-        if self.volume_axis_sharding is not None:
-            raise NotImplementedError(
-                f"training under volume-axis sharding: {NOT_PORTED}")
         if rotation_thetas is None:
             if generator is None:
                 raise ValueError("training draws cuboid rotations: pass "

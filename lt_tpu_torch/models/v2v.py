@@ -30,13 +30,18 @@ switches, ``lt_tpu/models/v2v.py:52-96``; the port reads no environment):
   shared ``models/batchnorm.BatchNorm``), the plain path.
 
 Under volume-axis sharding (``forward(x, slabs=)``, a
-``parallel.spatial.SlabGroup``) the fused path runs on each rank's slab of
-the volume on X, each fused call on the slab extended by the call's reach
-in X planes (one exchange a call), its output cut back to the slab; a
-level too thin for its call runs whole on every rank
-(:meth:`V2VModel._forward_fused_slabs`).  Only the eval forward of the
-fused path is sharded: training and the other paths raise
-``NotImplementedError``.
+``parallel.spatial.SlabGroup``) V2V runs on each rank's slab of the volume
+on X.  In eval the fused path runs each fused call on the slab extended by
+the call's reach in X planes (one exchange a call), its output cut back to
+the slab; a level too thin for its call runs whole on every rank
+(:meth:`V2VModel._forward_fused_slabs`).  In training the module graph
+runs on slabs (:meth:`V2VModel._forward_modules_slabs`): each k > 1
+convolution on its input extended by its reach (one exchange a
+convolution, differentiable), BatchNorm with the group's statistics, the
+pools and the k = 2 upsamples on the slab itself; from the first level
+that cannot be split the volume is gathered and that level and every
+deeper one run whole on every rank.  The eval paths "conv" and ``False``
+are not sharded (``NotImplementedError``).
 
 BN is folded into the weights in float32 once per weight version, device
 and compute dtype, not on every call; with ``compute_dtype=torch.bfloat16``
@@ -79,7 +84,7 @@ from lt_tpu_torch.ops.kernels.res3d import (res3d_block_fused,
 from lt_tpu_torch.ops.kernels.updown import (max_pool3d_2x,
                                              pack_upsample_weights,
                                              upsample3d_2x)
-from lt_tpu_torch.parallel.spatial import NOT_PORTED
+from lt_tpu_torch.parallel import spatial
 
 KERNEL_PATHS = ("fused", "conv", False)
 
@@ -105,6 +110,37 @@ def _fold(conv: nn.Conv3d, bn: BatchNorm):
     return w.contiguous(), b.contiguous()
 
 
+def _slab_conv(conv: nn.Conv3d, x: torch.Tensor, g) -> torch.Tensor:
+    """A stride-1 'same' Conv3d on this rank's slab ``x`` (N, C, sx, Y, Z)
+    of a volume split over ``g`` on X: the slab extended by the
+    convolution's reach from each interior neighbour, zero-padded on X at
+    the volume's global faces only (and on Y, Z as the convolution pads),
+    so that the output is the slab's planes of the whole volume's
+    convolution."""
+    reach = conv.padding[0]
+    if reach == 0:
+        return conv(x)
+    x = g.extend_x(x, reach, dim=2)
+    lo = reach if g.rank == 0 else 0
+    hi = reach if g.rank == g.ranks - 1 else 0
+    if lo or hi:
+        x = torch.nn.functional.pad(x, (0, 0, 0, 0, lo, hi))
+    return torch.nn.functional.conv3d(x, conv.weight, conv.bias, 1,
+                                      (0,) + tuple(conv.padding[1:]))
+
+
+def _run(seq: nn.Sequential, x: torch.Tensor) -> torch.Tensor:
+    """``seq(x)``; inside ``spatial.slabs_of(g)`` its 'same' Conv3d layers
+    run on g's slabs (:func:`_slab_conv`)."""
+    g = spatial.on_slabs()
+    if g is None:
+        return seq(x)
+    for mod in seq:
+        x = (_slab_conv(mod, x, g) if isinstance(mod, nn.Conv3d)
+             else mod(x))
+    return x
+
+
 class Basic3DBlock(nn.Module):
     def __init__(self, in_planes: int, out_planes: int, kernel_size: int):
         super().__init__()
@@ -114,7 +150,7 @@ class Basic3DBlock(nn.Module):
             BatchNorm(out_planes), nn.ReLU())
 
     def forward(self, x):
-        return self.block(x)
+        return _run(self.block, x)
 
     def folded(self):
         """(w DHWIO, b) with BN folded in."""
@@ -133,7 +169,7 @@ class Res3DBlock(nn.Module):
                                        BatchNorm(out_planes)))
 
     def forward(self, x):
-        return torch.relu(self.res_branch(x) + self.skip_con(x))
+        return torch.relu(_run(self.res_branch, x) + _run(self.skip_con, x))
 
     def folded(self):
         """(w1, b1, w2, b2), plus ((ws (Cin, C), bs),) for a projection."""
@@ -295,16 +331,18 @@ class V2VModel(nn.Module):
         """(B, X, Y, Z, C_in) -> (B, X, Y, Z, output_channels), in the
         compute dtype in eval and in float32 in training.  With ``slabs``
         (a ``parallel.spatial.SlabGroup``) x and the output are this
-        rank's slab on X, (B, X / ranks, Y, Z, C)."""
-        if slabs is not None and (self.training
-                                  or self.use_kernels != "fused"):
+        rank's slab on X, (B, X / ranks, Y, Z, C): in training through
+        the module graph, in eval through the fused path ("conv" and
+        ``False`` raise ``NotImplementedError`` there)."""
+        if slabs is not None and not self.training \
+                and self.use_kernels != "fused":
             raise NotImplementedError(
-                f"V2V on slabs runs the fused eval forward only "
-                f"(use_kernels={self.use_kernels!r}, training="
-                f"{self.training}): the rest is {NOT_PORTED}")
+                f"V2V on slabs runs the fused eval forward, not "
+                f"use_kernels={self.use_kernels!r}")
         if self.training or not self.use_kernels:
             with compute_context(x, self.compute_dtype):
-                y = self._forward_modules(x)
+                y = (self._forward_modules(x) if slabs is None
+                     else self._forward_modules_slabs(x, slabs))
             if self.training and y.dtype == torch.bfloat16:
                 y = y.float()
             return y
@@ -326,6 +364,61 @@ class V2VModel(nn.Module):
         for mod in self.back_layers:
             y = run_block(mod, y, self.remat)
         return self.output_layer(y).permute(0, 2, 3, 4, 1).contiguous()
+
+    def _forward_modules_slabs(self, x: torch.Tensor, g) -> torch.Tensor:
+        """:meth:`_forward_modules` on this rank's slab ``x`` (B, sx, Y, Z,
+        C) of the volume split over ``g`` on X.
+
+        A block runs on slabs (``run_block(..., slabs=g)``: its k > 1
+        convolutions exchange their reach, 3 planes for the k = 7 front
+        conv and 1 for each k = 3, and its BatchNorm takes the group's
+        statistics) where ``g.fits`` its level and reach.  The 2x max pool
+        and the k = 2, s = 2 upsample run on the slab where its width is
+        even (an upsample's input slab gives its output's slab).  From the
+        first level on the way down that does not fit, the volume is
+        gathered (``gather_x``) and that level and every deeper one run
+        whole on every rank, their BatchNorm on its own statistics; on the
+        way up, where a skip is split, the upsample's output whole is cut
+        to this rank's planes (``take_slab``).  Every collective is
+        differentiable (``parallel/spatial.py``)."""
+        ed = self.encoder_decoder
+        y = x.permute(0, 4, 1, 2, 3)              # NCDHW, X on dim 2
+        whole = False
+
+        def block(mod, y, reach, halves=False):
+            nonlocal whole
+            if not whole and not g.fits(y.shape[2] * g.ranks, reach,
+                                        halves):
+                y, whole = g.gather_x(y, dim=2), True
+            return y if mod is None else run_block(
+                mod, y, self.remat, None if whole else g)
+
+        for mod in self.front_layers:
+            y = block(mod, y, mod.block[0].padding[0]
+                      if isinstance(mod, Basic3DBlock) else 1)
+        skips = []
+        for i in range(1, 6):
+            skips.append((block(getattr(ed, f"skip_res{i}"), y, 1), whole))
+            y = torch.nn.functional.max_pool3d(
+                block(None, y, 0, halves=True), 2)
+            y = block(getattr(ed, f"encoder_res{i}"), y, 1)
+        y = block(ed.mid_res, y, 1)
+        for i in range(5, 0, -1):
+            y = block(getattr(ed, f"decoder_res{i}"), y, 1)
+            skip, skip_whole = skips[i - 1]
+            up = getattr(ed, f"decoder_upsample{i}")
+            if whole and not skip_whole:
+                y = g.take_slab(run_block(up, y, self.remat), dim=2)
+                whole = False
+            else:
+                y = run_block(up, y, self.remat, None if whole else g)
+            y = y + skip
+        for mod in self.back_layers:
+            y = block(mod, y, 1 if isinstance(mod, Res3DBlock) else 0)
+        y = self.output_layer(y)
+        if whole:
+            y = g.take_slab(y, dim=2)
+        return y.permute(0, 2, 3, 4, 1).contiguous()
 
     def _forward_fused(self, x: torch.Tensor) -> torch.Tensor:
         p = self.packed_params()

@@ -92,10 +92,12 @@ def integrate_tensor_3d_with_coordinates_channels_last(
 
     ``slabs``: a ``parallel.spatial.SlabGroup`` whose ranks each hold a
     slab of the volume on X (and the coordinates' same rows): the maximum
-    is reduced over the group (``all_reduce`` MAX), then the exponential
-    sums and the weighted coordinate sums (SUM, in the widened type), so
-    that every rank returns the whole volume's keypoints and its own slab
-    of the normalized volume.
+    is reduced over the group (``all_reduce`` MAX, without a gradient: the
+    shift cancels in the quotient), then the exponential sums and the
+    weighted coordinate sums (SUM, in the widened type, differentiable:
+    the backward sums the cotangents over the group), so that every rank
+    returns the whole volume's keypoints and its own slab of the
+    normalized volume, in eval and under autograd.
 
     Returns (keypoints (B, J, 3), normalized volumes (B, J, X, Y, Z)).
     """

@@ -79,17 +79,21 @@ struct Args {
   int window;       // K6 / K8: the pre-reduction's budget in pixels
   int vec;          // 4-channel loads of src (C % 4 == 0, aligned)
   int vst;          // K7: 4-channel stores of dst
+  int ox, nx;       // K5 / K6: the slab, X planes [ox, ox + nx) of the S^3
+                    // grid (0, S: the whole grid; K7 / K8 take it whole)
 };
 
-// cudaErrorInvalidValue for a plan that does not fit the shapes, else 0.
+// cudaErrorInvalidValue for a plan that does not fit the shapes or a slab
+// (X planes [ox, ox + nx)) outside the S^3 grid, else 0.
 template <class B>
 int plan_error(int BV, int H, int W, int C, int S, int window, int smem,
-               int grid, int chunks, Layout l) {
+               int grid, int chunks, Layout l, int ox, int nx) {
   const int bad = static_cast<int>(cudaErrorInvalidValue);
   if (BV < 1 || BV > 65535 || H < 1 || W < 1 || C < 1 || S < 1 ||
-      window < 0 || window > kSmemMax || (window > 0 && l != kScatter))
+      window < 0 || window > kSmemMax || (window > 0 && l != kScatter) ||
+      ox < 0 || nx < 1 || nx > S - ox)
     return bad;
-  const int64_t nb = static_cast<int64_t>((S + B::x - 1) / B::x) *
+  const int64_t nb = static_cast<int64_t>((nx + B::x - 1) / B::x) *
                      ((S + B::y - 1) / B::y) * ((S + B::z - 1) / B::z);
   if (static_cast<int64_t>(H) * W * C >= INT_MAX ||
       static_cast<int64_t>(S) * S * S >= INT_MAX || nb != grid ||
@@ -101,13 +105,15 @@ int plan_error(int BV, int H, int W, int C, int S, int window, int smem,
 
 template <class B>
 Args make_args(const void* src, const float* m, void* dst, int H, int W,
-               int C, int S, float sx, float sy, int window) {
+               int C, int S, float sx, float sy, int window, int ox,
+               int nx) {
   Args a;
   a.src = src, a.m = m, a.dst = dst;
   a.H = H, a.W = W, a.C = C, a.S = S, a.sx = sx, a.sy = sy;
   a.nby = (S + B::y - 1) / B::y, a.nbz = (S + B::z - 1) / B::z;
   a.window = window;
   a.vec = a.vst = 0;
+  a.ox = ox, a.nx = nx;
   return a;
 }
 
@@ -131,8 +137,8 @@ __device__ __forceinline__ Smem smem_layout(unsigned char* smem, int window,
 }
 
 // Brick voxel j (z fastest, as the voxel index n) of this block -> grid
-// coordinates; false outside the grid (a brick past a side not a multiple
-// of the brick's).
+// coordinates, gx counted from the slab's first plane ox; false outside
+// the slab (a brick past a side not a multiple of the brick's).
 template <class B>
 __device__ __forceinline__ bool brick_voxel(const Args& p, int j, int& gx,
                                            int& gy, int& gz) {
@@ -142,10 +148,13 @@ __device__ __forceinline__ bool brick_voxel(const Args& p, int j, int& gx,
   gz = bzi * B::z + (j & (B::z - 1));
   gy = byi * B::y + ((j / B::z) & (B::y - 1));
   gx = bxi * B::x + j / (B::z * B::y);
-  return gx < p.S && gy < p.S && gz < p.S;
+  return gx < p.nx && gy < p.S && gz < p.S;
 }
 
-// The taps of this thread's voxel (none where !mine: off the grid).  The
+// The taps of this thread's voxel (none where !mine: off the grid), at
+// grid X index ox + gx: the slab's first plane is an integer added to the
+// voxel's index, as K1 adds it (folded into m's offset it would round
+// otherwise), so that a slab's voxel projects as in the whole grid.  The
 // samplers and the scatters project inside map_taps and brick_taps: with
 // the projection in the kernel and the taps passed in, ptxas orders the
 // same instructions so that K6 takes 0.8 % longer and K7 up to 1 % on an
@@ -156,7 +165,8 @@ __device__ __forceinline__ LtkTaps voxel_taps(const Args& p,
                                               int gz) {
   LtkTaps tp{};
   if (mine)
-    tp = ltk_voxel_taps(mm, static_cast<float>(gx), static_cast<float>(gy),
+    tp = ltk_voxel_taps(mm, static_cast<float>(p.ox + gx),
+                        static_cast<float>(gy),
                         static_cast<float>(gz), p.H, p.W, p.sx, p.sy);
   return tp;
 }

@@ -133,9 +133,11 @@ extern "C" int sample_views(const void* feats, const float* m, void* out,
   if (in_dtype < 0 || in_dtype > 1 || out_dtype < 0 || out_dtype > 1)
     return kLtkBadDtype;
   const int bad =
-      plan_error<K6Brick>(BV, H, W, C, S, 0, smem, grid, chunks, kTaps);
+      plan_error<K6Brick>(BV, H, W, C, S, 0, smem, grid, chunks, kTaps, 0,
+                          S);
   if (bad) return bad;
-  const Args a = make_args<K6Brick>(feats, m, out, H, W, C, S, sx, sy, 0);
+  const Args a =
+      make_args<K6Brick>(feats, m, out, H, W, C, S, sx, sy, 0, 0, S);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (in_dtype * 2 + out_dtype) {
     case 0: return launch<float, float>(a, BV, smem, grid, chunks, s);

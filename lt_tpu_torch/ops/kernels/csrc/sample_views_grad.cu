@@ -100,9 +100,10 @@ extern "C" int sample_views_grad(const void* g, const float* m, float* df,
                                  int grid, int chunks, void* stream) {
   if (g_dtype != kLtkF32 && g_dtype != kLtkBF16) return kLtkBadDtype;
   const int bad = plan_error<K6Brick>(BV, H, W, C, S, window, smem, grid,
-                                      chunks, kScatter);
+                                      chunks, kScatter, 0, S);
   if (bad) return bad;
-  const Args a = make_args<K6Brick>(g, m, df, H, W, C, S, sx, sy, window);
+  const Args a =
+      make_args<K6Brick>(g, m, df, H, W, C, S, sx, sy, window, 0, S);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return g_dtype == kLtkF32
              ? launch<float>(a, BV, smem, grid, chunks, s)

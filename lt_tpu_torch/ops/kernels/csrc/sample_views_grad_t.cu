@@ -2,6 +2,9 @@
 //
 //   dF[bv, y, x, c] = sum over voxels n of g[bv, c, n] * (the bilinear weight
 //                     of tap (y, x) in voxel n's sample)
+// over the voxels of a slab of the S^3 grid, its X planes [ox, ox + nx) (g
+// holds the slab's rows; ox = 0, nx = S: the whole grid).  The slabs' dF
+// sum to the whole grid's.
 // with voxels at w <= 0 and taps outside the map contributing nothing
 // (but a tap off the map of a voxel in front of the camera adds 0 * g at
 // its clamped pixel where g is not finite: sample_brick.cuh's
@@ -62,7 +65,7 @@ sample_views_grad_t_kernel(const Args p) {
   const int tid = threadIdx.x;
   const int bv = blockIdx.y, c0 = blockIdx.z * kChunk;
   const int CH = min(kChunk, p.C - c0);
-  const int64_t N = static_cast<int64_t>(p.S) * p.S * p.S;
+  const int64_t N = static_cast<int64_t>(p.nx) * p.S * p.S;
   int gx, gy, gz;
   const bool mine = brick_voxel<K6Brick>(p, tid, gx, gy, gz);
   const TG* gs = static_cast<const TG*>(p.src) +
@@ -95,22 +98,25 @@ int launch(const Args& a, int BV, int smem, int grid, int chunks,
 
 }  // namespace
 
-// g (BV, C, S^3) of g_dtype (kLtkF32 or kLtkBF16), m (BV, 3, 4) and dF
+// g (BV, C, nx * S^2) of g_dtype (kLtkF32 or kLtkBF16), m (BV, 3, 4) and dF
 // (BV, H, W, C, zeroed) float32.  window (the pre-reduction's budget in
-// pixels, 0 for none), smem, grid (4 x 8 x 8 bricks) and chunks (of 32
-// channels: grid z) are the launch plan (sample.sample_plan); a plan that
-// does not fit the shapes is refused with cudaErrorInvalidValue before
+// pixels, 0 for none), smem, grid (4 x 8 x 8 bricks of the slab) and chunks
+// (of 32 channels: grid z) are the launch plan (sample.sample_plan); ox, nx
+// the slab (X planes [ox, ox + nx) of the S^3 grid, gx of g counted from
+// ox; 0, S for the whole grid).  A plan that does not fit the shapes, or a
+// slab outside the grid, is refused with cudaErrorInvalidValue before
 // anything runs.
 extern "C" int sample_views_grad_t(const void* g, const float* m, float* df,
                                    int BV, int H, int W, int C, int S,
                                    float sx, float sy, int g_dtype,
                                    int window, int smem, int grid, int chunks,
-                                   void* stream) {
+                                   int ox, int nx, void* stream) {
   if (g_dtype != kLtkF32 && g_dtype != kLtkBF16) return kLtkBadDtype;
   const int bad = plan_error<K6Brick>(BV, H, W, C, S, window, smem, grid,
-                                      chunks, kScatter);
+                                      chunks, kScatter, ox, nx);
   if (bad) return bad;
-  const Args a = make_args<K6Brick>(g, m, df, H, W, C, S, sx, sy, window);
+  const Args a =
+      make_args<K6Brick>(g, m, df, H, W, C, S, sx, sy, window, ox, nx);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return g_dtype == kLtkF32
              ? launch<float>(a, BV, smem, grid, chunks, s)

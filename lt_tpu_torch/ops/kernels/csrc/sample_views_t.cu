@@ -1,10 +1,15 @@
 // K5: per-view bilinear sampling of an affine voxel grid, channels-major.
 //
-// For every (bv, n) with voxel n = (gx*S + gy)*S + gz of an S^3 grid:
+// For every (bv, n) with voxel n = (gx*S + gy)*S + gz of a slab of an S^3
+// grid, its X planes [ox, ox + nx) (the whole grid: ox = 0, nx = S; gx
+// counts from ox):
 //   out[bv, c, n] = bilinear sample of features[bv] (H, W, C) at the pixel
 //                   that m[bv] (3x4, grid index -> homogeneous heatmap pixel)
-//                   projects voxel n to; 0 where w <= 0 or a tap is outside
-//                   the map (align_corners=True, zero padding).
+//                   projects voxel (ox + gx, gy, gz) to; 0 where w <= 0 or a
+//                   tap is outside the map (align_corners=True, zero
+//                   padding).
+// A slab's rows are the whole grid's rows [ox * S^2, (ox + nx) * S^2) bit
+// for bit (volume-axis sharding's training backward, parallel/spatial.py).
 // The taps come from common.cuh's ltk_voxel_taps, the function K1 and K6
 // use, so the training backward recomputes the samples that K1 aggregated.
 //
@@ -85,7 +90,7 @@ __global__ void __launch_bounds__(kNT) sample_views_t_kernel(const Args p) {
   __syncthreads();
 
   if (!mine) return;
-  const int64_t N = static_cast<int64_t>(p.S) * p.S * p.S;
+  const int64_t N = static_cast<int64_t>(p.nx) * p.S * p.S;
   TO* o = static_cast<TO*>(p.dst) +
           (static_cast<int64_t>(bv) * p.C + c0) * N +
           (gx * p.S + gy) * p.S + gz;
@@ -105,20 +110,24 @@ int launch(const Args& a, int BV, int smem, int grid, int chunks,
 }  // namespace
 
 // features (BV, H, W, C) of in_dtype, m (BV, 3, 4) float32 and out (BV, C,
-// S^3) of out_dtype (kLtkF32 or kLtkBF16).  smem, grid (2 x 4 x 32 bricks)
-// and chunks (of 32 channels: grid z) are the launch plan
-// (sample.sample_plan); a plan that does not fit the shapes is refused
+// nx * S^2) of out_dtype (kLtkF32 or kLtkBF16).  smem, grid (2 x 4 x 32
+// bricks of the slab) and chunks (of 32 channels: grid z) are the launch
+// plan (sample.sample_plan); ox, nx the slab (X planes [ox, ox + nx) of the
+// S^3 grid, gx of out counted from ox; 0, S for the whole grid).  A plan
+// that does not fit the shapes, or a slab outside the grid, is refused
 // with cudaErrorInvalidValue before anything runs.
 extern "C" int sample_views_t(const void* feats, const float* m, void* out,
                               int BV, int H, int W, int C, int S, float sx,
                               float sy, int in_dtype, int out_dtype, int smem,
-                              int grid, int chunks, void* stream) {
+                              int grid, int chunks, int ox, int nx,
+                              void* stream) {
   if (in_dtype < 0 || in_dtype > 1 || out_dtype < 0 || out_dtype > 1)
     return kLtkBadDtype;
-  const int bad =
-      plan_error<K5Brick>(BV, H, W, C, S, 0, smem, grid, chunks, kTile);
+  const int bad = plan_error<K5Brick>(BV, H, W, C, S, 0, smem, grid, chunks,
+                                      kTile, ox, nx);
   if (bad) return bad;
-  const Args a = make_args<K5Brick>(feats, m, out, H, W, C, S, sx, sy, 0);
+  const Args a =
+      make_args<K5Brick>(feats, m, out, H, W, C, S, sx, sy, 0, ox, nx);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (in_dtype * 2 + out_dtype) {
     case 0: return launch<float, float>(a, BV, smem, grid, chunks, s);

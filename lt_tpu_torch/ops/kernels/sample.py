@@ -24,6 +24,12 @@ pre-reduction; they are launched with the plan of :func:`sample_plan`.
 The ``*_plain`` functions are the plain versions.  The plain gradients are
 explicit ``index_add_`` scatters, not autograd of the plain sampling, so
 that they check K6 and K8 independently of K5 and K7.
+
+K5, K6 and their plain versions also take a slab of the grid, ``slab =
+(x0, sx)``: the X planes [x0, x0 + sx), (BV, C, sx * S^2), each voxel
+computed as in the whole grid (K5: the grid's rows; K6: that slab's part
+of dF, the slabs' parts summing to the grid's), for the training backward
+under volume-axis sharding (``parallel/spatial.py``).
 """
 
 from __future__ import annotations
@@ -77,34 +83,55 @@ class SamplePlan(NamedTuple):
     chunks: int
 
 
+#: The kernels that take a slab of the grid (``x_extent``, ``slab=``).
+SLAB_KERNELS = ("sample_views_t", "sample_views_grad_t")
+
+
 @functools.lru_cache(maxsize=None)
 def sample_plan(kernel: str, channels: int, grid_size: int,
-                window: int = 0) -> SamplePlan:
+                window: int = 0,
+                x_extent: Optional[int] = None) -> SamplePlan:
     """The launch plan of ``kernel`` (``sample_views_t``, K5;
     ``sample_views_grad_t``, K6; ``sample_views``, K7;
-    ``sample_views_grad``, K8) for C = ``channels`` and an S^3 grid: one
-    block per brick (SAMPLE_BRICKS) and chunk of AGG_CHUNK channels;
-    ``window`` pixels of the scatters' pre-reduction budget (0: none; the
-    samplers stage no window)."""
+    ``sample_views_grad``, K8) for C = ``channels`` and an S^3 grid (for
+    K5 and K6 also ``x_extent`` of its X planes, a slab: the grid's plan
+    restricted to the slab's bricks, the last one cut where the brick's X
+    side does not divide the extent): one block per brick (SAMPLE_BRICKS)
+    and chunk of AGG_CHUNK channels; ``window`` pixels of the scatters'
+    pre-reduction budget (0: none; the samplers stage no window)."""
     if kernel not in SAMPLE_BRICKS:
         raise ValueError(f"sample_plan: no kernel {kernel!r}")
     if window and kernel not in SCATTERS:
         raise ValueError(f"sample_plan: {kernel} takes no window budget")
+    if x_extent is not None and kernel not in SLAB_KERNELS:
+        raise ValueError(f"sample_plan: {kernel} takes no slab")
     smem = sample_smem_bytes(kernel, window)
     if smem > AGG_SMEM_MAX:
         raise ValueError(f"sample_views: a {window}-pixel window does not "
                          f"fit {AGG_SMEM_MAX} bytes of shared memory")
-    bricks = math.prod(math.ceil(grid_size / n)
-                       for n in SAMPLE_BRICKS[kernel])
+    extents = (x_extent or grid_size, grid_size, grid_size)
+    bricks = math.prod(math.ceil(e / n)
+                       for e, n in zip(extents, SAMPLE_BRICKS[kernel]))
     return SamplePlan(window, smem, bricks, math.ceil(channels / AGG_CHUNK))
 
 
+def _slab(slab: Optional[Tuple[int, int]], grid_size: int
+          ) -> Tuple[int, int]:
+    """(x0, sx) of ``slab`` (the whole grid where None), checked to lie
+    inside the S^3 grid."""
+    x0, sx = slab or (0, grid_size)
+    if not (0 <= x0 and 1 <= sx <= grid_size - x0):
+        raise ValueError(f"slab {slab} is not inside a {grid_size}^3 grid")
+    return x0, sx
+
+
 def _sampler_plan(plan: Optional[SamplePlan], kernel: str, channels: int,
-                  grid_size: int) -> SamplePlan:
+                  grid_size: int, x_extent: Optional[int] = None
+                  ) -> SamplePlan:
     """``plan``, or :func:`sample_plan`'s for a sampler (K5, K7); a window
     budget, which a sampler does not take, raises."""
     if plan is None:
-        return sample_plan(kernel, channels, grid_size)
+        return sample_plan(kernel, channels, grid_size, 0, x_extent)
     if plan.window:
         raise ValueError(f"{kernel}: a sampler takes no window budget, got "
                          f"{plan}")
@@ -138,18 +165,21 @@ def _check_out_dtype(out_dtype) -> None:
 
 
 def sample_views_t_plain(features: torch.Tensor, affine: torch.Tensor,
-                         grid_size: int, out_dtype=torch.float32
+                         grid_size: int, out_dtype=torch.float32,
+                         slab: Optional[Tuple[int, int]] = None
                          ) -> torch.Tensor:
-    """Plain version of K5: (BV, H, W, C), (BV, 3, 4) -> (BV, C, S^3).
-    bfloat16 features are widened to float32; the result is rounded once."""
-    uvw = _project(affine, grid_size)
+    """Plain version of K5: (BV, H, W, C), (BV, 3, 4) -> (BV, C, S^3), or
+    the slab's (BV, C, sx * S^2).  bfloat16 features are widened to
+    float32; the result is rounded once."""
+    uvw = _project(affine, grid_size, slab)
     return sample_homogeneous(_widened(features)[None], uvw[None])[0] \
         .transpose(1, 2).to(out_dtype).contiguous()
 
 
 def sample_views_t(features: torch.Tensor, affine: torch.Tensor,
                    grid_size: int, plan: Optional[SamplePlan] = None,
-                   out_dtype=torch.float32) -> torch.Tensor:
+                   out_dtype=torch.float32,
+                   slab: Optional[Tuple[int, int]] = None) -> torch.Tensor:
     """K5 on a CUDA tensor, its plain version on a CPU tensor.
 
     Args:
@@ -158,48 +188,57 @@ def sample_views_t(features: torch.Tensor, affine: torch.Tensor,
         matrices.
       plan: the launch plan (window 0); default :func:`sample_plan`'s.
       out_dtype: float32 or bfloat16.
+      slab: (x0, sx): sample only the X planes [x0, x0 + sx) of the grid.
     Returns:
       (BV, C, S^3) samples, voxel n = (gx * S + gy) * S + gz; 0 where
-      w <= 0 or a tap falls outside the map.
+      w <= 0 or a tap falls outside the map.  For a slab (BV, C,
+      sx * S^2), gx counted from x0: the grid's rows, to the bit.
     """
     bv, h, w, c = features.shape
     _check_affine(affine, bv)
+    x0, sx = _slab(slab, grid_size)
     if not features.is_cuda:
-        return sample_views_t_plain(features, affine, grid_size, out_dtype)
+        return sample_views_t_plain(features, affine, grid_size, out_dtype,
+                                    slab)
     _check_out_dtype(out_dtype)
     _build.check_cuda(features, "features", 4, dtypes=_build.F32_BF16)
     affine = affine.contiguous()
     _build.check_cuda(affine, "affine", 3)
-    out = torch.empty((bv, c, grid_size ** 3), dtype=out_dtype,
+    out = torch.empty((bv, c, sx * grid_size ** 2), dtype=out_dtype,
                       device=features.device)
-    plan = _sampler_plan(plan, "sample_views_t", c, grid_size)
+    plan = _sampler_plan(plan, "sample_views_t", c, grid_size,
+                         None if sx == grid_size else sx)
     p, i, f = _build.ptr, _build.i32, _build.f32
     _build.launch("sample_views_t", features.device,
-                  [p, p, p, i, i, i, i, i, f, f, i, i, i, i, i],
+                  [p, p, p, i, i, i, i, i, f, f, i, i, i, i, i, i, i],
                   features.data_ptr(), affine.data_ptr(), out.data_ptr(), bv,
                   h, w, c, grid_size, (w - 1) / w, (h - 1) / h,
                   _build.DTYPE_CODES[features.dtype],
-                  _build.DTYPE_CODES[out_dtype], *plan[1:])
+                  _build.DTYPE_CODES[out_dtype], *plan[1:], x0, sx)
     return out
 
 
 def sample_views_grad_t_plain(g: torch.Tensor, affine: torch.Tensor,
-                              feat_shape, grid_size: int) -> torch.Tensor:
+                              feat_shape, grid_size: int,
+                              slab: Optional[Tuple[int, int]] = None
+                              ) -> torch.Tensor:
     """Plain version of K6: g (BV, C, S^3) -> float32 dF (BV, H, W, C) by
-    an ``index_add_`` of every voxel's four weighted taps."""
+    an ``index_add_`` of every voxel's four weighted taps; for a slab, g
+    (BV, C, sx * S^2) of its voxels."""
     return _scatter_taps(_widened(g).transpose(1, 2), affine, feat_shape,
-                         grid_size)
+                         grid_size, slab)
 
 
 def _scatter_taps(gt: torch.Tensor, affine: torch.Tensor, feat_shape,
-                  grid_size: int) -> torch.Tensor:
+                  grid_size: int,
+                  slab: Optional[Tuple[int, int]] = None) -> torch.Tensor:
     """gt (BV, S^3, C) -> dF (BV, H, W, C): every voxel's gradient row added
     to its four taps with their bilinear weights, a tap off the map at its
     clamped pixel with weight 0 (NaN there where g is not finite, as in
     lt_tpu's autodiff); a voxel behind the camera, whose sample is a
     select's 0, adds nothing."""
     bv, h, w, c = feat_shape
-    uvw = _project(affine, grid_size)                      # (BV, N, 3)
+    uvw = _project(affine, grid_size, slab)                # (BV, N, 3)
     z = uvw[..., 2]
     valid = z > 0.0
     z_safe = torch.where(z == 0.0, torch.ones_like(z), z)
@@ -222,7 +261,8 @@ def _scatter_taps(gt: torch.Tensor, affine: torch.Tensor, feat_shape,
 
 
 def sample_views_grad_t(g: torch.Tensor, affine: torch.Tensor, feat_shape,
-                        grid_size: int, plan: Optional[SamplePlan] = None
+                        grid_size: int, plan: Optional[SamplePlan] = None,
+                        slab: Optional[Tuple[int, int]] = None
                         ) -> torch.Tensor:
     """K6 on a CUDA tensor, its plain version on a CPU tensor.
 
@@ -233,58 +273,68 @@ def sample_views_grad_t(g: torch.Tensor, affine: torch.Tensor, feat_shape,
       feat_shape: (BV, H, W, C) of the sampled features.
       plan: the launch plan; default :func:`sample_plan`'s with K6_WINDOW
         (window 0: every brick adds its taps to dF directly).
+      slab: (x0, sx): g holds the X planes [x0, x0 + sx) of the grid,
+        (BV, C, sx * S^2), and only their voxels scatter.
     Returns:
       dF (BV, H, W, C) float32.
     """
     bv, h, w, c = feat_shape
     _check_affine(affine, bv)
-    if tuple(g.shape) != (bv, c, grid_size ** 3):
-        raise ValueError(f"g {tuple(g.shape)} != {(bv, c, grid_size ** 3)}")
+    x0, sx = _slab(slab, grid_size)
+    if tuple(g.shape) != (bv, c, sx * grid_size ** 2):
+        raise ValueError(f"g {tuple(g.shape)} != "
+                         f"{(bv, c, sx * grid_size ** 2)}")
     if not g.is_cuda:
-        return sample_views_grad_t_plain(g, affine, feat_shape, grid_size)
+        return sample_views_grad_t_plain(g, affine, feat_shape, grid_size,
+                                         slab)
     _build.check_cuda(g, "g", 3, dtypes=_build.F32_BF16)
     affine = affine.contiguous()
     _build.check_cuda(affine, "affine", 3)
     df = torch.zeros((bv, h, w, c), dtype=torch.float32, device=g.device)
     plan = plan or sample_plan("sample_views_grad_t", c, grid_size,
-                               K6_WINDOW)
+                               K6_WINDOW, None if sx == grid_size else sx)
     p, i, f = _build.ptr, _build.i32, _build.f32
     _build.launch("sample_views_grad_t", g.device,
-                  [p, p, p, i, i, i, i, i, f, f, i] + [i] * len(plan),
+                  [p, p, p, i, i, i, i, i, f, f, i] + [i] * len(plan)
+                  + [i, i],
                   g.data_ptr(), affine.data_ptr(), df.data_ptr(), bv, h, w, c,
                   grid_size, (w - 1) / w, (h - 1) / h,
-                  _build.DTYPE_CODES[g.dtype], *plan)
+                  _build.DTYPE_CODES[g.dtype], *plan, x0, sx)
     return df
 
 
 class _SampleViewsAffineT(torch.autograd.Function):
-    """Forward K5, backward K6; ``affine`` gets no gradient."""
+    """Forward K5, backward K6, on the same slab; ``affine`` gets no
+    gradient."""
 
     @staticmethod
-    def forward(ctx, features, affine, grid_size, out_dtype):
+    def forward(ctx, features, affine, grid_size, out_dtype, slab):
         ctx.save_for_backward(affine)
         ctx.feat_shape = tuple(features.shape)
         ctx.feat_dtype = features.dtype
-        ctx.grid_size = grid_size
+        ctx.grid_size, ctx.slab = grid_size, slab
         return sample_views_t(features, affine, grid_size,
-                              out_dtype=out_dtype)
+                              out_dtype=out_dtype, slab=slab)
 
     @staticmethod
     def backward(ctx, g):
         (affine,) = ctx.saved_tensors
         df = sample_views_grad_t(g.contiguous(), affine, ctx.feat_shape,
-                                 ctx.grid_size)
-        return df.to(ctx.feat_dtype), None, None, None
+                                 ctx.grid_size, slab=ctx.slab)
+        return df.to(ctx.feat_dtype), None, None, None, None
 
 
 def sample_views_affine_t(features: torch.Tensor, affine: torch.Tensor,
-                          grid_size: int, out_dtype=torch.float32
+                          grid_size: int, out_dtype=torch.float32,
+                          slab: Optional[Tuple[int, int]] = None
                           ) -> torch.Tensor:
     """Differentiable :func:`sample_views_t`: (BV, H, W, C) -> (BV, C, S^3)
-    in ``out_dtype``, gradients to ``features`` only (cameras and grids are
-    inputs), computed in float32 and cast to the features' type, as
-    ``lt_tpu``'s ``_sample_views_bwd_t`` (``unproject.py:1061-1067``)."""
-    return _SampleViewsAffineT.apply(features, affine, grid_size, out_dtype)
+    (a ``slab``'s (BV, C, sx * S^2)) in ``out_dtype``, gradients to
+    ``features`` only (cameras and grids are inputs), computed in float32
+    and cast to the features' type, as ``lt_tpu``'s ``_sample_views_bwd_t``
+    (``unproject.py:1061-1067``)."""
+    return _SampleViewsAffineT.apply(features, affine, grid_size, out_dtype,
+                                     slab)
 
 
 # ---------------------------------------------------------------------------

@@ -14,7 +14,7 @@ clamped to the map, with weight 0.  The backward of
 K1 and its plain version also fill a slab of the grid, ``slab = (x0,
 sx)``: the X planes [x0, x0 + sx) of the S^3 grid, (B, sx * S^2, C), each
 voxel computed as in the whole grid (``parallel/spatial.py``'s volume-axis
-sharding, eval only).
+sharding); in training the backward runs K5 and K6 on the same slab.
 """
 
 from __future__ import annotations
@@ -248,7 +248,9 @@ def unproject_agg(features: torch.Tensor, m: torch.Tensor,
 
 class _SampleViewsAgg(torch.autograd.Function):
     """K1 forward; the backward recomputes the per-view samples with K5,
-    applies the softmax or sum VJP in PyTorch ops and scatters with K6.
+    applies the softmax or sum VJP in PyTorch ops and scatters with K6,
+    all three on the grid or on the same slab (whose dF is that slab's
+    voxels' part of the features' gradient).
 
     Only ``(features, m, view_mask)`` are saved: the (B, V, C, N) samples
     never outlive the backward (``lt_tpu``'s training-memory design).
@@ -262,10 +264,11 @@ class _SampleViewsAgg(torch.autograd.Function):
     """
 
     @staticmethod
-    def forward(ctx, features, m, view_mask, method, grid_size):
+    def forward(ctx, features, m, view_mask, method, grid_size, slab):
         ctx.save_for_backward(features, m, view_mask)
-        ctx.method, ctx.grid_size = method, grid_size
-        return unproject_agg(features, m, view_mask, None, method, grid_size)
+        ctx.method, ctx.grid_size, ctx.slab = method, grid_size, slab
+        return unproject_agg(features, m, view_mask, None, method, grid_size,
+                             slab=slab)
 
     @staticmethod
     def backward(ctx, g):
@@ -273,8 +276,8 @@ class _SampleViewsAgg(torch.autograd.Function):
         b, v, h, w, c = features.shape
         bv_shape = (b * v, h, w, c)
         s = sample_views_t(features.reshape(bv_shape), m.reshape(b * v, 3, 4),
-                           ctx.grid_size, out_dtype=features.dtype
-                           ).reshape(b, v, c, -1)
+                           ctx.grid_size, out_dtype=features.dtype,
+                           slab=ctx.slab).reshape(b, v, c, -1)
         s32, g = _widened(s), _widened(g).transpose(1, 2)[:, None]
         keep = (view_mask > 0.0)[:, :, None, None]
         zero = torch.zeros((), dtype=s32.dtype, device=s.device)
@@ -288,20 +291,23 @@ class _SampleViewsAgg(torch.autograd.Function):
             ds = torch.where(keep, g, zero).expand(b, v, c, s.shape[-1])
         df = sample_views_grad_t(
             ds.to(s.dtype).reshape(b * v, c, -1).contiguous(),
-            m.reshape(b * v, 3, 4), bv_shape, ctx.grid_size)
+            m.reshape(b * v, 3, 4), bv_shape, ctx.grid_size, slab=ctx.slab)
         return (df.reshape(features.shape).to(features.dtype), None, None,
-                None, None)
+                None, None, None)
 
 
 def sample_views_agg(features: torch.Tensor, m: torch.Tensor,
                      view_mask: torch.Tensor, method: str,
-                     grid_size: int) -> torch.Tensor:
+                     grid_size: int,
+                     slab: Optional[Tuple[int, int]] = None) -> torch.Tensor:
     """Differentiable :func:`unproject_agg` for 'softmax' and 'sum' without
-    confidences: (B, V, H, W, C) -> (B, S^3, C), gradients to ``features``.
+    confidences: (B, V, H, W, C) -> (B, S^3, C) (a ``slab``'s (B, sx * S^2,
+    C)), gradients to ``features``.
     """
     if method not in ("softmax", "sum"):
         raise ValueError(f"no fused-aggregation backward for {method!r}")
-    return _SampleViewsAgg.apply(features, m, view_mask, method, grid_size)
+    return _SampleViewsAgg.apply(features, m, view_mask, method, grid_size,
+                                 slab)
 
 
 def unproject_heatmaps_affine(features: torch.Tensor,
@@ -336,8 +342,9 @@ def unproject_heatmaps_affine(features: torch.Tensor,
         writes the features' type; the unfused path samples in float32
         (float64 features: float64, on the CPU).
       slab: (x0, sx): only the X planes [x0, x0 + sx) of the grid,
-        (B, sx, S, S, C) channels-last, through K1 without a gradient (the
-        eval forward of volume-axis sharding).
+        (B, sx, S, S, C) channels-last (volume-axis sharding), on every
+        path above: K1 on the slab (its backward K5 and K6 on the slab), or
+        K5 on the slab (its backward K6 on the slab) and the aggregation.
     """
     b, v, h, w, c = features.shape
     m = compose_grid_projection(proj_matrices, grid_affine)
@@ -345,28 +352,21 @@ def unproject_heatmaps_affine(features: torch.Tensor,
         view_mask = torch.ones((b, v), dtype=torch.float32,
                                device=features.device)
     method = volume_aggregation_method
-    if slab is not None:
-        if not fuse_aggregation or (torch.is_grad_enabled()
-                                    and features.requires_grad):
-            raise NotImplementedError(
-                "K1 fills a slab in the eval forward only: training on "
-                "slabs (K5 / K6 on a slab) is ROADMAP Queue A item 8")
-        volume = unproject_agg(features, m, view_mask, vol_confidences,
-                               method, grid_size, slab=slab)
-    elif not fuse_aggregation:
+    if not fuse_aggregation:
         out_dtype = aggregation_dtype or (
             torch.float32 if features.dtype == torch.bfloat16
             else features.dtype)
         sampled = sample_views_affine_t(
             features.reshape(b * v, h, w, c), m.reshape(b * v, 3, 4),
-            grid_size, out_dtype).reshape(b, v, c, -1)
+            grid_size, out_dtype, slab=slab).reshape(b, v, c, -1)
         volume = aggregate_views(sampled.transpose(2, 3), method,
                                  vol_confidences, view_mask).contiguous()
     elif method in ("softmax", "sum") and vol_confidences is None:
-        volume = sample_views_agg(features, m, view_mask, method, grid_size)
+        volume = sample_views_agg(features, m, view_mask, method, grid_size,
+                                  slab=slab)
     else:
         volume = unproject_agg(features, m, view_mask, vol_confidences,
-                               method, grid_size)
+                               method, grid_size, slab=slab)
     if aggregation_dtype is not None:
         volume = volume.to(aggregation_dtype)
     s = grid_size

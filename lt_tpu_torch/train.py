@@ -15,9 +15,10 @@ Data parallel over N GPUs of one machine (``lt_tpu``'s mesh semantics:
 
     torchrun --nproc_per_node N -m lt_tpu_torch.train --config ... --logdir ./logs
 
-With ``model.volume_axis_sharding: true`` in the config, ``--eval`` under
-``torchrun`` splits each sample's volume on X over the N ranks instead
-(``lt_tpu_torch/parallel/spatial.py``; every rank loads the whole batch).
+With ``model.volume_axis_sharding: true`` in the config, training and
+``--eval`` under ``torchrun`` split each sample's volume on X over the N
+ranks instead (``lt_tpu_torch/parallel/spatial.py``; every rank loads the
+whole batch and takes the same step, the master writes).
 """
 
 from __future__ import annotations

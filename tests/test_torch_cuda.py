@@ -16,7 +16,10 @@ the plans its C entry point refuses; NaN and infinities kept by K1's
 
 K5 and K6 in bfloat16 (K5 into a bfloat16 output from either type, bit
 for bit K7's; K6 on a bfloat16 g) on their bricks, and the ``bf16: true``
-training step on the card against the same step on the CPU.
+training step on the card against the same step on the CPU.  K5 and K6 on
+slabs of the grid's X planes (volume-axis sharding), in both types: K5 the
+whole grid's rows bit for bit, K6's slabs summed the whole grid's dF, each
+against its plain version on the slab.
 
 Marked ``cuda``: without a GPU every test skips.  On a machine with one
 (this file imports torch only, so ``--noconftest`` keeps JAX out):
@@ -1432,6 +1435,80 @@ def test_sample_views_grad_t_bricks_and_paths(dev, scene):
         _close(df, ref)
         assert bool((df[1] == 0).all())
     _close(got[0], got[sample.K6_WINDOW])
+
+
+def _k56_slab_scene(dev, scene):
+    """_k56_scene's cases, and the flagship training geometry (5 samples,
+    4 views of 96^2 x 32, a 64^3 grid) as (BV, H, W, C)."""
+    if scene == "flagship":
+        feats, m = _flagship_k1_inputs(dev, batch=5)
+        return (feats.reshape(20, *feats.shape[2:]),
+                m.reshape(20, 3, 4).contiguous(), FLAG)
+    return _k56_scene(dev, scene)
+
+
+def _slabs(s):
+    """Slabs (x0, sx) that tile an S^3 grid: two halves (the second odd
+    where S is), a brick-misaligned interior slab between 1-plane ones."""
+    return [[(0, s // 2), (s // 2, s - s // 2)],
+            [(0, 1), (1, s - 2), (s - 1, 1)]]
+
+
+K56_SLAB_SCENES = ["flagship", "edge", "s10", "c17", "misaligned",
+                   "over_budget"]
+
+
+@pytest.mark.parametrize("in_dtype, out_dtype",
+                         [(torch.float32, torch.float32), (BF16, BF16)])
+@pytest.mark.parametrize("scene", K56_SLAB_SCENES)
+def test_sample_views_t_slab_is_the_grids_rows(dev, scene, in_dtype,
+                                               out_dtype):
+    """K5 on a slab of the grid's X planes (volume-axis sharding's training
+    backward; float32, and bfloat16 -> bfloat16 as the bf16: true step
+    recomputes): the whole grid's launch's rows bit for bit, and its plain
+    version's slab within the usual tolerance."""
+    from lt_tpu_torch.ops.kernels import sample
+
+    feats, m, s = _k56_slab_scene(dev, scene)
+    feats = feats.to(in_dtype)
+    cube = sample.sample_views_t(feats, m, s, out_dtype=out_dtype)
+    for tiling in _slabs(s):
+        for x0, sx in tiling:
+            got = sample.sample_views_t(feats, m, s, out_dtype=out_dtype,
+                                        slab=(x0, sx))
+            torch.cuda.synchronize()
+            assert torch.equal(got, cube[..., x0 * s * s:(x0 + sx) * s * s]
+                               ), (x0, sx)
+            _close(got, sample.sample_views_t_plain(
+                feats, m, s, out_dtype, slab=(x0, sx)),
+                REL if out_dtype == torch.float32 else REL_BF16)
+
+
+@pytest.mark.parametrize("g_dtype", [torch.float32, BF16])
+@pytest.mark.parametrize("scene", K56_SLAB_SCENES)
+def test_sample_views_grad_t_slabs_sum_to_the_grids(dev, scene, g_dtype):
+    """K6 on slabs of the grid's X planes, g the slab's rows (float32 or
+    bfloat16), one view masked: each slab's dF equals its plain version's
+    within 1e-4 of max |plain| (dF is float32), and the slabs' dF sum to
+    the whole grid's launch within 1e-4."""
+    from lt_tpu_torch.ops.kernels import sample
+
+    feats, m, s = _k56_slab_scene(dev, scene)
+    shape = tuple(feats.shape)
+    g = _randn(dev, shape[0], shape[-1], s ** 3, seed=4).to(g_dtype)
+    g[1] = 0.0
+    cube = sample.sample_views_grad_t(g, m, shape, s)
+    for tiling in _slabs(s):
+        total = torch.zeros_like(cube)
+        for x0, sx in tiling:
+            part = g[..., x0 * s * s:(x0 + sx) * s * s].contiguous()
+            got = sample.sample_views_grad_t(part, m, shape, s,
+                                             slab=(x0, sx))
+            _close(got, sample.sample_views_grad_t_plain(
+                part, m, shape, s, slab=(x0, sx)))
+            assert bool((got[1] == 0).all())
+            total += got
+        _close(total, cube)
 
 
 # ---------------------------------------------------------------------------

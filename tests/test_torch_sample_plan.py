@@ -29,7 +29,14 @@ memory never runs, so the guard is here, where no card is needed:
   with weight 0, a voxel behind the camera reading pixel 0 and dropped by
   a select; K7 reading bfloat16 features widened and writing rows, a
   bfloat16 output rounded once) equal the plain versions and each other,
-  NaN and infinities on the maps' edges included.
+  NaN and infinities on the maps' edges included;
+- on a slab of the grid (X planes [x0, x0 + sx), the training backward
+  under volume-axis sharding): K5's and K6's plans are the grid's
+  restricted to the slab's bricks (the last brick cut where the brick's X
+  side, 2 for K5 and 4 for K6, does not divide sx), and their brick models
+  on the slab equal the plain versions on the slab, which equal the
+  grid's rows (K5) and, summed over the slabs, the grid's dF (K6), in
+  float64.
 """
 
 import math
@@ -147,7 +154,9 @@ def test_sample_kernel_constants_are_the_plans():
         assert f"brick_voxel<{brick}>" in kernel
         assert f"plan_error<{brick}>" in kernel
         assert re.search(rf"smem_layout\(smem, [\w.]+, {layout}\)", kernel)
-        assert re.search(rf"plan_error<{brick}>\([^;]*{layout}\);", kernel)
+        # The layout, then the slab (ox, nx; K7 and K8 take the grid).
+        assert re.search(rf"plan_error<{brick}>\([^;]*{layout}, [^;]*\);",
+                         kernel)
         assert SAMPLE_BRICKS[name] == (K5_BRICK if brick == "K5Brick"
                                        else AGG_BRICK)
     # K8 shares K6's body: the pre-reduction is written once.
@@ -207,28 +216,30 @@ def _scene(s, seed, c=40):
     return torch.from_numpy(feats), torch.from_numpy(m)
 
 
-def _bricks(s, brick):
+def _bricks(s, brick, slab=None):
     """Each brick's voxel indices n, in the kernels' order (bricks: z
     fastest, then y, then x; voxels in a brick likewise), voxels outside
-    the grid dropped."""
+    the grid dropped; on a ``slab`` (x0, sx), the bricks of its sx planes,
+    gx counted from x0 (the slab's rows)."""
+    sx = slab[1] if slab else s
     bx, by, bz = brick
     nby, nbz = math.ceil(s / by), math.ceil(s / bz)
     j = torch.arange(bx * by * bz)
     out = []
-    for bi in range(math.ceil(s / bx) * nby * nbz):
+    for bi in range(math.ceil(sx / bx) * nby * nbz):
         gz = bi % nbz * bz + j % bz
         gy = bi // nbz % nby * by + j // bz % by
         gx = bi // (nbz * nby) * bx + j // (bz * by)
-        keep = (gx < s) & (gy < s) & (gz < s)
+        keep = (gx < sx) & (gy < s) & (gz < s)
         out.append(((gx * s + gy) * s + gz)[keep])
     return out
 
 
-def _taps(m, s, h, w):
+def _taps(m, s, h, w, slab=None):
     """Each view's and voxel's four taps as ltk_voxel_taps picks them:
     pixel x, y (int64), weights, and whether the tap is in the map (never
     for a voxel at w <= 0)."""
-    uvw = _project(m, s)
+    uvw = _project(m, s, slab)
     z = uvw[..., 2]
     z_safe = torch.where(z == 0.0, torch.ones_like(z), z)
     x = uvw[..., 0] / z_safe * ((w - 1) / w)
@@ -246,17 +257,17 @@ def _taps(m, s, h, w):
             inside)
 
 
-def _windows(m, s, h, w, budget):
+def _windows(m, s, h, w, budget, slab=None):
     """Per view and brick: its box (x0, x1, y0, y1), pixels, and whether
     the scatter takes the window path (the box has pixels, within the
     budget)."""
-    boxes, pixels = brick_windows(m[None], s, h, w)
+    boxes, pixels = brick_windows(m[None], s, h, w, slab=slab)
     boxes, pixels = boxes[0], pixels[0]
     fits = (pixels > 0) & (pixels <= budget)
     return boxes, pixels, fits
 
 
-def _scatter_model(tile, m, shape, s, budget):
+def _scatter_model(tile, m, shape, s, budget, slab=None):
     """K6's body, brick by brick (brick_scatter): ``tile(v, vox)`` is the
     brick's gradient tile (C, voxels) as the kernel loads it.  Window path:
     the brick's taps summed by pixel of its box (the kernel's counting sort
@@ -265,12 +276,13 @@ def _scatter_model(tile, m, shape, s, budget):
     such g first adds 0 * g at the clamped pixel of each of the voxel's
     taps off the map, if the voxel is in front of the camera (edge_taps)."""
     bv, h, w, c = shape
-    xs, ys, wts, inside = _taps(m, s, h, w)
-    front = _project(m, s)[..., 2] > 0
-    boxes, pixels, fits = _windows(m, s, h, w, budget)
-    df = torch.zeros(bv, h * w, c)
+    xs, ys, wts, inside = _taps(m, s, h, w, slab)
+    front = _project(m, s, slab)[..., 2] > 0
+    boxes, pixels, fits = _windows(m, s, h, w, budget, slab)
+    df = torch.zeros(bv, h * w, c, dtype=tile(0, _bricks(s, AGG_BRICK,
+                                                           slab)[0]).dtype)
     for v in range(bv):
-        for bi, vox in enumerate(_bricks(s, AGG_BRICK)):
+        for bi, vox in enumerate(_bricks(s, AGG_BRICK, slab)):
             keep = inside[v, vox]                            # (n, 4)
             g = tile(v, vox).T                               # (n, C)
             if not bool(g.isfinite().all()):
@@ -290,7 +302,8 @@ def _scatter_model(tile, m, shape, s, budget):
                 npix = pixels[v, bi].item()
                 idx = (y - y0) * ww + (x - x0)
                 assert bool(((idx >= 0) & (idx < npix)).all())
-                win = torch.zeros(npix, c).index_add_(0, idx, terms)
+                win = torch.zeros(npix, c, dtype=df.dtype).index_add_(
+                    0, idx, terms)
                 py, px = torch.arange(npix) // ww, torch.arange(npix) % ww
                 df[v].index_add_(0, (y0 + py) * w + x0 + px, win)
             else:
@@ -298,9 +311,11 @@ def _scatter_model(tile, m, shape, s, budget):
     return df.reshape(shape)
 
 
-def _k6_model(g, m, shape, s, budget):
-    """K6: the tile is g's (C, S^3) columns of the brick's voxels."""
-    return _scatter_model(lambda v, vox: g[v][:, vox], m, shape, s, budget)
+def _k6_model(g, m, shape, s, budget, slab=None):
+    """K6: the tile is g's (C, S^3) (a slab's (C, sx S^2)) columns of the
+    brick's voxels."""
+    return _scatter_model(lambda v, vox: g[v][:, vox], m, shape, s, budget,
+                          slab)
 
 
 def _k8_model(g, m, shape, s, budget):
@@ -319,13 +334,13 @@ def _k8_model(g, m, shape, s, budget):
     return _scatter_model(tile, m, shape, s, budget)
 
 
-def _map_taps(m, s, h, w, c):
+def _map_taps(m, s, h, w, c, slab=None):
     """Each view's and voxel's tap offsets (y * W + x) * C into the
     flattened map of the tap's pixel clamped to the map, -1 for a voxel
     behind the camera, and weights, 0 for a tap off the map
     (sample_brick.cuh's map_taps)."""
-    xs, ys, wts, inside = _taps(m, s, h, w)
-    front = (_project(m, s)[..., 2] > 0)[..., None].expand_as(inside)
+    xs, ys, wts, inside = _taps(m, s, h, w, slab)
+    front = (_project(m, s, slab)[..., 2] > 0)[..., None].expand_as(inside)
     off = (ys.clamp(0, h - 1) * w + xs.clamp(0, w - 1)) * c
     return (torch.where(front, off, -1),
             torch.where(inside, wts, torch.zeros_like(wts)))
@@ -335,7 +350,7 @@ def _gather(flat, off, wt, c0, ch):
     """gather4 over a chunk: channels c0..c0+ch of the voxels' samples, the
     taps summed k = 0..3, a voxel behind the camera reading pixel 0 and
     dropped by a select."""
-    val = torch.zeros(len(off), ch)
+    val = torch.zeros(len(off), ch, dtype=flat.dtype)
     cols = c0 + torch.arange(ch)
     for k in range(4):
         keep = off[:, k, None] >= 0
@@ -344,16 +359,19 @@ def _gather(flat, off, wt, c0, ch):
     return val
 
 
-def _k5_model(feats, m, s):
+def _k5_model(feats, m, s, slab=None):
     """K5: taps read from the map; each brick's samples into the (C,
-    voxels) tile, stored as channel rows."""
+    voxels) tile, stored as channel rows (a slab's rows on a slab).  Types
+    below float32 are widened to it; float64 stays float64."""
     bv, h, w, c = feats.shape
-    off, wts = _map_taps(m, s, h, w, c)
-    flat = feats.float().reshape(bv, -1)
-    out = torch.zeros((bv, c, s ** 3))
+    sx = slab[1] if slab else s
+    off, wts = _map_taps(m, s, h, w, c, slab)
+    flat = (feats if feats.dtype == torch.float64
+            else feats.float()).reshape(bv, -1)
+    out = torch.zeros((bv, c, sx * s * s), dtype=flat.dtype)
     written = torch.zeros(out.shape, dtype=torch.int64)
     for v in range(bv):
-        for vox in _bricks(s, K5_BRICK):
+        for vox in _bricks(s, K5_BRICK, slab):
             for c0 in range(0, c, AGG_CHUNK):
                 ch = min(AGG_CHUNK, c - c0)
                 out[v, c0:c0 + ch, vox] = _gather(flat[v], off[v, vox],
@@ -542,3 +560,92 @@ def test_wrappers_take_the_plain_versions_on_the_cpu_whatever_the_plan(
         got, ref = (sample.sample_views_grad(g, m, shape, 7, plan),
                     sample.sample_views_grad_plain(g, m, shape, 7))
     torch.testing.assert_close(got, ref, rtol=0, atol=0)
+
+
+# ---------------------------------------------------------------------------
+# K5 and K6 on a slab of the grid (volume-axis sharding's training backward)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("s, sx", [(FLAG_S, 32), (FLAG_S, 16), (FLAG_S, 8),
+                                   (13, 5), (10, 3), (7, 1), (9, 9)])
+@pytest.mark.parametrize("kernel, window", [
+    ("sample_views_t", 0), ("sample_views_grad_t", 0),
+    ("sample_views_grad_t", K6_WINDOW)])
+def test_slab_plans_are_the_grids_restricted(kernel, window, s, sx):
+    """A slab of sx X planes takes ceil(sx / bx) brick planes of the grid's
+    (the last cut where bx does not divide sx: K5's bx 2, K6's 4); the rest
+    of the plan is the grid's, and a slab of every plane is the grid."""
+    bx, by, bz = SAMPLE_BRICKS[kernel]
+    whole = sample_plan(kernel, FLAG_C, s, window)
+    plan = sample_plan(kernel, FLAG_C, s, window, sx)
+    assert plan.grid == math.ceil(sx / bx) * math.ceil(s / by) \
+        * math.ceil(s / bz)
+    assert (plan.window, plan.smem, plan.chunks) == (
+        whole.window, whole.smem, whole.chunks)
+    if sx == s:
+        assert plan == whole
+    if s == FLAG_S:              # 2 and 4 ranks' slabs of the flagship grid
+        assert plan.grid * (FLAG_S // sx) == whole.grid
+
+
+def test_only_k5_and_k6_take_a_slab():
+    for kernel in ("sample_views", "sample_views_grad"):
+        with pytest.raises(ValueError, match="no slab"):
+            sample_plan(kernel, 32, 64, 0, 32)
+    src = {name: (CSRC / f"{name}.cu").read_text()
+           for name in ("sample_views_t", "sample_views_grad_t")}
+    for text in src.values():        # the slab: the C entry point's last ints
+        assert "int ox, int nx" in text and "ox, nx);" in text
+    assert "gx < p.nx && gy < p.S && gz < p.S" in (
+        CSRC / "sample_brick.cuh").read_text()
+
+
+# (S, C, slabs (x0, sx) covering the grid): widths that K5's brick X side (2)
+# and K6's (4) divide and ones they do not.
+SLAB_SPLITS = [(7, 40, [(0, 3), (3, 4)]), (9, 17, [(0, 5), (5, 4)]),
+               (9, 8, [(0, 1), (1, 6), (7, 2)])]
+
+
+@pytest.mark.parametrize("s, c, slabs", SLAB_SPLITS)
+def test_k5_model_on_slabs_is_the_grids_rows(s, c, slabs):
+    """float64: on each slab the K5 model equals sample_views_t_plain on the
+    slab, and both equal the grid's rows [x0 S^2, (x0 + sx) S^2) bit for
+    bit; the slabs' rows make the grid."""
+    feats, m = _scene(s, seed=s, c=c)
+    feats, m = feats.double(), m.double()
+    cube = sample.sample_views_t_plain(feats, m, s, torch.float64)
+    rows = []
+    for x0, sx in slabs:
+        plain = sample.sample_views_t_plain(feats, m, s, torch.float64,
+                                            slab=(x0, sx))
+        got = _k5_model(feats, m, s, slab=(x0, sx))
+        assert plain.shape == (6, c, sx * s * s)
+        assert torch.equal(plain, cube[..., x0 * s * s:(x0 + sx) * s * s])
+        torch.testing.assert_close(got, plain, rtol=0, atol=1e-12)
+        rows.append(plain)
+    assert torch.equal(torch.cat(rows, -1), cube)
+
+
+@pytest.mark.parametrize("budget", [0, K6_WINDOW])
+@pytest.mark.parametrize("s, c, slabs", SLAB_SPLITS)
+def test_k6_model_on_slabs_sums_to_the_grids_scatter(s, c, slabs, budget):
+    """float64: on each slab the K6 model (both paths) equals
+    sample_views_grad_t_plain on the slab's rows of g, and the slabs' dF
+    sum to the grid's."""
+    feats, m = _scene(s, seed=s, c=c)
+    m = m.double()
+    shape = tuple(feats.shape)
+    g = torch.from_numpy(np.random.RandomState(4).randn(
+        shape[0], c, s ** 3))
+    cube = sample.sample_views_grad_t_plain(g, m, shape, s)
+    total = torch.zeros_like(cube)
+    for x0, sx in slabs:
+        part = g[..., x0 * s * s:(x0 + sx) * s * s]
+        plain = sample.sample_views_grad_t_plain(part, m, shape, s,
+                                                 slab=(x0, sx))
+        got = _k6_model(part, m, shape, s, budget, slab=(x0, sx))
+        scale = plain.abs().max().item()
+        torch.testing.assert_close(got, plain, rtol=0, atol=1e-12 * scale)
+        total += plain
+    torch.testing.assert_close(total, cube, rtol=0,
+                               atol=1e-12 * cube.abs().max().item())

@@ -21,8 +21,10 @@ clamps the 'mpii' pelvis index 6 to 4; the port would raise).
 - ``SlabGroup``'s exchanges (``extend_x`` / ``crop_x`` / ``gather_x`` /
   ``take_slab``, one exchange of two slabs) on a seeded tensor, and the
   2-rank soft-argmax in float64 within 1e-12 of the whole volume's.
-- The refusals: the gcd rule, training under the key, the "conv" and
-  ``False`` paths, and ``run`` training with the key.
+- The refusals: the gcd rule, in the model and in a training step and
+  ``run`` (a world size that does not divide the volume: ROADMAP A8 (e)),
+  and the "conv" and ``False`` paths.  Training under the key is
+  tests/test_torch_spatial_train.py.
 - ``run(eval_only=True)`` on experiments/synthetic/vol_tiny.yaml with
   ``model.volume_axis_sharding: true`` (one val batch of 2 at 64^2), two
   ranks against one process: the metric within 1e-3 mm, only the master
@@ -187,15 +189,16 @@ def _refusals(r, out_dir):
                lambda: VolumetricTriangulationNet(
                    **{**KW, "volume_size": 8}, use_kernels=path,
                    device="cpu", volume_axis_sharding=dist.group.WORLD))
-    model = VolumetricTriangulationNet(**{**KW, "volume_size": 8},
-                                       device="cpu",
-                                       volume_axis_sharding=dist.group.WORLD)
     args = [torch.from_numpy(a) for a in _geometry()]
-    expect("train", NotImplementedError,
-           lambda: model.train()(*args, rotation_thetas=torch.zeros(1)))
-    expect("run train", NotImplementedError,
+    expect("train", ValueError,
+           lambda: VolumetricTriangulationNet(
+               **{**KW, "volume_size": 9}, device="cpu",
+               volume_axis_sharding=dist.group.WORLD).train()(
+               *args, rotation_thetas=torch.zeros(1)))
+    expect("run train", ValueError,
            lambda: run(VOL_TINY, f"{out_dir}/train_logs", device="cpu",
-                       overrides={"model.volume_axis_sharding": True}))
+                       overrides={"model.volume_axis_sharding": True,
+                                  "model.volume_size": 33}))
     return {"refusals": errors}
 
 

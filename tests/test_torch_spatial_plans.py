@@ -14,6 +14,13 @@ device.
   the encoder pair at 4^3 and every deeper call whole; with 4 ranks 16, 8,
   4, the pair at 8^3 whole; the launches per forward are the unsharded
   forward's (47 K2, 5 K3, 5 K4).
+
+The training graph (``V2VModel._forward_modules_slabs``, the module graph
+on slabs) is modelled the same way on ``meta`` tensors at 64^3 and the
+training batch of 5, forward and backward: the collectives run with a
+group whose all_gather and all_reduce only shape their outputs, and each
+step's exchanges, gathers and reductions are counted for every rank of 2
+and of 4, with the slabs each block runs on.
 """
 
 import pytest
@@ -24,35 +31,31 @@ from lt_tpu_torch.ops.kernels import conv_mp, res3d
 from lt_tpu_torch.ops.kernels.conv3d import conv3d_mma_plan, split_parts
 from lt_tpu_torch.ops.kernels.updown import (pool_plan, upsample_f32_plan,
                                              upsample_mma_plan)
+from lt_tpu_torch.models.batchnorm import BatchNorm
+from lt_tpu_torch.parallel import spatial
 from lt_tpu_torch.parallel.spatial import SlabGroup
 
 S, B, C_IN, J = 64, 8, 32, 17
+TRAIN_B = 5
 META = torch.device("meta")
 
 
 class _ShapeGroup(SlabGroup):
-    """Rank ``rank`` of ``ranks``: the exchanges and gathers return empty
-    tensors of their outputs' shapes."""
+    """Rank ``rank`` of ``ranks`` with no process group: every rank's
+    tensor of an all_gather is an empty one of this rank's shape, and an
+    all_reduce leaves its tensor as it is, so that the exchanges, gathers
+    and reductions (and their backwards) shape their outputs only."""
 
     def __init__(self, rank, ranks):
         self.group, self.rank, self.ranks, self.volume_size = (
             None, rank, ranks, S)
         self.reset_stats()
 
-    def exchange(self, pairs):
-        out = []
-        for t, r in pairs:
-            add = r * ((self.rank > 0) + (self.rank < self.ranks - 1))
-            out.append(torch.empty((t.shape[0], t.shape[1] + add)
-                                   + tuple(t.shape[2:]), device=META))
-        self.stats["exchanges"] += any(r for _, r in pairs)
-        return out
+    def _gather(self, t):
+        return [torch.empty_like(t) for _ in range(self.ranks)]
 
-    def gather_x(self, slab, dim=1):
-        shape = list(slab.shape)
-        shape[dim] *= self.ranks
-        self.stats["gathers"] += 1
-        return torch.empty(shape, device=META)
+    def _reduce(self, t, op=None):
+        pass
 
 
 @pytest.fixture(scope="module")
@@ -157,3 +160,82 @@ def test_slab_levels_are_the_rule(model, ranks, monkeypatch):
     assert stats["gathers"] == 1
     assert seen[0][0] == "K2" and seen[0][3] == 7
     assert seen[0][1][1] == S // ranks + 3
+
+
+# ---------------------------------------------------------------------------
+# The training graph on slabs (the module graph), forward and backward
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def meta_model():
+    return V2VModel(C_IN, J, device="cpu").to(META).train()
+
+
+def _training_step(model, rank, ranks):
+    """One forward and backward of V2V's training graph on rank ``rank``'s
+    slab of the training batch: the output's shape, the collectives'
+    counts, and for each BatchNorm the X extent of its input and whether it
+    took the group's statistics."""
+    g = _ShapeGroup(rank, ranks)
+    seen = {}
+    hooks = [m.register_forward_pre_hook(
+        lambda m, a, name=name: seen.__setitem__(
+            name, (a[0].shape[2], spatial.on_slabs() is not None)))
+        for name, m in model.named_modules() if isinstance(m, BatchNorm)]
+    try:
+        x = torch.empty((TRAIN_B, S // ranks, S, S, C_IN), device=META,
+                        requires_grad=True)
+        out = model._forward_modules_slabs(x, g)
+        out.sum().backward()
+    finally:
+        for h in hooks:
+            h.remove()
+    assert tuple(x.grad.shape) == tuple(x.shape)
+    return tuple(out.shape), dict(g.stats), seen
+
+
+# Per step at 64^3, every rank alike: exchanges (one per k > 1 convolution
+# of a split level: 41 in V2V; the backward as many), gathers (the volume
+# once, before the first level that cannot be split; its backward one
+# reduce-scatter), and the split BatchNorm layers' two sums each (mean,
+# variance; 51 layers in V2V; the backward as many).  2 ranks: slabs of
+# 32, 16, 8, 4, 2 and 1 planes, every level split (the 2^3 level's k = 3
+# convolutions reach 1 <= 1 plane), nothing gathered; 4 ranks: slabs of
+# 16, 8, 4, 2, 1, the pool from 4^3 (slabs of 1, odd) gathers, and the
+# 2^3 level (encoder_res5, mid_res, decoder_res5: 6 convolutions and BN
+# layers) and the upsample out of it (1 BN) run whole.
+TRAIN_COLLECTIVES = {
+    2: dict(exchanges=41, back_exchanges=41, gathers=0, back_gathers=0,
+            reductions=102, back_reductions=102),
+    4: dict(exchanges=35, back_exchanges=35, gathers=1, back_gathers=1,
+            reductions=88, back_reductions=88)}
+WHOLE_BN = {2: (), 4: ("encoder_decoder.encoder_res5.",
+                       "encoder_decoder.mid_res.",
+                       "encoder_decoder.decoder_res5.",
+                       "encoder_decoder.decoder_upsample5.")}
+
+
+@pytest.mark.parametrize("ranks", [2, 4])
+def test_training_graph_collectives_per_step(meta_model, ranks):
+    for rank in range(ranks):
+        shape, stats, _ = _training_step(meta_model, rank, ranks)
+        assert shape == (TRAIN_B, S // ranks, S, S, J)
+        got = {k: stats[k] for k in TRAIN_COLLECTIVES[ranks]}
+        assert got == TRAIN_COLLECTIVES[ranks], (rank, got)
+
+
+@pytest.mark.parametrize("ranks", [2, 4])
+def test_training_graph_levels(meta_model, ranks):
+    """Every BatchNorm of a split level normalizes this rank's own planes
+    (its input's X extent a level's over the ranks, never a halo-extended
+    one) with the group's statistics; every one of a level run whole, the
+    whole level with its own statistics."""
+    levels = {S >> i for i in range(6)}
+    for rank in range(ranks):
+        _, _, seen = _training_step(meta_model, rank, ranks)
+        assert len(seen) == 51 == sum(isinstance(m, BatchNorm)
+                                      for m in meta_model.modules())
+        for name, (extent, split) in seen.items():
+            whole = name.startswith(WHOLE_BN[ranks])
+            assert split != whole, name
+            assert (extent if whole else extent * ranks) in levels, name

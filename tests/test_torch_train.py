@@ -19,12 +19,17 @@ step is held to the float64 reference within its own rounding.
 """
 
 import contextlib
+import fcntl
 import functools
+import os
+import pathlib
+import pickle
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import optax
+import pytest
 import torch
 
 from lt_tpu.engine import factory as j_factory
@@ -90,13 +95,44 @@ def _lt_tpu_in_float64():
             jnp.float32 = f32
 
 
-@functools.lru_cache(maxsize=None)
-def _jax_step():
-    """lt_tpu's side of one flagship-recipe train step in float64: the
-    model's train apply, compute_losses, the gradients and
-    factory.make_optimizer's Adam, from float32-initialized weights.
-    Returns (config, float32 variables, loss, grads, new stats, new params)
-    with the last three float64."""
+#: The directory of this test run that the pytest-xdist workers share
+#: (set by the ``shared_run_dir`` fixture; None outside xdist).
+SHARED = {"dir": None}
+
+
+@pytest.fixture(scope="module", autouse=True)
+def shared_run_dir(tmp_path_factory):
+    """Under pytest-xdist, the run's temporary directory above each
+    worker's own (pytest keeps the last three runs' and removes older
+    ones), for :func:`_once_per_run`."""
+    if "PYTEST_XDIST_WORKER" in os.environ:
+        SHARED["dir"] = tmp_path_factory.getbasetemp().parent
+
+
+def _once_per_run(name, compute):
+    """``compute()``, computed once per test run and shared by the
+    pytest-xdist workers: the first worker to ask computes it and pickles
+    it into the run's directory (:data:`SHARED`), the others wait for it on
+    a lock and load it (``lt_tpu``'s float64 step costs minutes of a
+    worker, and tests/test_torch_spatial_train.py holds its sharded step to
+    it too).  Outside xdist: computed here."""
+    folder = SHARED["dir"]
+    if folder is None:
+        return compute()
+    path = pathlib.Path(folder) / f"{name}.pkl"
+    with open(path.with_suffix(".lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if path.exists():
+            with open(path, "rb") as f:
+                return pickle.load(f)
+        value = compute()
+        with open(path.with_suffix(".tmp"), "wb") as f:
+            pickle.dump(value, f)
+        os.replace(path.with_suffix(".tmp"), path)
+        return value
+
+
+def _jax_config():
     config = j_cfg.load_config(FLAGSHIP_YAML)
     for k, v in SMALL.items():
         node = config
@@ -104,6 +140,13 @@ def _jax_step():
         for p in parents:
             node = node[p]
         node[leaf] = v
+    return config
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_variables():
+    """lt_tpu's float32-initialized variables of the SMALL model (numpy),
+    the weights of both sides of the step."""
     batch = _batch()
     model = JVolNet(num_joints=J, num_layers=18, volume_size=32,
                     cuboid_side=2500.0, kind="mpii")
@@ -111,9 +154,29 @@ def _jax_step():
         {"params": jax.random.PRNGKey(0), "aug": jax.random.PRNGKey(1)},
         *(jnp.asarray(batch[k][:1]) for k in
           ("images", "proj_matrices", "pred_keypoints_3d")))
-    variables = jax.tree_util.tree_map(np.asarray, dict(variables))
+    return jax.tree_util.tree_map(np.asarray, dict(variables))
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_step():
+    """lt_tpu's side of one flagship-recipe train step in float64: the
+    model's train apply, compute_losses, the gradients and
+    factory.make_optimizer's Adam, from float32-initialized weights.
+    Returns (config, float32 variables, loss, grads, new stats, new params)
+    with the last three float64 (:func:`_once_per_run`)."""
+    return (_jax_config(), _jax_variables()) + _once_per_run(
+        "lt_tpu_float64_step", _jax_step_values)
+
+
+def _jax_step_values():
+    """(loss, grads, new stats, new params) of :func:`_jax_step`."""
+    config = _jax_config()
+    batch = _batch()
+    variables = _jax_variables()
     criterion = j_factory.make_criterion(config)
-    as_np = functools.partial(jax.tree_util.tree_map, np.asarray)
+
+    def as_np(tree):
+        return jax.tree_util.tree_map(np.asarray, jax.device_get(tree))
 
     with _lt_tpu_in_float64():
         model = JVolNet(num_joints=J, num_layers=18, volume_size=32,
@@ -139,14 +202,13 @@ def _jax_step():
         tx = j_factory.make_optimizer(config, var["params"], "vol")
         updates, _ = tx.update(grads, tx.init(var["params"]), var["params"])
         new_params = optax.apply_updates(var["params"], updates)
-        return (config, variables, float(loss), as_np(grads), as_np(stats),
-                as_np(new_params))
+        return (float(loss), as_np(grads), as_np(stats), as_np(new_params))
 
 
 def _port_setup(overrides=None, dtype=torch.float32, **model_kw):
     """The port's model (in ``dtype``), criterion, optimizer and config
     from the same weights as :func:`_jax_step`."""
-    _, variables, *_ = _jax_step()
+    variables = _jax_variables()
     config = cfg.load_config(FLAGSHIP_YAML, {**SMALL, **(overrides or {})})
     model = factory.make_model(config, device="cpu", **model_kw)
     model.load_state_dict(volumetric_state_dict(variables, 18))
