@@ -74,7 +74,13 @@ both on the trained RN-18 backbone fixture (card vs CPU, bfloat16 vs
 float32), the training step of
 experiments/human36m/train/human36m_alg.yaml (batch 8, float32 and
 ``bf16: true``) and one CLI epoch of experiments/synthetic/alg_tiny.yaml
-with its resume.  Last, the
+with its resume.  ``[two stage]``: the two-stage volumetric recipe
+(``lt_tpu_torch/two_stage.py``) cut to 50 stage-1 steps and one stage-2
+epoch of 32 samples: the backbone's checkpoint and ``lt_tpu`` ``.npz``
+(equal to the checkpoint to float16 rounding), stage 2 loading every
+backbone tensor from it, K1, K5, K6 and the float32 eval kernels launched
+and no plain version, finite losses, the exported ``model.npz`` read back
+equal to the trained weights to float16 rounding.  Last, the
 dataset configs through the CLI's ``run``: human36m_vol_softmax.yaml
 --eval at its width (val batch 20, float32) on a Human3.6M tree it
 writes from a seed (1000^2 JPEGs, the reference's labels ``.npy``, a
@@ -742,16 +748,10 @@ def replay(calls, geometry, dev):
     import torch
 
     gen = torch.Generator(device=dev).manual_seed(1)
-    per_kernel, per_entry, distinct = {}, {}, {}
-    for entry, name, args in calls:
-        key = (entry, name) + tuple(bool(a) if i in _PTR_SLOTS[name] else a
-                                    for i, a in enumerate(args))
-        distinct.setdefault(key, [entry, name, args, 0])[3] += 1
-    for entry, name, args, mult in distinct.values():
+    per_kernel, per_entry = {}, {}
+    for entry, name, args, mult in distinct_launches(calls):
         case = make_case(name, args, geometry, dev, gen)
-        tol = (0.0 if name in BIT_EXACT else
-               REL_TOL if _dtype_of(name, args) == torch.float32
-               else REL_TOL_BF16)
+        tol = _tol_of(name, args)
         timer = graph_ms if name in GRAPH_TIMED else cuda_ms
         got, ref = case.run(), case.plain()
         err, rel = check(f"{name}{_shape_str(name, args)}", got, ref, tol)
@@ -798,6 +798,26 @@ def replay(calls, geometry, dev):
         del case
         torch.cuda.empty_cache()
     return per_kernel, per_entry
+
+
+def distinct_launches(calls):
+    """The distinct launches of ``calls`` (a pointer kept only as present
+    or absent): [entry, kernel name, C arguments, count] each."""
+    distinct = {}
+    for entry, name, args in calls:
+        key = (entry, name) + tuple(bool(a) if i in _PTR_SLOTS[name] else a
+                                    for i, a in enumerate(args))
+        distinct.setdefault(key, [entry, name, args, 0])[3] += 1
+    return list(distinct.values())
+
+
+def _tol_of(name, args):
+    """A replayed launch's tolerance against its plain version."""
+    import torch
+
+    return (0.0 if name in BIT_EXACT else
+            REL_TOL if _dtype_of(name, args) == torch.float32
+            else REL_TOL_BF16)
 
 
 # Argument slots that are pointers (kept as present / absent in the key).
@@ -3639,6 +3659,227 @@ def save_ddp_pth(model, path):
                path)
 
 
+TWO_STAGE_BB_STEPS = 50     # [two stage]: stage-1 steps
+TWO_STAGE_SAMPLES = 32      # [two stage]: stage-2 training samples, 1 epoch
+
+
+def _same_to_float16(what, got, src):
+    """Every entry of ``got`` (read back from an ``lt_tpu`` .npz) equal to
+    ``src``'s: the BatchNorm statistics exactly, the rest to float16
+    rounding; the BatchNorm counters are not compared."""
+    import torch
+
+    bad = sorted(set(got) ^ set(src))
+    for k, v in got.items():
+        if k in src and not k.endswith("num_batches_tracked"):
+            want = src[k].float().cpu()
+            if not k.endswith(("running_mean", "running_var")):
+                want = want.half().float()
+            if not torch.equal(v.float().cpu(), want):
+                bad.append(k)
+    if bad or not got:
+        raise AssertionError(f"{what}: {len(bad)} of {len(got)} entries "
+                             f"missing or differing from the weights "
+                             f"written: {bad[:5]}")
+
+
+# K1, K5 and K6 by the names the training forward, its backward and the
+# eval forward call them through in ops/kernels/unproject.py.
+TRAIN_WRAPPERS = ("unproject_agg", "sample_views_t", "sample_views_grad_t")
+
+
+@contextlib.contextmanager
+def capture_inputs():
+    """While the block runs, keep the inputs of the first call of each
+    distinct signature (tensor shapes and types, every other argument) of
+    TRAIN_WRAPPERS; yields {signature: [name, arguments by name (tensors
+    cloned), calls]}."""
+    import inspect
+
+    import torch
+
+    from lt_tpu_torch.ops.kernels import unproject
+
+    seen, saved = {}, {}
+
+    def spy(name, fn):
+        sig = inspect.signature(fn)
+
+        def wrapped(*a, **k):
+            bound = sig.bind(*a, **k)
+            bound.apply_defaults()
+            key = (name,) + tuple(
+                (tuple(v.shape), v.dtype) if torch.is_tensor(v) else repr(v)
+                for v in bound.arguments.values())
+            if key not in seen:
+                seen[key] = [name, {
+                    n: v.detach().clone() if torch.is_tensor(v) else v
+                    for n, v in bound.arguments.items()}, 0]
+            seen[key][2] += 1
+            return fn(*a, **k)
+        return wrapped
+
+    for name in TRAIN_WRAPPERS:
+        saved[name] = getattr(unproject, name)
+        setattr(unproject, name, spy(name, saved[name]))
+    try:
+        yield seen
+    finally:
+        for name, fn in saved.items():
+            setattr(unproject, name, fn)
+
+
+def hold_path_launches(seen, calls, launches, dev):
+    """A run's kernels against their plain versions at the run's shapes:
+    each distinct call of K1, K5 and K6 in ``seen`` (capture_inputs) on
+    its own inputs, and each distinct launch of the other kernels in
+    ``calls`` (record_launches) on random inputs of its shapes, as
+    [kernels] replays them; REL_TOL in float32 (BIT_EXACT kernels to the
+    bit).  The captured calls must account for every launch of K1, K5 and
+    K6 in ``launches``.  Returns the number of distinct shapes held."""
+    import torch
+
+    from lt_tpu_torch.ops.kernels import sample, unproject
+
+    pairs = {"unproject_agg": (unproject.unproject_agg,
+                               unproject.unproject_agg_plain),
+             "sample_views_t": (sample.sample_views_t,
+                                sample.sample_views_t_plain),
+             "sample_views_grad_t": (sample.sample_views_grad_t,
+                                     sample.sample_views_grad_t_plain)}
+    counted = dict.fromkeys(TRAIN_WRAPPERS, 0)
+    for name, args, n in seen.values():
+        counted[name] += n
+    if counted != {k: launches[k] for k in TRAIN_WRAPPERS}:
+        raise AssertionError(f"captured calls {counted} != launches "
+                             f"{ {k: launches[k] for k in TRAIN_WRAPPERS} }")
+    for name, args, n in seen.values():
+        kernel, plain = pairs[name]
+        ref = plain(**{k: v for k, v in args.items() if k != "plan"})
+        tol = REL_TOL if ref.dtype == torch.float32 else REL_TOL_BF16
+        shapes = ", ".join(
+            f"{k} {tuple(v.shape)}" if torch.is_tensor(v) else f"{k} {v}"
+            for k, v in args.items() if v is not None)
+        err, rel = check(f"{name}({shapes})", kernel(**args), ref, tol)
+        log(f"  {name}({shapes}) x{n}: its own inputs, max_abs_err "
+            f"{err:.3e} rel {rel:.3e} (limit {tol})")
+    gen = torch.Generator(device=dev).manual_seed(1)
+    others = distinct_launches([c for c in calls
+                                if c[1] not in TRAIN_WRAPPERS])
+    for entry, name, args, n in others:
+        case = make_case(name, args, None, dev, gen)
+        tol = _tol_of(name, args)
+        with deterministic_cudnn():     # the plain convolutions in float32
+            err, rel = check(f"{name}{_shape_str(name, args)}", case.run(),
+                             case.plain(), tol)
+        log(f"  {entry}: {name}{_shape_str(name, args)} x{n}: random inputs"
+            f" of its shapes, max_abs_err {err:.3e} rel {rel:.3e} (limit "
+            f"{tol})")
+        del case
+    torch.cuda.empty_cache()
+    return len(seen) + len(others)
+
+
+def two_stage_phase(dev):
+    """The two-stage recipe cut to TWO_STAGE_BB_STEPS stage-1 steps and one
+    stage-2 epoch of TWO_STAGE_SAMPLES samples on the card, then every
+    kernel stage 2 launched held against its plain version at the shapes
+    stage 2 gave it (hold_path_launches): returns the kernels' launches in
+    stage 2, whose counts were set to 0 just before it."""
+    import io
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from lt_tpu_torch import two_stage
+    from lt_tpu_torch.engine import checkpoint as ckpt
+    from lt_tpu_torch.models.triangulation import VolumetricTriangulationNet
+    from lt_tpu_torch.ops.kernels import _build
+    from lt_tpu_torch.utils import weights
+
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as out:
+        t0 = time.perf_counter()
+        text = io.StringIO()
+        with contextlib.redirect_stdout(text):
+            bb_npz = two_stage.stage1(TWO_STAGE_BB_STEPS, out, device=dev)
+        secs1 = time.perf_counter() - t0
+        for line in text.getvalue().splitlines():
+            log(f"  stage 1: {line}")
+        stage1 = [json.loads(x) for x in
+                  open(Path(out, "backbone2d", "metrics.jsonl"))]
+        if not np.isfinite([r["loss"] for r in stage1]).all():
+            raise AssertionError(f"stage 1: non-finite losses {stage1}")
+        state = ckpt.load_model_state(ckpt.resolve_checkpoint_dir(
+            str(Path(out, "backbone2d"))))
+        bb = weights.backbone_state_dict(weights.load_npz_variables(bb_npz),
+                                         two_stage.NUM_LAYERS)
+        _same_to_float16("backbone.npz", bb, state)
+
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        text, result = io.StringIO(), []
+        with count_plain() as plain, capture_inputs() as seen, \
+                contextlib.redirect_stdout(text):
+            calls = record_launches(lambda: result.append(two_stage.stage2(
+                bb_npz, 1, TWO_STAGE_SAMPLES, out, device=dev)))
+        torch.cuda.synchronize()
+        (metric, vol_dir), = result
+        secs2 = time.perf_counter() - t0
+        launches = dict(_build.LAUNCHES)
+        lines = text.getvalue().splitlines()
+        for line in lines:
+            log(f"  stage 2: {line}")
+        log(f"  stage 2 launches: "
+            f"{ {k: v for k, v in launches.items() if v} }")
+        n_bb = len(VolumetricTriangulationNet(
+            num_layers=two_stage.NUM_LAYERS, volume_size=32,
+            device="cpu").backbone.state_dict())
+        loaded = [re.search(r"Loaded backbone weights from .*: (\d+) "
+                            r"tensors", x) for x in lines]
+        loaded = [int(m.group(1)) for m in loaded if m]
+        if loaded != [n_bb]:
+            raise AssertionError(f"stage 2 loaded {loaded} backbone tensors, "
+                                 f"want [{n_bb}]")
+        missing = [k for k in TRAIN_KERNELS + EVAL_KERNELS["float32"]
+                   if not launches[k]]
+        used_plain = {k: v for k, v in plain.items() if v}
+        if missing or used_plain:
+            raise AssertionError(f"stage 2: kernels never launched "
+                                 f"{missing}, plain versions run "
+                                 f"{used_plain}")
+        records = [json.loads(x) for x in open(Path(vol_dir, "metrics.jsonl"))]
+        train = [r for r in records if r["tag"] == "train"]
+        losses = [r["total_loss"] for r in train]
+        if (len(train) != TWO_STAGE_SAMPLES // 8
+                or not np.isfinite(losses + [metric]).all()):
+            raise AssertionError(f"stage 2: {len(train)} steps, losses "
+                                 f"{losses}, metric {metric}")
+        net = VolumetricTriangulationNet(num_layers=two_stage.NUM_LAYERS,
+                                         volume_size=32, device="cpu")
+        weights.load_volumetric_npz(net, str(Path(vol_dir, "model.npz")),
+                                    two_stage.NUM_LAYERS)
+        _same_to_float16("model.npz", net.state_dict(),
+                         ckpt.load_model_state(ckpt.resolve_checkpoint_dir(
+                             vol_dir)))
+    t0 = time.perf_counter()
+    n_held = hold_path_launches(seen, calls, launches, dev)
+    secs_held = time.perf_counter() - t0
+    log(f"[two stage] stage 1: {TWO_STAGE_BB_STEPS} steps in {secs1:.1f} s, "
+        f"loss {stage1[0]['loss']:.5f} -> {stage1[-1]['loss']:.5f}, argmax "
+        f"error {stage1[0]['argmax_err']:.2f} -> "
+        f"{stage1[-1]['argmax_err']:.2f} heatmap px; backbone.npz = its "
+        f"checkpoint to float16 rounding; stage 2: one epoch of "
+        f"{TWO_STAGE_SAMPLES} samples in {secs2:.1f} s, {n_bb} backbone "
+        f"tensors loaded, total_loss {losses[0]:.3f} -> {losses[-1]:.3f}, val "
+        f"MPJPE rel {metric:.1f} mm, no plain version run, model.npz = the "
+        f"trained weights to float16 rounding; its {n_held} distinct kernel "
+        f"shapes held against their plain versions in {secs_held:.1f} s")
+    return {k: launches[k] for k in dict.fromkeys(
+        TRAIN_KERNELS + EVAL_KERNELS["float32"])}
+
+
 H36M_EVAL_YAML = "experiments/human36m/eval/human36m_vol_softmax.yaml"
 CMU_EVAL_YAML = "experiments/cmu_panoptic/eval/cmu_vol_softmax.yaml"
 DATA_SEED = 42          # run()'s seed: the model's weights and the order
@@ -4560,6 +4801,10 @@ def main(argv=None) -> int:
 
     # Phase 9: the CLI's run on the synthetic config, one epoch, then resume.
     train_cli(dev)
+    # Phase 9a: the two-stage recipe, cut to a smoke run.
+    log(f"[two stage] lt_tpu_torch.two_stage: {TWO_STAGE_BB_STEPS} stage-1 "
+        f"steps, one stage-2 epoch of {TWO_STAGE_SAMPLES} samples")
+    add_path("two_stage", two_stage_phase(dev))
 
     # Phase 9b: data parallelism (one NCCL rank; two gloo ranks on the
     # card) and the training panels.
